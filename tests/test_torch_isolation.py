@@ -1,0 +1,101 @@
+"""Isolation of the PyTorch port: every module of empanada_tpu_torch, and
+chip_smoke.py, imports with jax, flax and empanada_tpu blocked; the entry
+points default to CUDA and raise, naming device="cpu", when there is no GPU;
+chip_smoke.py fails without a GPU and without the package beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from empanada_tpu_torch import resolve_device
+from empanada_tpu_torch.api import init_model_from_config, load_config
+from empanada_tpu_torch.api.utils import CONFIG_DIR
+from empanada_tpu_torch.engine import PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d
+from empanada_tpu_torch.models import create_model
+
+from _torch_port import SMALL_PR
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORTS = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    for m in list(sys.modules):
+        if m.split(".")[0] in BLOCKED:
+            del sys.modules[m]
+
+    import empanada_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(empanada_tpu_torch.__path__,
+                                                   "empanada_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("imported", len(names), "modules")
+""")
+
+
+def _run(args, cwd):
+    env = dict(os.environ)
+    if cwd == REPO:
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[1])
+    assert n >= 20  # every module of the slice, not an empty walk
+
+
+def test_config_is_the_ports_own():
+    assert os.path.commonpath([CONFIG_DIR, os.path.join(REPO, "empanada_tpu_torch")]) == \
+        os.path.join(REPO, "empanada_tpu_torch")
+    cfg = load_config("MitoNet_v1")
+    assert cfg["arch"] == "PanopticDeepLabPR"
+    assert cfg["model_kwargs"]["encoder"] == "resnet50"
+    assert cfg["model_kwargs"]["subdivision_num_points"] == 8192
+
+
+def test_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model("PanopticDeepLabPR", **SMALL_PR)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model_from_config(load_config("MitoNet_v1"), seed=0)
+    model = create_model("PanopticDeepLabPR", device="cpu", **SMALL_PR)
+    for engine in (PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine(model, thing_list=[1])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_gpu_or_the_package(alone, tmp_path):
+    if alone:
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run(["chip_smoke.py"], str(tmp_path) if alone else REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    if not torch.cuda.is_available():
+        assert "torch.cuda.is_available() is false" in proc.stderr
