@@ -6,30 +6,48 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the PointRend refine kernel (csrc/pointrend_refine.cu)
-   with nvcc and prints the build seconds and ptxas' resource report;
-3. kernel vs plain: the kernel against its plain PyTorch version on the
-   card at MitoNet_v1's shapes (N = 1 and 8, steps sf = 2 and 4, F = 256,
-   K = 8192, bf16) and at a ragged geometry (partial edge tiles), each at
-   the real threshold, all-skip and all-refine;
-4. main path: MitoNet_v1 at full width (seeded random weights, random BN
+2. build: compiles the two CUDA sources (csrc/pointrend_refine.cu and
+   csrc/refine_profile.cu, one nvcc each, started together), then the host
+   C++ library (csrc/core_kernels.cpp), and prints the build seconds and
+   ptxas' resource reports;
+3. kernel vs plain: the refine kernel against its plain PyTorch version on
+   the card at MitoNet_v1's shapes (N = 1, 8 and 32, steps sf = 2 and 4,
+   F = 256, K = 8192, bf16) and at a ragged geometry (partial edge tiles),
+   each at the real threshold, all-skip and all-refine;
+4. refine profile: at B = 8, up (8, 512, 512, 1), features
+   (8, 128, 128, 256), sf = 4 and MitoNet_v1's point head, the profiling
+   kernels (tile copy, gated tile copy with and without the refine
+   kernel's shared memory reserved, the refine step cut after the gather
+   and after the interpolation) against their plain versions, then their
+   CUDA-event times beside their bounds, with the whole step at all-skip
+   and all-refine;
+5. main path: MitoNet_v1 at full width (seeded random weights, random BN
    statistics, bf16) serves four 512 x 512 uint8 requests and one 600 x 700
    request through PanopticDeepLabRenderEngine, and a 7-slice stack through
    PanopticDeepLabRenderEngine3d; the refine kernel must launch twice per
    slice; the kernel is compared with its plain version on one request's
    real features; the f32 engine on the card is held to the f32 engine on
    the CPU on a small request;
-5. times: CUDA-event times of the engine and its stages (trunk, PointRend,
+6. times: CUDA-event times of the engine and its stages (trunk, PointRend,
    postprocess; device busy time from torch.profiler), of each refine step
    (kernel, plain version, and the whole step through the kernel against
    the fused_render="never" torch path, in turns) and each step's bound,
-   printed as JSON.
+   printed as JSON;
+7. 3D: a seeded 64 x 512 x 512 uint8 volume through
+   MultiChipEngine3d.infer_on_axis(vol, "xy") at the engine's auto batch
+   and at B = 8 (2 refine launches per batch; the kernel against its plain
+   version on the first batch's real inputs of both steps; instances;
+   dropped NMS centers), with slices/s, Mvox/s, the host stage split and the device's
+   busy share; then in float32 a 16 x 256 x 256 volume: the batched
+   engine's per-slice maps against PanopticDeepLabRenderEngine3d's on the
+   card, and its filled panoptic stack against a CPU run.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
 script imports the port from its own directory).
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -38,9 +56,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s,
+# float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 K_POINTS = 8192
 
 
@@ -89,11 +109,14 @@ def cuda_ms(fn, iters, warmup=2):
 def compare_refine(prr, up, thr, feats, coarse, wts):
     """Kernel vs plain version on the same inputs: the mask and every
     copied-through pixel bit-exact, refined pixels within the tolerance of
-    tests/test_pointrend_fused.py.  Returns (max abs error, refined share)."""
+    tests/test_pointrend_fused.py.  Returns (max abs error, refined share).
+    The plain version runs 8 images at a time, to bound its memory."""
     import torch
 
     got = prr.launch(up, thr, feats, coarse, wts).float()
-    want = prr.refine_reference(up, thr, feats, coarse, wts).float()
+    want = torch.cat([prr.refine_reference(up[i:i + 8], thr[i:i + 8], feats[i:i + 8],
+                                           coarse[i:i + 8], wts)
+                      for i in range(0, len(up), 8)]).float()
     torch.cuda.synchronize()
     mask = up.float().abs() <= thr[:, None, None, None]
     check(torch.equal(got[~mask], up.float()[~mask]), "copy-through pixels differ from up")
@@ -193,6 +216,328 @@ def stage_times(engine, model, image, engine_ms):
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
+def device_ms(fn, iters, match=""):
+    """Mean device milliseconds per call of ``fn()`` from torch.profiler:
+    the self device time of the kernels and copies whose name holds
+    ``match`` ("" counts every device activity), after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and match in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            total += getattr(e, "self_cuda_time_total", 0) if t is None else t
+    check(total > 0, f"torch.profiler saw no device time for {match or 'the calls'}")
+    return total / 1e3 / iters
+
+
+def bound(nbytes, flops=0.0, flop_rate=BF16_FLOP_PER_S):
+    """Least time (ms) of a function that moves ``nbytes`` and does
+    ``flops`` at ``flop_rate``: (bound_ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def abs_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def compare_cut(got, want, up, thr):
+    """A refine cut against its plain version: skipped pixels bit-exact
+    (copied through); selected pixels within one bf16 rounding of a float32
+    channel sum taken in another order (rtol 2^-7, atol 1e-3)."""
+    import torch
+
+    mask = up.float().abs() <= thr[:, None, None, None]
+    check(torch.equal(got[~mask], up[~mask]), "cut: skipped pixels differ from up")
+    g, w = got[mask].float(), want[mask].float()
+    check(bool(torch.isfinite(g).all()), "cut output not finite")
+    bad = (g - w).abs() > 2.0 ** -7 * w.abs() + 1e-3
+    check(not bad.any(), f"cut: {int(bad.sum())} selected pixels off, max |err| "
+          f"{abs_err(g, w):.4g}")
+    return abs_err(g, w)
+
+
+def refine_profile(prr, rp, gen, head, dev):
+    """Phase 4: the profiling kernels at B = 8, sf = 4, MitoNet_v1's point
+    head.  Returns (kernel entries for the JSON line, the times' dict)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    wts = head.fused_weights(256)
+    feats = torch.randn(8, 128, 128, 256, generator=gen).to(dev, bf16)
+    coarse = (1.5 * torch.randn(8, 128, 128, 1, generator=gen)).to(dev, bf16)
+    sem = (1.5 * torch.randn(8, 256, 256, 1, generator=gen)).to(dev, bf16)
+    up, thr_k = prr.step_inputs(sem, K_POINTS)
+    skip = torch.full_like(thr_k, -1.0)
+    refine = torch.full_like(thr_k, float("inf"))
+    x = up[..., 0]
+    reserve = (256, 256)
+    errs = {"tile_copy": 0.0, "gated_tile_copy": 0.0, "refine_gather": 0.0,
+            "refine_interp": 0.0}
+
+    # each kernel against its plain version (these launches are not counted)
+    ragged = torch.randn(2, 300, 700, generator=gen).to(dev, bf16)
+    for t, th in ((x, thr_k), (ragged, torch.tensor([0.01, -1.0], device=dev))):
+        check(torch.equal(rp.tile_copy(t), rp.tile_copy_reference(t)), "tile_copy differs")
+        for thr in (th, torch.full_like(th, -1.0), torch.full_like(th, float("inf"))):
+            want = rp.gated_tile_copy_reference(t, thr)
+            for res in (None, reserve):
+                check(torch.equal(rp.gated_tile_copy(t, thr, res), want),
+                      f"gated_tile_copy differs (reserve={res})")
+    for thr in (thr_k, refine):
+        for phase in ("gather", "interp"):
+            fn = rp.refine_gather if phase == "gather" else rp.refine_interp
+            got = fn(up, thr, feats, coarse, wts)
+            want = rp.refine_phase_reference(phase, up, thr, feats, coarse)
+            torch.cuda.synchronize()
+            errs[f"refine_{phase}"] = max(errs[f"refine_{phase}"],
+                                          compare_cut(got, want, up, thr))
+    print("refine profile: every kernel agrees with its plain version "
+          f"(max |err| {json.dumps(errs)})", flush=True)
+
+    # the profiling path: times on the card, launches counted.  Each item is
+    # timed twice: CUDA events around back-to-back calls (event_ms: what a
+    # caller waits, host overhead included when a call is shorter than its
+    # launch) and torch.profiler's device time per call (device_ms: of the
+    # kernels whose name holds the match, "" = every device activity)
+    for k in rp.launches:
+        rp.launches[k] = 0
+    prr.launches.update(gather=0, interp=0)
+    xs = [x.clone() for _ in range(8)]  # 8 x 4.2 MB in, as much out: past L2
+    cyc = itertools.cycle(xs)
+    n_px = x.numel()
+    feat_bytes = feats.numel() * 2
+    items = {
+        "copy": (lambda: rp.tile_copy(next(cyc)), 50, "tile_copy_kernel"),
+        "copy_library": (lambda: torch.empty_like(x).copy_(next(cyc)), 50, ""),
+        "copy_plain": (lambda: rp.tile_copy_reference(next(cyc)), 50, ""),
+        "gated_plain": (lambda: rp.gated_tile_copy_reference(next(cyc), refine), 5, ""),
+        "full_skip": (lambda: prr.launch(up, skip, feats, coarse, wts), 20, "refine_kernel<2>"),
+        "full_refine": (lambda: prr.launch(up, refine, feats, coarse, wts), 5,
+                        "refine_kernel<2>"),
+    }
+    for name, thr in (("skip", skip), ("refine", refine)):
+        for rname, res in (("", None), ("_reserved", reserve)):
+            items[f"gated_{name}{rname}"] = (
+                lambda thr=thr, res=res: rp.gated_tile_copy(next(cyc), thr, res), 50,
+                "gated_tile_copy_kernel<true>" if res else "gated_tile_copy_kernel<false>")
+    for phase, fn, kname in (("gather", rp.refine_gather, "refine_kernel<0>"),
+                             ("interp", rp.refine_interp, "refine_kernel<1>")):
+        items[f"{phase}_refine"] = (lambda fn=fn: fn(up, refine, feats, coarse, wts), 20, kname)
+        items[f"{phase}_plain"] = (lambda phase=phase: rp.refine_phase_reference(
+            phase, up, refine, feats, coarse), 2, "")
+    t = {}
+    for name, (fn, iters, match) in items.items():
+        t[name] = {"event_ms": cuda_ms(fn, iters, warmup=1),
+                   "device_ms": device_ms(fn, iters, match)}
+    torch.cuda.synchronize()
+    launches = dict(rp.launches, refine_gather=prr.launches["gather"],
+                    refine_interp=prr.launches["interp"])
+    check(all(v > 0 for v in launches.values()), f"profiling kernels not launched: {launches}")
+
+    # bounds: each input read once, each output written once; at all-refine
+    # every feature pixel is a tap of some selected point
+    copy_bytes = 2 * n_px * 2
+    flop_pt = 2 * 257 * 256 + 2 * (2 * 257 * 256) + 2 * 257  # point MLP, F = D = 256
+    b = {
+        "copy": bound(copy_bytes),
+        "gated": bound(copy_bytes + thr_k.numel() * 4),
+        "full_skip": bound(copy_bytes + thr_k.numel() * 4),
+        "full_refine": bound(copy_bytes + feat_bytes + coarse.numel() * 2
+                             + prr.pack_weights(wts).numel() * 2, n_px * flop_pt),
+        "gather": bound(copy_bytes + feat_bytes, n_px * 256, FP32_FLOP_PER_S),
+        # three lerps (2 mul + 1 add each) and the channel sum, per channel
+        "interp": bound(copy_bytes + feat_bytes + coarse.numel() * 2, n_px * 256 * 10,
+                        FP32_FLOP_PER_S),
+    }
+    t["bounds_ms"] = {k: v[0] for k, v in b.items()}
+    t["bound_by"] = {k: v[1] for k, v in b.items()}
+    t["launches"] = launches
+    t["tile_share_kth"] = tile_share(up, thr_k)
+    src = "empanada_tpu_torch/csrc/refine_profile.cu"
+    cut_src = "empanada_tpu_torch/csrc/pointrend_refine.cu"
+    entries = [
+        dict(name="tile_copy", route="cuda", source=src,
+             replaces="benchmarks/profile_overhead.py:24", launches=launches["tile_copy"],
+             max_abs_err=errs["tile_copy"], ms=t["copy"]["device_ms"],
+             plain_ms=t["copy_plain"]["device_ms"], bound_ms=b["copy"][0],
+             bound_by=b["copy"][1], library_ms=t["copy_library"]["device_ms"],
+             per="(8, 512, 512) bf16"),
+        dict(name="gated_tile_copy", route="cuda", source=src,
+             replaces="benchmarks/profile_overhead.py:27", launches=launches["gated_tile_copy"],
+             max_abs_err=errs["gated_tile_copy"], ms=t["gated_refine"]["device_ms"],
+             plain_ms=t["gated_plain"]["device_ms"], bound_ms=b["gated"][0],
+             bound_by=b["gated"][1],
+             library_ms=None, per="(8, 512, 512) bf16, every tile gated, no reservation"),
+        dict(name="refine_gather", route="cuda", source=cut_src,
+             replaces="benchmarks/profile_refine_parts.py:36", launches=launches["refine_gather"],
+             max_abs_err=errs["refine_gather"], ms=t["gather_refine"]["device_ms"],
+             plain_ms=t["gather_plain"]["device_ms"], bound_ms=b["gather"][0],
+             bound_by=b["gather"][1],
+             library_ms=None, per="B = 8, 512 x 512 from 128 x 128 x 256, all-refine"),
+        dict(name="refine_interp", route="cuda", source=cut_src,
+             replaces="benchmarks/profile_refine_parts.py:36", launches=launches["refine_interp"],
+             max_abs_err=errs["refine_interp"], ms=t["interp_refine"]["device_ms"],
+             plain_ms=t["interp_plain"]["device_ms"], bound_ms=b["interp"][0],
+             bound_by=b["interp"][1],
+             library_ms=None, per="B = 8, 512 x 512 from 128 x 128 x 256, all-refine"),
+    ]
+    return entries, t
+
+
+def blob_volume(shape, n_blobs, seed):
+    """Seeded EM-like uint8 volume: dark 3D Gaussian blobs on noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vol = rng.normal(0.5, 0.08, size=shape).astype(np.float32)
+    for _ in range(n_blobs):
+        c = [rng.integers(0, s) for s in shape]
+        sig = [rng.uniform(2, 6)] + [rng.uniform(min(shape[1:]) * 0.015,
+                                                 min(shape[1:]) * 0.04)] * 2
+        lo = [max(0, int(ci - 3 * si)) for ci, si in zip(c, sig)]
+        hi = [min(s, int(ci + 3 * si) + 1) for s, ci, si in zip(shape, c, sig)]
+        grids = np.ogrid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        d2 = sum((g - ci) ** 2 / (2 * si ** 2) for g, ci, si in zip(grids, c, sig))
+        vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] -= 0.4 * np.exp(-d2)
+    return (np.clip(vol, 0, 1) * 255).astype(np.uint8)
+
+
+def sweep_3d(prr, engine, vol, n_timed=2):
+    """Phase 7 at one batch size: a warm-up sweep that keeps the first
+    batch's inputs of both refine steps (the kernel is then held against its
+    plain version on them), timed sweeps (the refine launches counted over
+    the last), then one under torch.profiler for the device's busy time."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch, captured = prr.launch, []
+
+    def keep_inputs(*args):
+        if len(captured) < 2:
+            captured.append(args)
+        return launch(*args)
+
+    prr.launch = keep_inputs
+    try:
+        engine.infer_on_axis(vol, "xy")
+    finally:
+        prr.launch = launch
+    check(len(captured) == 2,
+          f"3D: the warm-up sweep kept {len(captured)} refine steps' inputs, not 2")
+    checks = []
+    for sf, (up, thr, feats, coarse, wts) in zip((2, 4), captured):
+        err, share = compare_refine(prr, up, thr, feats, coarse, wts)
+        checks.append({"sf": sf, "shape": list(up.shape), "max_abs_err": err,
+                       "refined_share": share})
+        print(f"kernel vs plain on a 3D batch's real inputs: N={len(up)} sf={sf}: "
+              f"refined {share:.4f}, max |err| {err:.4g}", flush=True)
+    del captured
+    walls = []
+    for _ in range(n_timed):
+        prr.launches["full"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stack, trackers = engine.infer_on_axis(vol, "xy")
+        walls.append(time.perf_counter() - t0)
+        launches = prr.launches["full"]
+    stages = engine.last_timing
+    b = engine.last_batch_size
+    n_batches = -(-vol.shape[0] // b)
+    check(launches == 2 * n_batches,
+          f"3D B={b}: refine launched {launches} times for {n_batches} batches")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.infer_on_axis(vol, "xy")
+        torch.cuda.synchronize()
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            busy += (getattr(e, "self_cuda_time_total", 0) if t is None else t) / 1e6
+    # calls that make the host wait for the card (torch's sync debug mode
+    # warns on each: blocking copies, .item(), event waits)
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        engine.infer_on_axis(vol, "xy")
+    torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    wall = sorted(walls)[len(walls) // 2]
+    n_inst = sum(len(t.instances) for t in trackers)
+    check(n_inst > 0, f"3D B={b}: no instance tracked")
+    check(stack is not None and stack.shape == vol.shape and stack.dtype.name == "int32",
+          "3D: filled panoptic stack missing or malformed")
+    ids = np.unique(stack[stack > 0])
+    check(np.isin(ids, list(trackers[0].instances)).all(),
+          "3D: the filled stack holds ids that no tracker has")
+    return {"batch": b, "n_batches": n_batches, "refine_launches": launches,
+            "kernel_vs_plain": checks,
+            "wall_s": walls, "slices_per_s": vol.shape[0] / wall,
+            "mvox_per_s": vol.size / wall / 1e6, "instances": n_inst,
+            "dropped_centers": engine.last_overflow,
+            "device_busy_s": busy if busy > 0 else "not measured",
+            "device_busy_share": busy / wall if busy > 0 else "not measured",
+            "host_syncs_per_batch": syncs / n_batches,
+            "stages_s": {k: v["total_s"] for k, v in stages.items()}}
+
+
+def f32_volume_check(cfg, engine_kw, MultiChipEngine3d, Engine3d, init_model):
+    """Phase 7, float32: a 16 x 256 x 256 volume.  The batched engine's
+    per-slice maps against PanopticDeepLabRenderEngine3d's on the card (the
+    same normalised slices), and the filled stack against a CPU run."""
+    import numpy as np
+    import torch
+
+    vol = blob_volume((16, 256, 256), 20, seed=11)
+    gpu_model = init_model(cfg, seed=1, device="cuda", dtype=torch.float32)
+    cpu_model = init_model(cfg, seed=1, device="cpu", dtype=torch.float32)
+    eng = MultiChipEngine3d(cfg, gpu_model, **engine_kw)
+    maps = []
+    post = eng._post_batch
+
+    def keep_maps(*args, **kw):
+        out = post(*args, **kw)
+        maps.append(out[0].cpu())
+        return out
+
+    eng._post_batch = keep_maps
+    stack_gpu, _ = eng.infer_on_axis(vol, "xy")
+    batched = torch.cat(maps)[:len(vol)].numpy()
+
+    e3 = Engine3d(gpu_model, median_kernel_size=eng.ks, thing_list=cfg["thing_list"],
+                  label_divisor=eng.label_divisor, stuff_area=eng.stuff_area,
+                  void_label=eng.void_label, nms_threshold=eng.nms_threshold,
+                  nms_kernel=eng.nms_kernel, confidence_thr=eng.confidence_thr,
+                  padding_factor=eng.padding_factor, max_centers=eng.max_centers)
+    with torch.no_grad():
+        xs = eng.normalize(torch.from_numpy(vol).cuda(), 255.0)[..., 0].cpu().numpy()
+    ref = [m for m in (e3(x[None], x.shape) for x in xs) if m is not None] + e3.end()
+    ref = np.stack(ref)
+    same = float((batched == ref).mean())
+    check(same == 1.0, f"f32 3D: batched maps agree with the render engine on {same:.6f} "
+          "of pixels, not all")
+    stack_cpu, _ = MultiChipEngine3d(cfg, cpu_model, device="cpu",
+                                     **engine_kw).infer_on_axis(vol, "xy")
+    agree = float((stack_gpu == stack_cpu).mean())
+    check(agree >= 0.999, f"f32 3D: card and CPU stacks agree on {agree:.5f} of voxels")
+    return {"maps_equal_share": same, "maps_differing_pixels": int((batched != ref).sum()),
+            "stack_card_vs_cpu_share": agree,
+            "instances_card": len(np.unique(stack_gpu)) - 1,
+            "instances_cpu": len(np.unique(stack_cpu)) - 1}
+
+
 def main():
     import torch
 
@@ -213,6 +558,7 @@ def main():
 
     from empanada_tpu_torch import fp32_strict
     from empanada_tpu_torch.api import Preprocessor, init_model_from_config, load_config
+    from empanada_tpu_torch.core import native
     from empanada_tpu_torch.engine import (
         PanopticDeepLabRenderEngine,
         PanopticDeepLabRenderEngine3d,
@@ -220,19 +566,27 @@ def main():
     from empanada_tpu_torch.models.point_rend import StandardPointHead
     from empanada_tpu_torch.ops import _build
     from empanada_tpu_torch.ops import pointrend_refine as prr
+    from empanada_tpu_torch.ops import refine_profile as rp
+    from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     t_start = time.perf_counter()
 
-    # ---- 2. build
+    # ---- 2. build: one compiler process per CUDA source, all started
+    # together, then the host library; a failed build raises
     t0 = time.perf_counter()
-    _build.load("pointrend_refine")
-    info = _build.build_info("pointrend_refine")
-    print(f"build: pointrend_refine in {time.perf_counter() - t0:.1f} s -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    cuda_srcs = ("pointrend_refine", "refine_profile")
+    _build.load_all(cuda_srcs)
+    native.load()
+    print(f"build: {', '.join(cuda_srcs)} and the host library in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in cuda_srcs:
+        info = _build.build_info(name)
+        print(f"  {name}: {info['path']}")
+        for line in info["log"].splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
+                print(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernel vs plain on the card, MitoNet_v1 shapes
     gen = torch.Generator().manual_seed(0)
@@ -244,7 +598,7 @@ def main():
     wts = head.fused_weights(256)
     n_weights = prr.pack_weights(wts).numel()
     max_err = 0.0
-    for n in (1, 8):
+    for n in (1, 8, 32):  # a 2D request, B = 8, the 3D engine's auto batch
         feats = torch.randn(n, 128, 128, 256, generator=gen).to(dev, bf16)
         coarse = (1.5 * torch.randn(n, 128, 128, 1, generator=gen)).to(dev, bf16)
         for hc in (128, 256):  # step 1 (sf 2) and step 2 (sf 4)
@@ -272,7 +626,11 @@ def main():
             print(f"kernel vs plain, ragged: N=2 ({2 * h}, {2 * w}) thr={name}: "
                   f"refined {share:.4f}, max |err| {err:.4g}", flush=True)
 
-    # ---- 4. main path: MitoNet_v1 at full width through the engines
+    # ---- 4. refine profile: the profiling kernels, then their times
+    profile_entries, profile_times = refine_profile(prr, rp, gen, head, dev)
+    print("refine profile: " + json.dumps(profile_times), flush=True)
+
+    # ---- 5. main path: MitoNet_v1 at full width through the engines
     cfg = load_config("MitoNet_v1")
     model = init_model_from_config(cfg, seed=0, device="cuda", dtype=bf16)
     check(model.semantic_pr.fused_render == "auto", "main path must run fused_render='auto'")
@@ -286,12 +644,12 @@ def main():
     requests.append(blob_image((600, 700), 50, 4))
     stack = [blob_image((512, 512), 40, 100 + z) for z in range(7)]
 
-    prr.refine_launches = 0
+    prr.launches["full"] = 0
     maps = [engine(pre(img)["image"], img.shape) for img in requests]
     maps3d = [engine3d(pre(img)["image"], img.shape) for img in stack]
     maps3d = [m for m in maps3d if m is not None] + engine3d.end()
     torch.cuda.synchronize()
-    launches = prr.refine_launches
+    launches = prr.launches["full"]
 
     n_slices = len(requests) + len(stack)
     check(launches == 2 * n_slices,
@@ -324,7 +682,7 @@ def main():
             sem = prr.launch(up, thr, feats, coarse, real_wts)
         check(bool(torch.isfinite(sem.float()).all()), "rendered logits not finite")
 
-    # ---- 5. times (CUDA events, after warm-up)
+    # ---- 6. times (CUDA events, after warm-up)
     pr_head = model.semantic_pr
     img0 = pre(requests[0])["image"]
     engine_ms = cuda_ms(lambda: engine.dispatch(img0, requests[0].shape), iters=10)
@@ -344,7 +702,10 @@ def main():
                 ab[mode].append(cuda_ms(lambda: pr_head.step(sem, coarse, feats), 10))
             pr_head.fused_render = "auto"
             b = step_bound(up, thr, feats, n_weights)
+            kernel_device_ms = device_ms(
+                lambda: prr.launch(up, thr, feats, coarse, real_wts), 20, "refine_kernel<2>")
             step_times.append(dict(step=i + 1, sf=2 * (i + 1), n=1, kernel_ms=kernel_ms,
+                                   kernel_device_ms=kernel_device_ms,
                                    step_ms=sum(ab["auto"]) / 2, plain_ms=plain_ms,
                                    never_ms=sum(ab["never"]) / 2, ab_ms=ab,
                                    tile_share=tile_share(up, thr), **b))
@@ -364,6 +725,17 @@ def main():
               "steps": step_times}
     print("times: " + json.dumps(timing), flush=True)
 
+    # ---- 7. 3D: the batched xy sweep of a 64 x 512 x 512 volume
+    vol = blob_volume((64, 512, 512), 300, seed=3)
+    engine3d_kw = dict(save_panoptic=True, min_size=64, min_extent=2)
+    results_3d = [sweep_3d(prr, MultiChipEngine3d(cfg, model, batch_size=b, **engine3d_kw),
+                           vol) for b in (None, 8)]
+    launches_3d = sum(r["refine_launches"] for r in results_3d)
+    max_err = max([max_err] + [c["max_abs_err"] for r in results_3d
+                               for c in r["kernel_vs_plain"]])
+    print("3d: " + json.dumps({"card": card, "volume": list(vol.shape),
+                               "sweeps": results_3d}), flush=True)
+
     # f32 on the card against f32 on the CPU, same weights, a small request
     fp32_strict()
     cpu_model = init_model_from_config(cfg, seed=1, device="cpu", dtype=torch.float32)
@@ -376,6 +748,9 @@ def main():
     check(equal >= 0.999, f"f32 engine on the card agrees with the CPU on {equal:.5f} of pixels")
     print(f"f32 card vs CPU on a 256 x 256 request: {equal:.6f} of pixels equal, "
           f"{len(np.unique(pans[0]))} vs {len(np.unique(pans[1]))} labels", flush=True)
+    f32_3d = f32_volume_check(cfg, engine3d_kw, MultiChipEngine3d,
+                              PanopticDeepLabRenderEngine3d, init_model_from_config)
+    print("f32 3d: " + json.dumps(f32_3d), flush=True)
 
     per_req = [s for s in step_times if s["n"] == 1]
     kernels = [{
@@ -383,7 +758,8 @@ def main():
         "route": "cuda",
         "source": "empanada_tpu_torch/csrc/pointrend_refine.cu",
         "replaces": "empanada_tpu/ops/pallas_pointrend.py:202",
-        "launches": launches,
+        "launches": launches + launches_3d,
+        "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d},
         "max_abs_err": max_err,
         "ms": sum(s["kernel_ms"] for s in per_req),
         "plain_ms": sum(s["plain_ms"] for s in per_req),
@@ -391,7 +767,7 @@ def main():
         "bound_by": max(per_req, key=lambda s: s["bound_ms"])["bound_by"],
         "library_ms": None,
         "per": "one 512x512 request: step 1 (sf 2) + step 2 (sf 4)",
-    }]
+    }] + profile_entries
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

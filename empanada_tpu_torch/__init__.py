@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of empanada_tpu for one NVIDIA H100.
 
-Imports torch, numpy and yaml only; nothing of jax, flax or empanada_tpu.
+Imports torch, numpy, scipy and yaml only; nothing of jax, flax or
+empanada_tpu (the host stitching layer and its C++ library are the port's
+own copies).
 Module paths mirror the JAX package's (``models/resnet.py``,
 ``ops/postprocess.py``, ``engine/engines.py``, ...).  Entry points run on
 the card by default (``device=None`` means "cuda") and raise without a

@@ -35,21 +35,28 @@
 // in shared memory, and reads the ~0.4 MB of weights from L2 through the
 // WMMA fragment loads.  TMA, wgmma and a persistent schedule are left for
 // later work.
+//
+// The kernel is a template over a phase so that the step can be timed in
+// parts (the counterpart of the TPU profiling cuts in
+// benchmarks/profile_refine_parts.py): pointrend_refine_launch runs the
+// whole step (kFull, the main path's kernel); pointrend_refine_gather_launch
+// stops after the selected points' feature-tap loads and
+// pointrend_refine_interp_launch after the bilinear interpolation.  A cut
+// phase still does all of its loads (its output depends on them, or an
+// empty asm keeps them), and writes per selected pixel the f32 channel sum
+// of the top-left tap (gather) or of the sampled feature (interp), rounded
+// to bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "refine_layout.cuh"
+
 using namespace nvcuda;
 
 namespace {
-
-constexpr int kTileH = 16;
-constexpr int kTileW = 128;
-constexpr int kChunk = 64;     // points per MLP chunk (rows of the products)
-constexpr int kThreads = 256;  // 8 warps; 4 threads per point in the predictor
-constexpr int kPad = 8;        // row padding of the shared buffers (elements)
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -74,6 +81,17 @@ __device__ __forceinline__ void axis_tap(int r, float inv_sf, int* i0, float* w)
   *w = src - f;
 }
 
+// Keeps a loaded value alive without using it: the gather cut reads all
+// four taps, like the whole step, but reports the top-left one only.
+__device__ __forceinline__ void keep(const float2 v) {
+  asm volatile("" : : "f"(v.x), "f"(v.y));
+}
+
+// kPhase: kFull is the step; kGather and kInterp stop after the feature
+// taps' loads and after the bilinear interpolation, and write at each
+// selected pixel the f32 sum over the F channels (of the top-left tap and
+// of the sampled feature) rounded to bf16, for timing the phases.
+template <int kPhase>
 __global__ void __launch_bounds__(kThreads)
 refine_kernel(const __nv_bfloat16* __restrict__ up, const float* __restrict__ thr,
               const __nv_bfloat16* __restrict__ feat,
@@ -154,17 +172,24 @@ refine_kernel(const __nv_bfloat16* __restrict__ up, const float* __restrict__ th
             v[dy][dx] = val;
           }
         }
-        // rows first, rounded to bf16; then columns, rounded to bf16
-        const float a0 = bf16r(lerp(v[0][0].x, v[1][0].x, wy));
-        const float a1 = bf16r(lerp(v[0][1].x, v[1][1].x, wy));
-        const float b0 = bf16r(lerp(v[0][0].y, v[1][0].y, wy));
-        const float b1 = bf16r(lerp(v[0][1].y, v[1][1].y, wy));
-        res = __floats2bfloat162_rn(lerp(a0, a1, wx), lerp(b0, b1, wx));
+        if constexpr (kPhase == kGather) {
+          keep(v[0][1]);
+          keep(v[1][0]);
+          keep(v[1][1]);
+          res = __floats2bfloat162_rn(v[0][0].x, v[0][0].y);
+        } else {
+          // rows first, rounded to bf16; then columns, rounded to bf16
+          const float a0 = bf16r(lerp(v[0][0].x, v[1][0].x, wy));
+          const float a1 = bf16r(lerp(v[0][1].x, v[1][1].x, wy));
+          const float b0 = bf16r(lerp(v[0][0].y, v[1][0].y, wy));
+          const float b1 = bf16r(lerp(v[0][1].y, v[1][1].y, wy));
+          res = __floats2bfloat162_rn(lerp(a0, a1, wx), lerp(b0, b1, wx));
+        }
       }
       reinterpret_cast<__nv_bfloat162*>(xbuf + i * ldx)[q] = res;
     }
     // ---- the coarse plane at the same points
-    if (threadIdx.x < kChunk) {
+    if (kPhase != kGather && threadIdx.x < kChunk) {
       const int i = threadIdx.x;
       float cv = 0.f;
       if (i < m) {
@@ -188,6 +213,22 @@ refine_kernel(const __nv_bfloat16* __restrict__ up, const float* __restrict__ th
       cval[i] = cv;
     }
     __syncthreads();
+
+    if constexpr (kPhase != kFull) {
+      // ---- cut phases: the channel sum of each point, 4 threads a point
+      const int i = threadIdx.x / 4, part = threadIdx.x % 4;
+      float s = 0.f;
+      for (int j = part; j < F; j += 4) s += bf(xbuf[i * ldx + j]);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (part == 0 && i < m) {
+        const int p = plist[base + i];
+        outb[static_cast<size_t>(r0 + p / kTileW) * w2 + c0 + p % kTileW] =
+            __float2bfloat16(s);
+      }
+      __syncthreads();
+      continue;
+    }
 
     // ---- hidden layers: (64 x K) . (K x D) on the tensor cores
     const __nv_bfloat16* wl = wts;
@@ -249,14 +290,34 @@ refine_kernel(const __nv_bfloat16* __restrict__ up, const float* __restrict__ th
   }
 }
 
-size_t smem_bytes(int F, int D) {
-  const int ldx = (F > D ? F : D) + kPad;
-  const int lda = D + kPad;
-  return sizeof(__nv_bfloat16) * kChunk * ldx + sizeof(float) * kChunk * lda +
-         sizeof(float) * kChunk + sizeof(int16_t) * kTileH * kTileW;
+template <int kPhase>
+int launch(const void* up, const void* thr, const void* feat, const void* coarse,
+           const void* wts, void* out, int n, int h2, int w2, int hc, int wc, int F, int D,
+           int num_fc, int sf, void* stream) {
+  const size_t smem = smem_bytes(F, D);
+  cudaError_t err = cudaFuncSetAttribute(refine_kernel<kPhase>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ntiles = ((h2 + kTileH - 1) / kTileH) * ((w2 + kTileW - 1) / kTileW);
+  dim3 grid(ntiles, n);
+  refine_kernel<kPhase><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(up), static_cast<const float*>(thr),
+      static_cast<const __nv_bfloat16*>(feat), static_cast<const __nv_bfloat16*>(coarse),
+      static_cast<const __nv_bfloat16*>(wts), static_cast<__nv_bfloat16*>(out), h2, w2,
+      hc, wc, F, D, num_fc, 1.0f / static_cast<float>(sf));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+#define REFINE_ENTRY(name, phase)                                                     \
+  int name(const void* up, const void* thr, const void* feat, const void* coarse,    \
+           const void* wts, void* out, int n, int h2, int w2, int hc, int wc, int F, \
+           int D, int num_fc, int sf, void* stream) {                                \
+    return launch<phase>(up, thr, feat, coarse, wts, out, n, h2, w2, hc, wc, F, D,  \
+                         num_fc, sf, stream);                                         \
+  }
 
 extern "C" {
 
@@ -264,23 +325,10 @@ extern "C" {
 // widths that do not fit before launching.
 size_t pointrend_refine_smem_bytes(int F, int D) { return smem_bytes(F, D); }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-int pointrend_refine_launch(const void* up, const void* thr, const void* feat,
-                            const void* coarse, const void* wts, void* out, int n,
-                            int h2, int w2, int hc, int wc, int F, int D, int num_fc,
-                            int sf, void* stream) {
-  const size_t smem = smem_bytes(F, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ntiles = ((h2 + kTileH - 1) / kTileH) * ((w2 + kTileW - 1) / kTileW);
-  dim3 grid(ntiles, n);
-  refine_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(up), static_cast<const float*>(thr),
-      static_cast<const __nv_bfloat16*>(feat), static_cast<const __nv_bfloat16*>(coarse),
-      static_cast<const __nv_bfloat16*>(wts), static_cast<__nv_bfloat16*>(out), h2, w2,
-      hc, wc, F, D, num_fc, 1.0f / static_cast<float>(sf));
-  return static_cast<int>(cudaGetLastError());
-}
+// Each launches on `stream` and returns cudaGetLastError() (0 on success):
+// the whole step, and its two cuts for timing.
+REFINE_ENTRY(pointrend_refine_launch, kFull)
+REFINE_ENTRY(pointrend_refine_gather_launch, kGather)
+REFINE_ENTRY(pointrend_refine_interp_launch, kInterp)
 
 }  // extern "C"

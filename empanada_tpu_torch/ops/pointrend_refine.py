@@ -15,7 +15,9 @@ sampling, the point MLP and the blend.
 ``(w_pred (1, D), w_pred_coarse, b_pred)`` for the predictor.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.  ``refine_launches`` counts kernel launches.
+launch the kernel or raise.  ``launches`` counts kernel launches by phase:
+"full" is the step the main path runs; "gather" and "interp" are its cuts
+for timing (``ops/refine_profile.py``).
 """
 
 from __future__ import annotations
@@ -38,14 +40,21 @@ __all__ = [
     "refine_step_reference",
     "step_inputs",
     "pack_weights",
-    "refine_launches",
+    "sample_points",
+    "launch_phase",
+    "launches",
+    "PHASES",
 ]
 
 TILE_H = 16   # output tile rows; the kernel's skip granularity is one tile
 TILE_W = 128  # output tile columns
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
-refine_launches = 0
+# kernel entry point of each phase of the step (csrc/pointrend_refine.cu)
+PHASES = {"full": "pointrend_refine_launch",
+          "gather": "pointrend_refine_gather_launch",
+          "interp": "pointrend_refine_interp_launch"}
+launches = dict.fromkeys(PHASES, 0)
 
 
 def fused_step_supported(h2: int, w2: int, hc: int, wc: int, num_classes: int,
@@ -71,7 +80,7 @@ def step_inputs(sem: torch.Tensor, num_points: int):
     return up, thr
 
 
-def _sample_points(features, coarse, b, r, c, h2, w2):
+def sample_points(features, coarse, b, r, c, h2, w2):
     """Zero-padded bilinear samples of NHWC ``features`` and ``coarse`` at
     upsampled-grid pixels (b, r, c): rows first, rounded to the feature
     dtype, then columns, rounded — the dense zeros-padding resize's values."""
@@ -116,7 +125,7 @@ def refine_reference(up, thr, features, coarse, weights) -> torch.Tensor:
     u = up[..., 0]
     mask = u.float().abs() <= thr.float()[:, None, None]
     b, r, c = mask.nonzero(as_tuple=True)
-    x, cv = _sample_points(features, coarse, b, r, c, h2, w2)
+    x, cv = sample_points(features, coarse, b, r, c, h2, w2)
     out = u.clone()
     out[b, r, c] = _point_mlp(x, cv, weights)
     return out[..., None]
@@ -134,7 +143,12 @@ def pack_weights(weights) -> torch.Tensor:
 def launch(up, thr, features, coarse, weights) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; raises, never falls back, when
     there is no card or an input is not what the kernel takes."""
-    global refine_launches
+    return launch_phase("full", up, thr, features, coarse, weights)
+
+
+def launch_phase(phase, up, thr, features, coarse, weights) -> torch.Tensor:
+    """Launch the kernel cut at ``phase`` (a key of ``PHASES``) on CUDA
+    tensors and count the launch; the checks of ``launch``."""
     from empanada_tpu_torch.ops import _build
 
     if not torch.cuda.is_available():
@@ -169,15 +183,15 @@ def launch(up, thr, features, coarse, weights) -> torch.Tensor:
         raise ValueError(f"F={fdim}, D={dfc} need more shared memory than a block has")
     packed = pack_weights(weights).to(dev)
     out = torch.empty_like(up)
-    fn = lib.pointrend_refine_launch
+    fn = getattr(lib, PHASES[phase])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     err = fn(up.data_ptr(), thr.data_ptr(), features.data_ptr(), coarse.data_ptr(),
              packed.data_ptr(), out.data_ptr(), n, h2, w2, hc, wc, fdim, dfc,
              len(layers), h2 // hc, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"pointrend_refine launch failed: CUDA error {err}")
-    refine_launches += 1
+        raise RuntimeError(f"pointrend_refine {phase} launch failed: CUDA error {err}")
+    launches[phase] += 1
     return out
 
 

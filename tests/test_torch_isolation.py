@@ -1,8 +1,12 @@
 """Isolation of the PyTorch port: every module of empanada_tpu_torch, and
-chip_smoke.py, imports with jax, flax and empanada_tpu blocked; the entry
-points default to CUDA and raise, naming device="cpu", when there is no GPU;
-chip_smoke.py fails without a GPU and without the package beside it."""
+chip_smoke.py, imports with jax, flax, empanada_tpu and cv2 blocked, and the
+port's native host library builds and loads there too; the port's modules
+import nothing beyond the standard library, torch, numpy, scipy and yaml;
+the entry points default to CUDA and raise, naming device="cpu", when there
+is no GPU; chip_smoke.py fails without a GPU and without the package beside
+it."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -17,6 +21,7 @@ from empanada_tpu_torch.api import init_model_from_config, load_config
 from empanada_tpu_torch.api.utils import CONFIG_DIR
 from empanada_tpu_torch.engine import PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d
 from empanada_tpu_torch.models import create_model
+from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 
 from _torch_port import SMALL_PR
 
@@ -25,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -44,6 +49,8 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    from empanada_tpu_torch.core import native
+    native.load()  # the host library builds from the port's own source
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
@@ -62,7 +69,33 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 20  # every module of the slice, not an empty walk
+    assert n >= 35  # every module of the port, not an empty walk
+
+
+ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
+
+
+def test_port_imports_only_torch_numpy_scipy_yaml():
+    """Static check of every import statement in the port (and in
+    chip_smoke.py): the standard library, torch, numpy, scipy, yaml and the
+    port itself."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "empanada_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__"}
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                tops = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                tops = [node.module.split(".")[0]]
+            else:
+                continue
+            bad += [(os.path.relpath(path, REPO), t) for t in tops if t not in allowed]
+    assert len(files) >= 35 and not bad, bad
 
 
 def test_config_is_the_ports_own():
@@ -87,6 +120,8 @@ def test_entry_points_raise_without_a_gpu():
     for engine in (PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             engine(model, thing_list=[1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiChipEngine3d(load_config("MitoNet_v1"), model)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
