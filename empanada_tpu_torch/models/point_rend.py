@@ -57,6 +57,7 @@ class StandardPointHead(nn.Module):
             self.add_module(f"fc{k + 1}", nn.Linear(nin, fc_dim))
             nin = fc_dim + extra
         self.predictor = nn.Linear(nin, num_classes)
+        self._packed = None  # (key, pointrend_refine.PackedWeights)
 
     def fcs(self):
         return [getattr(self, f"fc{k + 1}") for k in range(self.num_fc)]
@@ -109,6 +110,17 @@ class StandardPointHead(nn.Module):
         bias = self.predictor.bias.detach()
         return layers, (kern[:-1, 0][None, :], kern[-1, 0].float(), bias[0].float())
 
+    def packed_weights(self, feature_dim: int):
+        """``fused_weights`` in the refine kernel's layout
+        (``pointrend_refine.pack_weights``), built once and cached on the
+        head; a parameter changed in place or replaced (its ``_version`` or
+        ``data_ptr``) rebuilds it."""
+        key = (feature_dim,) + tuple((p._version, p.data_ptr(), p.device, p.dtype)
+                                     for p in self.parameters())
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, prr.pack_weights(self.fused_weights(feature_dim)))
+        return self._packed[1]
+
 
 class PointRendSemSegHead(nn.Module):
     """Coarse semantic logits + iterative point refinement (eval only).
@@ -156,11 +168,13 @@ class PointRendSemSegHead(nn.Module):
         h2, w2 = 2 * h, 2 * w
         num_points = min(h2 * w2, self.subdivision_num_points)
         if self._fused_step_ok(h2, w2, features, sem.dtype):
-            step = (prr.refine_step_reference if self.fused_render == "interpret"
-                    else prr.fused_refine_step)
-            return step(sem, features.contiguous(), coarse.to(features.dtype).contiguous(),
-                        self.point_head.fused_weights(features.shape[-1]),
-                        self.subdivision_num_points)
+            fdim = features.shape[-1]
+            args = (sem, features.contiguous(), coarse.to(features.dtype).contiguous())
+            if self.fused_render == "interpret" or features.device.type == "cpu":
+                return prr.refine_step_reference(*args, self.point_head.fused_weights(fdim),
+                                                 self.subdivision_num_points)
+            return prr.fused_refine_step(*args, self.point_head.packed_weights(fdim),
+                                         self.subdivision_num_points)
         sem = bilinear_resize(sem, (h2, w2), align_corners=False)
         uncertainty = calculate_uncertainty(sem)
         if h2 * w2 <= 8 * num_points:

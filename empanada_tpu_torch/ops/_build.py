@@ -43,7 +43,8 @@ def _nvcc() -> str:
 
 def source_digest(src: str) -> str:
     """Hash of a source and, transitively, of the local headers it
-    includes (``#include "..."`` resolved in ``csrc/``)."""
+    includes (``#include "..."`` resolved beside the including file, as
+    nvcc resolves them)."""
     h = hashlib.sha256()
     todo, seen = [src], set()
     while todo:
@@ -54,7 +55,8 @@ def source_digest(src: str) -> str:
         with open(path, "rb") as f:
             text = f.read()
         h.update(os.path.basename(path).encode() + b"\0" + text)
-        todo += [os.path.join(CSRC, inc.decode()) for inc in _INCLUDE.findall(text)]
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
     return h.hexdigest()[:12]
 
 

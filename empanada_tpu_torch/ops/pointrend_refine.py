@@ -7,24 +7,33 @@ pass), find the exact K-th smallest |logit| ``thr``, and where
 ``|up| <= thr`` replace the logit by the point head's prediction from the
 bilinearly sampled features and coarse logits (zero padding); elsewhere
 keep ``up``.  The upsample and the threshold run in plain torch, as XLA ran
-them around the Pallas kernel; the kernel does the per-tile test, the
-sampling, the point MLP and the blend.
+them around the Pallas kernel; the kernel does the rest in two passes on
+one stream: a select pass that copies ``up`` through and compacts the
+selected pixels into a device list (``select_points_reference`` is its
+plain version), and a persistent refine pass over that list (sampling, the
+point MLP on the tensor cores, the blend).  Nothing is read back to the
+host between them.
 
 ``weights`` is ``StandardPointHead.fused_weights(F)``: a list of
 ``(W_fine (K, D), W_coarse (1, D), bias (1, D))`` per hidden layer and
-``(w_pred (1, D), w_pred_coarse, b_pred)`` for the predictor.
+``(w_pred (1, D), w_pred_coarse, b_pred)`` for the predictor; or that
+list packed once by ``pack_weights`` into the kernel's layout
+(``StandardPointHead.packed_weights`` caches it).
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.  ``launches`` counts kernel launches by phase:
-"full" is the step the main path runs; "gather" and "interp" are its cuts
-for timing (``ops/refine_profile.py``).
+launch the kernel or raise.  ``launches`` counts steps by phase (one step
+is the two CUDA launches): "full" is the step the main path runs;
+"gather" and "interp" are its cuts for timing (``ops/refine_profile.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from empanada_tpu_torch.ops.interpolate import bilinear_resize, resize_taps
 from empanada_tpu_torch.ops.select import kth_smallest_nonneg
@@ -32,29 +41,47 @@ from empanada_tpu_torch.ops.select import kth_smallest_nonneg
 __all__ = [
     "TILE_H",
     "TILE_W",
+    "POINTS_PER_CHUNK",
+    "PackedWeights",
     "fused_step_supported",
     "fused_refine_step",
     "launch",
     "refine",
     "refine_reference",
     "refine_step_reference",
+    "select_points_reference",
     "step_inputs",
     "pack_weights",
+    "unpack_weights",
+    "persistent_grid",
     "sample_points",
     "launch_phase",
     "launches",
     "PHASES",
 ]
 
-TILE_H = 16   # output tile rows; the kernel's skip granularity is one tile
-TILE_W = 128  # output tile columns
+TILE_H = 16   # tile rows of the profiling copies and of tile statistics
+TILE_W = 128  # tile columns
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
+HIDDEN = 256  # the kernel's hidden width: a narrower D is padded with zeros
+SLICE_K = 64  # rows of W per weight slice (one 128-byte swizzle row)
+POINTS_PER_CHUNK = 64  # points a refine chunk: the M = 64 rows of its wgmma products
+SELECT_VEC, WARP = 8, 32  # pixels per thread and threads per warp of the select pass
 
-# kernel entry point of each phase of the step (csrc/pointrend_refine.cu)
-PHASES = {"full": "pointrend_refine_launch",
-          "gather": "pointrend_refine_gather_launch",
-          "interp": "pointrend_refine_interp_launch"}
+# phase ids of csrc/pointrend_refine.cu
+PHASES = {"gather": 0, "interp": 1, "full": 2}
 launches = dict.fromkeys(PHASES, 0)
+_grid_cache: dict = {}
+
+
+@dataclass(frozen=True, eq=False)
+class PackedWeights:
+    """The point head in the kernel's layout (``pack_weights``)."""
+
+    buf: torch.Tensor  # 1-D bf16
+    in_features: int   # F
+    fc_dim: int        # D
+    num_fc: int        # hidden layers
 
 
 def fused_step_supported(h2: int, w2: int, hc: int, wc: int, num_classes: int,
@@ -62,7 +89,7 @@ def fused_step_supported(h2: int, w2: int, hc: int, wc: int, num_classes: int,
     """Whether one subdivision step (to (h2, w2) from an (hc, wc) feature
     grid) can run through the kernel: bf16, one logit, isotropic scale
     factor 2, 4 or 8, and F % 128 == 0.  Unlike the Pallas kernel, the CUDA
-    kernel masks a ragged last tile, so (h2, w2) need not be whole tiles."""
+    kernel works on a list of points, so (h2, w2) need not be whole tiles."""
     if num_classes != 1 or dtype != torch.bfloat16:
         return False
     if h2 % hc or w2 % wc or h2 // hc != w2 // wc:
@@ -121,6 +148,8 @@ def refine_reference(up, thr, features, coarse, weights) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (N, H2, W2, 1) ``up`` and (N,)
     ``thr`` -> refined logits (N, H2, W2, 1).  Runs the MLP on the selected
     pixels only, like the kernel."""
+    if isinstance(weights, PackedWeights):
+        weights = unpack_weights(weights)
     n, h2, w2, _ = up.shape
     u = up[..., 0]
     mask = u.float().abs() <= thr.float()[:, None, None]
@@ -131,13 +160,119 @@ def refine_reference(up, thr, features, coarse, weights) -> torch.Tensor:
     return out[..., None]
 
 
-def pack_weights(weights) -> torch.Tensor:
-    """The kernel's single bf16 weight buffer: W_fine of every layer, then
-    the coarse rows, the biases, w_pred, w_pred_coarse and b_pred."""
+def select_points_reference(up, thr):
+    """Plain version of the select pass: the selected pixels (|up| <= thr[b])
+    as a (P, 3) (b, r, c) tensor in the order the kernel's warps list them
+    (each thread tests 8 consecutive pixels, a warp 256; within a warp its
+    pixels go k-major, k the place in a thread's 8), warps in ascending
+    order (on the card the atomics order the warps), and the count P."""
+    n, h2, w2, _ = up.shape
+    u = up.reshape(-1)
+    total = u.numel()
+    flat = torch.arange(total, device=up.device)
+    sel = u.float().abs() <= thr.float()[flat // (h2 * w2)]
+    pad = (-total) % (SELECT_VEC * WARP)
+    # (warp, lane, k) -> (warp, k, lane): the order of the list
+    sel = F.pad(sel, (0, pad)).reshape(-1, WARP, SELECT_VEC).transpose(1, 2)
+    flat = F.pad(flat, (0, pad)).reshape(-1, WARP, SELECT_VEC).transpose(1, 2)
+    idx = flat[sel]
+    points = torch.stack([idx // (h2 * w2), idx % (h2 * w2) // w2, idx % w2], dim=1)
+    return points, int(idx.numel())
+
+
+def _swizzle_perm(device):
+    """(n, chunk) -> the 16-byte chunk that holds logical chunk ``chunk`` of
+    row n in wgmma's 128-byte swizzle: chunk XOR (n % 8)."""
+    n = torch.arange(HIDDEN, device=device)
+    return n[:, None], torch.arange(8, device=device)[None, :] ^ (n[:, None] % 8)
+
+
+def pack_weights(weights) -> PackedWeights:
+    """The kernel's single bf16 weight buffer.  Per hidden layer l, W_l^T
+    (HIDDEN x K_l: output column n by input row k, zero-padded to D =
+    HIDDEN, K_0 = F, K_l = HIDDEN after) cut into K-slices of 64; each
+    slice is HIDDEN rows of 64 bf16 (128 bytes) with the 16-byte chunks of
+    row n XOR-swizzled by n % 8, the layout wgmma reads from shared memory
+    (csrc/pointrend_refine.cu), so one bulk copy moves a slice.  Then
+    w_coarse (L x HIDDEN), bias (L x HIDDEN), w_pred (HIDDEN) and 8 values:
+    w_pred_coarse, b_pred, zeros."""
     layers, (wp, wpc, bp) = weights
-    parts = [wf for wf, _, _ in layers] + [wc for _, wc, _ in layers]
-    parts += [bias for _, _, bias in layers] + [wp, wpc, bp]
-    return torch.cat([p.reshape(-1).to(torch.bfloat16) for p in parts])
+    fdim, dfc = layers[0][0].shape
+    if fdim % SLICE_K or dfc > HIDDEN:
+        raise ValueError(f"pack_weights: F={fdim} must be a multiple of {SLICE_K} "
+                         f"and D={dfc} at most {HIDDEN}")
+    dev, bf16 = layers[0][0].device, torch.bfloat16
+    rows, perm = _swizzle_perm(dev)
+    parts = []
+    for l, (wf, _, _) in enumerate(layers):
+        kp = fdim if l == 0 else HIDDEN
+        wt = torch.zeros(HIDDEN, kp, dtype=bf16, device=dev)
+        wt[:dfc, :wf.shape[0]] = wf.t().to(bf16)
+        logical = wt.reshape(HIDDEN, kp // SLICE_K, 8, 8).transpose(0, 1)  # (s, n, chunk, e)
+        slices = torch.empty_like(logical)
+        slices[:, rows, perm] = logical
+        parts.append(slices.reshape(-1))
+    num_fc = len(layers)
+    vecs = torch.zeros(2 * num_fc + 1, HIDDEN, dtype=bf16, device=dev)
+    for l, (_, wc, bias) in enumerate(layers):
+        vecs[l, :dfc] = wc.reshape(-1).to(bf16)
+        vecs[num_fc + l, :dfc] = bias.reshape(-1).to(bf16)
+    vecs[2 * num_fc, :dfc] = wp.reshape(-1).to(bf16)
+    tail = torch.zeros(8, dtype=bf16, device=dev)
+    tail[0], tail[1] = wpc.to(bf16), bp.to(bf16)
+    buf = torch.cat(parts + [vecs.reshape(-1), tail])
+    return PackedWeights(buf, int(fdim), int(dfc), num_fc)
+
+
+def unpack_weights(packed: PackedWeights):
+    """Inverse of ``pack_weights`` (plain torch): the fused weights, bf16,
+    with the two predictor scalars as 0-d tensors."""
+    fdim, dfc, num_fc = packed.in_features, packed.fc_dim, packed.num_fc
+    buf = packed.buf
+    rows, perm = _swizzle_perm(buf.device)
+    ws, off = [], 0
+    for l in range(num_fc):
+        kp = fdim if l == 0 else HIDDEN
+        slices = buf[off:off + HIDDEN * kp].reshape(kp // SLICE_K, HIDDEN, 8, 8)
+        wt = slices[:, rows, perm].transpose(0, 1).reshape(HIDDEN, kp)
+        ws.append(wt[:dfc, :fdim if l == 0 else dfc].t().contiguous())
+        off += HIDDEN * kp
+    vecs = buf[off:off + (2 * num_fc + 1) * HIDDEN].reshape(2 * num_fc + 1, HIDDEN)
+    tail = buf[off + vecs.numel():]
+    layers = [(ws[l], vecs[l, None, :dfc], vecs[num_fc + l, None, :dfc])
+              for l in range(num_fc)]
+    return layers, (vecs[2 * num_fc, None, :dfc], tail[0], tail[1])
+
+
+@functools.cache
+def _lib():
+    from empanada_tpu_torch.ops import _build
+
+    lib = _build.load("pointrend_refine")
+    lib.pointrend_refine_smem_bytes.restype = ctypes.c_size_t
+    lib.pointrend_refine_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pointrend_refine_blocks_per_sm.restype = ctypes.c_int
+    lib.pointrend_refine_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.pointrend_refine_launch.restype = ctypes.c_int
+    lib.pointrend_refine_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                                            + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return lib
+
+
+def persistent_grid(device, phase: str = "full", feature_dim: int = 256) -> int:
+    """Blocks of the refine pass on ``device``: the blocks of this phase
+    that fit on one SM times the card's SMs, read once per (device, phase,
+    F) and cached."""
+    device = torch.device(device)
+    key = (device.index, phase, feature_dim)
+    if key not in _grid_cache:
+        per_sm = _lib().pointrend_refine_blocks_per_sm(PHASES[phase], feature_dim)
+        if per_sm <= 0:
+            raise RuntimeError(f"pointrend refine {phase}, F={feature_dim}: no block fits "
+                               f"(code {per_sm})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _grid_cache[key] = per_sm * sms
+    return _grid_cache[key]
 
 
 def launch(up, thr, features, coarse, weights) -> torch.Tensor:
@@ -147,10 +282,11 @@ def launch(up, thr, features, coarse, weights) -> torch.Tensor:
 
 
 def launch_phase(phase, up, thr, features, coarse, weights) -> torch.Tensor:
-    """Launch the kernel cut at ``phase`` (a key of ``PHASES``) on CUDA
-    tensors and count the launch; the checks of ``launch``."""
-    from empanada_tpu_torch.ops import _build
-
+    """Run the step cut at ``phase`` (a key of ``PHASES``) on CUDA tensors:
+    the select pass and the refine pass (over ``persistent_grid`` blocks,
+    ``POINTS_PER_CHUNK`` points a chunk), and count one step; the checks of
+    ``launch``.  Allocates the output, the point list and its counter; does
+    not synchronise."""
     if not torch.cuda.is_available():
         raise RuntimeError("pointrend refine kernel: no CUDA device is "
                            "available; pass CPU tensors (device='cpu') to run "
@@ -158,8 +294,6 @@ def launch_phase(phase, up, thr, features, coarse, weights) -> torch.Tensor:
 
     n, h2, w2, _ = up.shape
     _, hc, wc, fdim = features.shape
-    layers = weights[0]
-    dfc = layers[0][0].shape[1]
     dev = up.device
     tensors = {"sem": up, "features": features, "coarse": coarse}
     for name, t in tensors.items():
@@ -173,22 +307,32 @@ def launch_phase(phase, up, thr, features, coarse, weights) -> torch.Tensor:
     if not fused_step_supported(h2, w2, hc, wc, 1, fdim, torch.bfloat16):
         raise ValueError(f"unsupported step geometry: ({h2}, {w2}) from "
                          f"({hc}, {wc}) with F={fdim}")
-    if layers[0][0].shape[0] != fdim or dfc % 16 or dfc > 256:
-        raise ValueError(f"point head widths F={fdim}, D={dfc}: the kernel takes "
-                         "D % 16 == 0, D <= 256")
-    lib = _build.load("pointrend_refine")
-    lib.pointrend_refine_smem_bytes.restype = ctypes.c_size_t
-    lib.pointrend_refine_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    total = n * h2 * w2
+    if not 0 < total < 2 ** 31 - 4096:
+        raise ValueError(f"{total} pixels: the kernel indexes up to 2^31 - 4096")
+    packed = weights if isinstance(weights, PackedWeights) else None
+    in_dim, dfc = ((packed.in_features, packed.fc_dim) if packed is not None
+                   else tuple(weights[0][0][0].shape))
+    if in_dim != fdim or dfc % 16 or dfc > HIDDEN:
+        raise ValueError(f"point head widths F={in_dim}, D={dfc} for F={fdim} features: "
+                         f"the kernel takes D % 16 == 0, D <= {HIDDEN}")
+    lib = _lib()
     if lib.pointrend_refine_smem_bytes(fdim, dfc) > SMEM_LIMIT:
         raise ValueError(f"F={fdim}, D={dfc} need more shared memory than a block has")
-    packed = pack_weights(weights).to(dev)
+    if packed is None:
+        packed = pack_weights(weights)
+    if packed.buf.device != dev or features.data_ptr() % 16 or packed.buf.data_ptr() % 16:
+        raise ValueError("features and packed weights: expected 16-byte aligned tensors "
+                         "on the logits' device")
+    grid = persistent_grid(dev, phase, fdim)
     out = torch.empty_like(up)
-    fn = getattr(lib, PHASES[phase])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    err = fn(up.data_ptr(), thr.data_ptr(), features.data_ptr(), coarse.data_ptr(),
-             packed.data_ptr(), out.data_ptr(), n, h2, w2, hc, wc, fdim, dfc,
-             len(layers), h2 // hc, torch.cuda.current_stream(dev).cuda_stream)
+    points = torch.empty(total, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lib.pointrend_refine_launch(
+        PHASES[phase], grid, up.data_ptr(), thr.data_ptr(),
+        features.data_ptr(), coarse.data_ptr(), packed.buf.data_ptr(), out.data_ptr(),
+        points.data_ptr(), count.data_ptr(), n, h2, w2, hc, wc, fdim, packed.num_fc,
+        h2 // hc, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pointrend_refine {phase} launch failed: CUDA error {err}")
     launches[phase] += 1

@@ -3,8 +3,9 @@ profiling kernels in ``benchmarks/profile_overhead.py`` and
 ``benchmarks/profile_refine_parts.py``), each a hand-written CUDA kernel
 with its plain PyTorch version:
 
-- ``tile_copy``: (N, H, W) bf16 copied through the refine kernel's 16 x 128
-  output tiles (``k_copy``); plain version ``x.clone()``;
+- ``tile_copy``: (N, H, W) bf16 copied through 16 x 128 tiles, a
+  256-thread block covering four tiles of a tile row (``k_copy``); plain
+  version ``x.clone()``;
 - ``gated_tile_copy``: per tile, 2 * s where any |s| <= thr[n], else s
   (``k_when``; with ``reserve`` the refine kernel's dynamic shared memory
   is reserved, unused: ``k_when_scratch`` and ``k_full_skip``);
@@ -15,10 +16,10 @@ with its plain PyTorch version:
   the sampled feature, rounded to bf16; other pixels copy ``up`` through.
   The whole step is ``pointrend_refine.launch`` (mode ``full``).
 
-The port keeps the refine kernel's own tiling (16 x 128, one 256-thread
-block per tile and image), not the TPU's 32 x 128 tiles, VMEM scratch or
-phase-major layout.  On a CPU tensor each wrapper runs its plain version;
-on a CUDA tensor it launches its kernel or raises.  ``launches`` counts
+The copies use 16 x 128 tiles, not the TPU's 32 x 128 tiles, VMEM scratch
+or phase-major layout; the refine cuts run over the refine kernel's point
+list and persistent grid.  On a CPU tensor each wrapper runs its plain
+version; on a CUDA tensor it launches its kernel or raises.  ``launches`` counts
 the launches of ``tile_copy`` and ``gated_tile_copy``; the refine cuts
 count in ``pointrend_refine.launches``.
 """
@@ -131,7 +132,8 @@ def _device(name, x):
 
 
 def tile_copy(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) bf16 copied through 16 x 128 tiles."""
+    """(N, H, W) bf16 copied through 16 x 128 tiles, four tiles of a tile
+    row a block."""
     if _device("tile_copy", x) == "cpu":
         return tile_copy_reference(x)
     _check_cuda("tile_copy", x)
