@@ -55,7 +55,21 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    busy share; then in float32 a 16 x 256 x 256 volume: the batched
    engine's per-slice maps against PanopticDeepLabRenderEngine3d's on the
    card, and its filled panoptic stack against a CPU run; the f32 2D engine
-   on the card against the CPU on a small request.
+   on the card against the CPU on a small request;
+8. ortho: the same 64 x 512 x 512 volume through
+   MultiChipEngine3d.infer_orthoplane (xy, xz and yz sweeps at the auto
+   batch) and api.tracker_consensus (pixel vote 2, cluster IoU 0.75): one
+   warm-up run that keeps the first xz and yz batches' inputs of both refine
+   steps (the kernel is held against its plain version on them), then the
+   median of 2 timed runs (2 refine launches per batch per axis; the
+   consensus voxels inside the union of the three sweeps' voxels), one run
+   under torch.profiler for the device's busy share and an xz sweep under
+   the sync debug mode; printed as the ``ortho:`` line (output-volume
+   Mvox/s over sweeps + consensus, each axis's slices/s, seconds and stage
+   split, the yz tracker finish, instances, dropped NMS centers); then in
+   float32 an 8 x 128 x 128 volume through the same two calls on the card
+   and on the CPU, whose per-axis trackers and consensus instances must be
+   identical (``f32 ortho:`` line).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -743,6 +757,198 @@ def f32_volume_check(cfg, engine_kw, MultiChipEngine3d, Engine3d, init_model):
             "instances_cpu": len(np.unique(stack_cpu)) - 1}
 
 
+def union_mask(shape, trackers):
+    """Boolean volume of every voxel that some tracker's instance holds."""
+    import numpy as np
+
+    from empanada_tpu_torch.core.rle import numpy_fill_instances
+
+    painted = np.zeros(shape, dtype=np.int32)
+    for axis_trackers in trackers.values():
+        for tracker in axis_trackers:
+            numpy_fill_instances(painted, tracker.instances)  # ids are > 0
+    return painted > 0
+
+
+def ortho_run(prr, api, engine, cfg, vol):
+    """One ortho request: the three sweeps, then the consensus of each
+    class (filtered by the engine's ``min_size`` and ``min_extent``, as the
+    CLI does).  Returns (trackers, outputs, sweeps_s, consensus_s, refine steps
+    launched per axis)."""
+    import torch
+
+    infer, per_axis = engine.infer_on_axis, {}
+
+    def on_axis(volume, axis_name, **kw):
+        before = prr.launches["full"]
+        out = infer(volume, axis_name, **kw)
+        per_axis[axis_name] = prr.launches["full"] - before
+        return out
+
+    engine.infer_on_axis = on_axis
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trackers = engine.infer_orthoplane(vol)
+        t1 = time.perf_counter()
+        outs = list(api.tracker_consensus(trackers, None, cfg, pixel_vote_thr=2,
+                                          cluster_iou_thr=0.75, min_size=engine.min_size,
+                                          min_extent=engine.min_extent))
+        t2 = time.perf_counter()
+    finally:
+        del engine.infer_on_axis
+    return trackers, outs, t1 - t0, t2 - t1, per_axis
+
+
+def ortho_phase(prr, api, engine, cfg, vol, fused):
+    """Phase 8 on the card (module docstring).  Returns (the ``ortho:``
+    record, the refine launches of one timed run)."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    launch, captured, current = prr.launch, {}, [None]
+    infer = engine.infer_on_axis
+
+    def on_axis(volume, axis_name, **kw):
+        current[0] = axis_name
+        return infer(volume, axis_name, **kw)
+
+    def keep_inputs(*args):
+        kept = captured.setdefault(current[0], [])
+        if current[0] != "xy" and len(kept) < 2:
+            kept.append(args)
+        return launch(*args)
+
+    engine.infer_on_axis, prr.launch = on_axis, keep_inputs
+    try:
+        engine.infer_orthoplane(vol)
+    finally:
+        prr.launch = launch
+        del engine.infer_on_axis
+    checks = []
+    for axis in ("xz", "yz"):
+        check(len(captured.get(axis, [])) == 2,
+              f"ortho: the warm-up kept {len(captured.get(axis, []))} {axis} refine steps")
+        for sf, (up, thr, feats, coarse, packed) in zip((2, 4), captured[axis]):
+            err, share = compare_refine(prr, up, thr, feats, coarse, packed, fused)
+            checks.append({"axis": axis, "sf": sf, "shape": list(up.shape),
+                           "max_abs_err": err, "refined_share": share})
+            print(f"kernel vs plain on an ortho batch's real inputs: {axis} "
+                  f"N={len(up)} sf={sf}: refined {share:.4f}, max |err| {err:.4g}",
+                  flush=True)
+    del captured
+
+    runs = []
+    for _ in range(2):
+        prr.launches["full"] = 0
+        runs.append(ortho_run(prr, api, engine, cfg, vol))
+        launches = prr.launches["full"]
+        stats = engine.last_axis_stats
+    trackers, outs, _, _, per_axis = runs[-1]
+    totals = sorted(r[2] + r[3] for r in runs)
+    sweeps_s = sorted(r[2] for r in runs)[len(runs) // 2]
+    consensus_s = sorted(r[3] for r in runs)[len(runs) // 2]
+    axes = {}
+    for axis, a in stats.items():
+        n_batches = -(-vol.shape[engine.axes[axis]] // a["batch"])
+        check(per_axis[axis] == 2 * n_batches,
+              f"ortho {axis}: refine launched {per_axis[axis]} times for {n_batches} batches")
+        axes[axis] = {"batch": a["batch"], "n_batches": n_batches,
+                      "refine_launches": per_axis[axis], "seconds": a["seconds"],
+                      "slices_per_s": vol.shape[engine.axes[axis]] / a["seconds"],
+                      "instances": sum(len(t.instances) for t in trackers[axis]),
+                      "dropped_centers": a["dropped_centers"],
+                      "stages_s": {k: v["total_s"] for k, v in a["timing"].items()}}
+        print(f"ortho {axis}: auto batch {a['batch']}, {n_batches} batches", flush=True)
+    check(launches == sum(per_axis.values()), "ortho: refine launches outside the sweeps")
+
+    # the consensus: right shapes and types, and only voxels some sweep saw
+    union = union_mask(vol.shape, trackers)
+    for out_vol, name, instances in outs:
+        check(out_vol.shape == vol.shape and out_vol.dtype == np.uint32,
+              f"ortho consensus {name}: volume {out_vol.dtype} {out_vol.shape}")
+        check(not (out_vol.astype(bool) & ~union).any(),
+              f"ortho consensus {name}: voxels outside the union of the three sweeps")
+        ids = np.unique(out_vol[out_vol > 0])
+        check(np.isin(ids, list(instances)).all(), f"ortho consensus {name}: stray ids")
+    n_consensus = sum(len(inst) for _, _, inst in outs)
+    check(n_consensus > 0, "ortho: the consensus kept no instance")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.infer_orthoplane(vol)
+        torch.cuda.synchronize()
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            busy += (getattr(e, "self_cuda_time_total", 0) if t is None else t) / 1e6
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        engine.infer_on_axis(vol, "xz")
+    torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    total = totals[len(totals) // 2]
+    return {"volume": list(vol.shape), "mvox_per_s": vol.size / (sweeps_s + consensus_s) / 1e6,
+            "sweeps_s": sweeps_s, "consensus_s": consensus_s,
+            "runs_s": [[r[2], r[3]] for r in runs], "median_total_s": total,
+            "yz_finish_s": stats["yz"]["timing"]["finish_tracking"]["total_s"],
+            "axes": axes, "instances_consensus": n_consensus,
+            "dropped_centers": engine.last_overflow,
+            "device_busy_s": busy if busy > 0 else "not measured",
+            "device_busy_share": busy / sweeps_s if busy > 0 else "not measured",
+            "host_syncs_per_batch_xz": syncs / axes["xz"]["n_batches"],
+            "kernel_vs_plain": checks,
+            "phase_s": time.perf_counter() - t_phase}, launches
+
+
+def f32_ortho_check(api, cfg, MultiChipEngine3d, init_model, engine_kw):
+    """Phase 8, float32: an 8 x 128 x 128 volume through infer_orthoplane
+    and tracker_consensus on the card and on the CPU (same weights,
+    ``fp32_strict``); the per-axis trackers and the consensus instances
+    must be identical."""
+    import numpy as np
+    import torch
+
+    vol = blob_volume((8, 128, 128), 12, seed=13)
+    results, n_inst = [], {}
+    for device in ("cuda", "cpu"):
+        model = init_model(cfg, seed=1, device=device, dtype=torch.float32)
+        eng = MultiChipEngine3d(cfg, model, device=device, **engine_kw)
+        t0 = time.perf_counter()
+        trackers = eng.infer_orthoplane(vol)
+        outs = list(api.tracker_consensus(trackers, None, cfg, pixel_vote_thr=2,
+                                          cluster_iou_thr=0.75, device=device,
+                                          **engine_kw))
+        n_inst[device] = {"seconds": time.perf_counter() - t0,
+                          "per_axis": {a: sum(len(t.instances) for t in trs)
+                                       for a, trs in trackers.items()},
+                          "consensus": sum(len(i) for _, _, i in outs)}
+        results.append(([(a, t.instances) for a, trs in trackers.items() for t in trs],
+                        [i for _, _, i in outs]))
+
+    def same(a: dict, b: dict) -> bool:
+        return list(a) == list(b) and all(
+            tuple(a[k]["box"]) == tuple(b[k]["box"])
+            and np.array_equal(a[k]["starts"], b[k]["starts"])
+            and np.array_equal(a[k]["runs"], b[k]["runs"]) for k in a)
+
+    (card_tr, card_cons), (cpu_tr, cpu_cons) = results
+    same_axes = {a: same(x, y) for (a, x), (_, y) in zip(card_tr, cpu_tr)}
+    same_cons = all(same(x, y) for x, y in zip(card_cons, cpu_cons))
+    rec = {"volume": list(vol.shape), "trackers_identical": same_axes,
+           "consensus_identical": same_cons, "card": n_inst["cuda"], "cpu": n_inst["cpu"]}
+    print("f32 ortho: " + json.dumps(rec), flush=True)
+    check(all(same_axes.values()) and same_cons,
+          "f32 ortho: the card's trackers or consensus differ from the CPU's")
+    check(sum(n_inst["cpu"]["per_axis"].values()) > 0, "f32 ortho: no instance tracked")
+    return rec
+
+
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
     """Phase 6, one refine step at N = len(up): the profiler's device time of
     the select and refine passes (and of every device activity of the call:
@@ -796,7 +1002,7 @@ def main():
 
     import numpy as np
 
-    from empanada_tpu_torch import fp32_strict
+    from empanada_tpu_torch import api, fp32_strict
     from empanada_tpu_torch.api import Preprocessor, init_model_from_config, load_config
     from empanada_tpu_torch.core import native
     from empanada_tpu_torch.engine import (
@@ -1018,14 +1224,25 @@ def main():
                               PanopticDeepLabRenderEngine3d, init_model_from_config)
     print("f32 3d: " + json.dumps(f32_3d), flush=True)
 
+    # ---- 8. ortho: the three sweeps and the consensus of phase 7's volume
+    ortho_kw = dict(min_size=64, min_extent=2)
+    ortho, launches_ortho = ortho_phase(prr, api, MultiChipEngine3d(cfg, model, **ortho_kw),
+                                        cfg, vol, real_fused)
+    max_err = max([max_err] + [c["max_abs_err"] for c in ortho["kernel_vs_plain"]])
+    print("ortho: " + json.dumps({"card": card, **ortho}), flush=True)
+    t0 = time.perf_counter()
+    f32_ortho_check(api, cfg, MultiChipEngine3d, init_model_from_config, ortho_kw)
+    print(f"phase 8 seconds: {ortho['phase_s'] + time.perf_counter() - t0:.1f}", flush=True)
+
     per_req = [s for s in step_times if s["n"] == 1 and "case" not in s]
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
         "source": "empanada_tpu_torch/csrc/pointrend_refine.cu",
         "replaces": "empanada_tpu/ops/pallas_pointrend.py:202",
-        "launches": launches + launches_3d,
-        "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d},
+        "launches": launches + launches_3d + launches_ortho,
+        "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
+                             "volume_ortho": launches_ortho},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -38,6 +38,8 @@ __all__ = [
     "match_flat_core",
     "merge_groups_flat",
     "solve_spill",
+    "vote_ranges",
+    "vote_sorted_sets",
 ]
 
 # False routes every caller to its numpy formulation
@@ -115,6 +117,10 @@ def load() -> ctypes.CDLL:
         lib.solve_spill.restype = i64
         lib.merge_groups_flat.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
         lib.merge_groups_flat.restype = i64
+        lib.vote_ranges.argtypes = [vp, i64, i64, vp]
+        lib.vote_ranges.restype = i64
+        lib.vote_sorted_sets.argtypes = [vp, vp, i64, i64, vp]
+        lib.vote_sorted_sets.restype = i64
         _LIB = lib
         return lib
 
@@ -349,3 +355,31 @@ def solve_spill(spill: np.ndarray, spill_vals: np.ndarray, iou_thr: float):
     n = lib.solve_spill(_ptr(sp), _ptr(sv), len(sp), float(iou_thr), _ptr(out_r),
                         _ptr(out_c))
     return out_r[:n], out_c[:n]
+
+
+def vote_ranges(ranges, vote_thr: int) -> np.ndarray:
+    """Sorted disjoint (k, 2) ranges of the indices that at least
+    ``vote_thr`` of the (n, 2) ``ranges`` cover, in any input order (the
+    event sweep sorts); touching output ranges coalesce."""
+    lib = load()
+    r = _i64(ranges).reshape(-1, 2)
+    out = np.empty((max(len(r), 1), 2), dtype=np.int64)
+    n_out = lib.vote_ranges(_ptr(r), len(r), int(vote_thr), _ptr(out))
+    return out[:n_out].copy()
+
+
+def vote_sorted_sets(list_of_ranges, vote_thr: int) -> np.ndarray:
+    """``vote_ranges`` over k range sets each sorted and disjoint (valid
+    RLEs), by a k-way event merge with no sort; the caller checks that each
+    set is sorted and disjoint.  ``vote_thr`` 1 is the union."""
+    lib = load()
+    arrs = [_i64(r).reshape(-1, 2) for r in list_of_ranges]
+    if not arrs:
+        return np.empty((0, 2), dtype=np.int64)
+    offsets = np.zeros(len(arrs) + 1, dtype=np.int64)
+    np.cumsum([len(a) for a in arrs], out=offsets[1:])
+    flat = _i64(np.concatenate(arrs))
+    out = np.empty((max(int(offsets[-1]), 1), 2), dtype=np.int64)
+    n_out = lib.vote_sorted_sets(_ptr(flat), _ptr(offsets), len(arrs), int(vote_thr),
+                                 _ptr(out))
+    return out[:n_out].copy()

@@ -1,18 +1,23 @@
 """Half-open index-range algebra for run-length encoded segmentations
-(counterpart of ``empanada_tpu/core/ranges.py``, in numpy only: the port's
-matcher reaches it only on its numpy path).
+(counterpart of ``empanada_tpu/core/ranges.py``).
 
 A "range" is a pair ``[start, end)`` of flat voxel indices; an instance mask is
-a sorted array of non-overlapping ranges of shape ``(n, 2)``.  Union (join)
-and pairwise intersection are what the matcher needs.
+a sorted array of non-overlapping ranges of shape ``(n, 2)``.  Union (join),
+pairwise intersection and the k-of-n pixel vote of the ortho-plane consensus
+are built here.
 
-Coverage counts come from one sort + cumsum over (start, +1)/(end, -1)
-events, which is exact and O(n log n).
+Union and coverage go through the native event sweep (``native.vote_ranges``,
+or the sort-free k-way merge ``native.vote_sorted_sets`` for at most 64 sets
+that are each sorted and disjoint); with ``native.use_native`` off, the
+matcher's numpy path takes one sort + cumsum over (start, +1)/(end, -1)
+events.  The vote (``vote_by_ranges``, ``rle_voting``) is native only.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from empanada_tpu_torch.core import native
 
 __all__ = [
     "ranges_to_rle",
@@ -20,7 +25,12 @@ __all__ = [
     "join_ranges",
     "intersection_from_ranges",
     "coverage_ranges",
+    "rle_voting",
+    "vote_by_ranges",
 ]
+
+# sets of sorted disjoint ranges up to this many take the k-way merge
+_MAX_SORTED_SETS = 64
 
 _EMPTY = np.empty((0, 2), dtype=np.int64)
 
@@ -59,6 +69,21 @@ def _merge_touching(starts: np.ndarray, ends: np.ndarray, merge_adjacent: bool =
     return np.stack([out_starts, out_ends], axis=1).astype(np.int64)
 
 
+def _sorted_disjoint(r: np.ndarray) -> bool:
+    return len(r) < 2 or bool(np.all(r[1:, 0] >= r[:-1, 1]))
+
+
+def _native_vote(list_of_ranges, min_count: int) -> np.ndarray:
+    """Coverage >= ``min_count`` of the non-empty sets, natively."""
+    arrs = [r for r in list_of_ranges if len(r) > 0]
+    if not arrs:
+        return _EMPTY.copy()
+    if len(arrs) <= _MAX_SORTED_SETS and all(map(_sorted_disjoint, arrs)):
+        return native.vote_sorted_sets(arrs, min_count)
+    return native.vote_ranges(arrs[0] if len(arrs) == 1 else np.concatenate(arrs),
+                              min_count)
+
+
 def join_ranges(list_of_ranges) -> np.ndarray:
     """Union of possibly-overlapping ranges into sorted disjoint ranges.
 
@@ -68,6 +93,8 @@ def join_ranges(list_of_ranges) -> np.ndarray:
     if isinstance(list_of_ranges, np.ndarray) and list_of_ranges.ndim == 2:
         list_of_ranges = [list_of_ranges]
     list_of_ranges = [np.asarray(r).reshape(-1, 2) for r in list_of_ranges]
+    if native.available():
+        return _native_vote(list_of_ranges, 1)
 
     ranges = concat_sort_ranges(list_of_ranges)
     if len(ranges) == 0:
@@ -85,6 +112,8 @@ def coverage_ranges(list_of_ranges, min_count: int) -> np.ndarray:
     if isinstance(list_of_ranges, np.ndarray) and list_of_ranges.ndim == 2:
         list_of_ranges = [list_of_ranges]
     list_of_ranges = [np.asarray(r).reshape(-1, 2) for r in list_of_ranges]
+    if native.available():
+        return _native_vote(list_of_ranges, min_count)
 
     ranges = concat_sort_ranges(list_of_ranges)
     if len(ranges) == 0:
@@ -110,6 +139,33 @@ def coverage_ranges(list_of_ranges, min_count: int) -> np.ndarray:
     seg_starts = uniq_points[:-1][ok]
     seg_ends = uniq_points[1:][ok]
     return _merge_touching(seg_starts, seg_ends, merge_adjacent=True)
+
+
+def _require_native(name: str):
+    if not native.available():
+        raise RuntimeError(f"{name} runs on the native library only "
+                           "(native.use_native is False)")
+
+
+def rle_voting(ranges: np.ndarray, vote_thr: int = 2) -> np.ndarray:
+    """Ranges where at least ``vote_thr`` of the input ranges overlap."""
+    if vote_thr < 2:
+        raise ValueError("rle_voting needs vote_thr >= 2; a vote of 1 is join_ranges")
+    _require_native("rle_voting")
+    return coverage_ranges(np.asarray(ranges).reshape(-1, 2), vote_thr)
+
+
+def vote_by_ranges(list_of_ranges, vote_thr: int = 2) -> np.ndarray:
+    """Pixel vote across range sets: the indices that at least ``vote_thr``
+    sets cover.  ``vote_thr`` 1 is the union; with fewer non-empty sets
+    than ``vote_thr`` nothing wins."""
+    _require_native("vote_by_ranges")
+    list_of_ranges = [r for r in list_of_ranges if len(r) > 0]
+    if vote_thr == 1:
+        return join_ranges(list_of_ranges)
+    if len(list_of_ranges) >= vote_thr:
+        return coverage_ranges(list_of_ranges, vote_thr)
+    return _EMPTY.copy()
 
 
 def intersection_from_ranges(ranges_a: np.ndarray, ranges_b: np.ndarray) -> int:

@@ -1,6 +1,6 @@
 """Run-length codec over flat voxel indices (counterpart of
-``empanada_tpu/core/rle.py``): decode, intersection and IoU, and the
-volume fill."""
+``empanada_tpu/core/rle.py``): encode, decode, intersection and IoU, and
+the volume fill."""
 
 from __future__ import annotations
 
@@ -9,11 +9,23 @@ import numpy as np
 from empanada_tpu_torch.core import ranges as R
 
 __all__ = [
+    "rle_encode",
     "rle_decode",
     "rle_intersection",
     "rle_iou",
     "numpy_fill_instances",
 ]
+
+
+def rle_encode(indices: np.ndarray):
+    """Run-length encode a sorted array of flat indices: ``(starts, runs)``,
+    a run breaking wherever the next index is not this one + 1."""
+    indices = np.asarray(indices)
+    if len(indices) == 0:
+        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+    breaks = np.flatnonzero(indices[1:] != indices[:-1] + 1) + 1
+    changes = np.concatenate([[0], breaks, [len(indices)]])
+    return indices[changes[:-1]].astype(np.int64), np.diff(changes).astype(np.int64)
 
 
 def rle_decode(starts: np.ndarray, runs: np.ndarray) -> np.ndarray:

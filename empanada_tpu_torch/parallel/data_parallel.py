@@ -2,7 +2,9 @@
 ``empanada_tpu/parallel/data_parallel.py``: its streamed ``infer_on_axis``
 path with a mesh of one device).
 
-Slices go through the model ``b`` at a time.  Per batch the device runs the
+Each sweep (``infer_on_axis`` along xy, xz or yz; ``infer_orthoplane``
+runs the three in turn) takes the volume's slices along one axis and
+puts them through the model ``b`` at a time.  Per batch the device runs the
 forward (uint8 slices normalised on the card), the median over z from a
 rolling context of sem batches, the batched postprocess and the run-length
 packing (``ops.postprocess.encode_runs_packed``); only the packed int16 rows
@@ -15,9 +17,10 @@ optionally fills the panoptic volume.
 Boundary semantics match the median queue: slices closer than
 ``mid = (ks - 1) // 2`` to either end of the stack pass through unmedianed.
 
-Not ported yet: the whole-sweep fused path, the device-resident volume,
-checkpoint/resume, chunked stores, the xz/yz axes with the ortho-plane
-consensus, and ``inference_scale > 1`` (the constructor raises).
+Not ported yet, and refused with ``NotImplementedError`` naming its ROADMAP
+item: the whole-sweep fused path and the device-resident volume
+(``sweep_fused``, A6c), checkpoint/resume (A6d), ``inference_scale > 1``
+(A6e) and chunked stores (``store_url``, item 8).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 import queue
 import sys
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -84,6 +88,8 @@ class MultiChipEngine3d:
         merge_iou_thr: float = 0.25,
         merge_ioa_thr: float = 0.25,
         force_connected: bool = True,
+        store_url=None,
+        sweep_fused: bool = False,
         device=None,
     ):
         if median_kernel_size % 2 != 1:
@@ -92,6 +98,15 @@ class MultiChipEngine3d:
             raise NotImplementedError(
                 f"inference_scale={inference_scale}: the port runs at scale 1 only; "
                 "the downsample without cv2 is ROADMAP item A6e")
+        if store_url is not None:
+            raise NotImplementedError(
+                "store_url: the port fills numpy volumes only; chunked stores are "
+                "ROADMAP item 8")
+        if sweep_fused:
+            raise NotImplementedError(
+                "sweep_fused: the port runs the streamed sweep only; the whole-sweep "
+                "fused path, the device-resident volume and the pipelined "
+                "infer_orthoplane are ROADMAP item A6c")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dtype = next(model.parameters()).dtype
@@ -121,6 +136,7 @@ class MultiChipEngine3d:
         self.mean = float(model_config["norms"]["mean"])
         self.std = float(model_config["norms"]["std"])
         self.last_overflow = 0
+        self.axes = {"xy": 0, "xz": 1, "yz": 2}
 
     # ------------------------------------------------------------------
     def _max_runs(self, width: int) -> int:
@@ -223,19 +239,22 @@ class MultiChipEngine3d:
 
     # ------------------------------------------------------------------
     def infer_on_axis(self, volume: np.ndarray, axis_name: str,
-                      timer: Optional[StageTimer] = None):
-        """(Z, H, W) integer volume -> ``(stack, trackers)``: the filled
-        panoptic volume (int32, or None unless ``save_panoptic``) and one
-        finished ``InstanceTracker`` per label.  ``timer`` collects host
-        stages; ``last_timing`` holds its report afterwards."""
-        if axis_name != "xy":
+                      timer: Optional[StageTimer] = None, checkpoint_dir=None,
+                      resume: bool = False):
+        """(Z, H, W) integer volume, swept along ``axis_name`` ("xy", "xz"
+        or "yz") -> ``(stack, trackers)``: the filled panoptic volume
+        (int32, or None unless ``save_panoptic``) and one finished
+        ``InstanceTracker`` per label.  ``timer`` collects host stages;
+        ``last_timing`` holds its report afterwards."""
+        if axis_name not in self.axes:
+            raise ValueError(f"axis {axis_name!r}: expected one of {list(self.axes)}")
+        if checkpoint_dir is not None or resume:
             raise NotImplementedError(
-                f"axis {axis_name!r}: the port sweeps xy only; xz/yz and the "
-                "ortho-plane consensus are ROADMAP item A6b")
+                "checkpoint_dir / resume: checkpointing the sweep is ROADMAP item A6d")
         if not np.issubdtype(np.dtype(volume.dtype), np.integer):
             raise TypeError("input volume cannot be float type")
         timer = timer or StageTimer()
-        axis = 0
+        axis = self.axes[axis_name]
         n_slices = volume.shape[axis]
         render_steps = 2  # coarse 1/4 -> full resolution at scale 1
         b = self._resolve_batch(volume.shape, axis)
@@ -378,7 +397,8 @@ class MultiChipEngine3d:
         with timer.stage("backward_matching"):
             for index, flat_seg in backward_matching(rle_stack, matchers, n_slices):
                 update_trackers(flat_seg, index, trackers)
-        finish_tracking(trackers)
+        with timer.stage("finish_tracking"):
+            finish_tracking(trackers)
         for tracker in trackers:
             filters.remove_small_objects(tracker, min_size=self.min_size)
             filters.remove_pancakes(tracker, min_span=self.min_extent)
@@ -389,3 +409,25 @@ class MultiChipEngine3d:
                 fill_panoptic_volume(stack, trackers)
         self.last_timing = timer.report()
         return stack, trackers
+
+    def infer_orthoplane(self, volume: np.ndarray, timer: Optional[StageTimer] = None,
+                         checkpoint_dir=None, resume: bool = False) -> dict:
+        """The xy, xz and yz sweeps of ``volume``, in that order ->
+        ``{axis: trackers}`` for ``api.tracker_consensus``.  ``timer``, if
+        given, accumulates the stages of all three; ``last_overflow`` is the
+        largest over the axes, and ``last_axis_stats[axis]`` holds each
+        sweep's seconds, batch size, dropped centers and stage report."""
+        if checkpoint_dir is not None or resume:
+            raise NotImplementedError(
+                "checkpoint_dir / resume: checkpointing the sweeps is ROADMAP item A6d")
+        trackers, stats = {}, {}
+        for axis_name in self.axes:
+            t0 = time.perf_counter()
+            _, trackers[axis_name] = self.infer_on_axis(volume, axis_name, timer=timer)
+            stats[axis_name] = {"seconds": time.perf_counter() - t0,
+                                "batch": self.last_batch_size,
+                                "dropped_centers": self.last_overflow,
+                                "timing": self.last_timing}
+        self.last_overflow = max(s["dropped_centers"] for s in stats.values())
+        self.last_axis_stats = stats
+        return trackers

@@ -115,6 +115,41 @@ def _batch_intersections_flat(tf: FlatInstances, mf: FlatInstances, box_matches)
     )
 
 
+def _instance_areas(runs_list) -> np.ndarray:
+    """Voxel count of each instance of a list of run arrays."""
+    lens = np.fromiter(map(len, runs_list), dtype=np.int64, count=len(runs_list))
+    out = np.zeros(len(runs_list), dtype=np.int64)
+    nz = lens > 0
+    if nz.any():
+        flat = np.concatenate([np.asarray(r, dtype=np.int64) for r in runs_list])
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        out[nz] = np.add.reduceat(flat, starts[nz])
+    return out
+
+
+def _batch_intersections(target_starts, target_runs, match_starts, match_runs,
+                         box_matches, max_threads: int = 0) -> np.ndarray:
+    """RLE intersections of the (k, 2) ``box_matches`` pairs (target index,
+    match index) of two lists of RLEs, in one native call.  ``max_threads``
+    1 keeps the call on the calling thread (callers already in a pool);
+    native only."""
+    if not native.available():
+        raise RuntimeError("_batch_intersections runs on the native library only "
+                           "(native.use_native is False)")
+    starts_all = list(target_starts) + list(match_starts)
+    runs_all = list(target_runs) + list(match_runs)
+    lens = np.fromiter(map(len, starts_all), dtype=np.int64, count=len(starts_all))
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    s_flat = np.concatenate([np.asarray(s, np.int64) for s in starts_all] or
+                            [np.empty(0, np.int64)])
+    r_flat = np.concatenate([np.asarray(r, np.int64) for r in runs_all] or
+                            [np.empty(0, np.int64)])
+    pairs = np.array(box_matches, dtype=np.int64).reshape(-1, 2)
+    pairs[:, 1] += len(target_starts)
+    return native.batch_pair_intersection(np.stack([s_flat, s_flat + r_flat], axis=1),
+                                          offsets, pairs, max_threads)
+
+
 def _uf_components(n: int, erows, ecols):
     """Union-find over an edge list; per-node component ids 0..k-1."""
     parent = list(range(n))

@@ -1,5 +1,6 @@
-"""Orchestration of the xy sweep's host side (counterpart of
-``empanada_tpu/stitch/patterns.py``, the parts the xy path uses).
+"""Orchestration of the 3D sweeps' host side and of the ortho-plane
+consensus (counterpart of ``empanada_tpu/stitch/patterns.py``, the parts
+the streamed sweeps and ``tracker_consensus`` use).
 
 Forward matching runs on a ``threading.Thread`` fed through a bounded
 ``queue.Queue``: the device queue is asynchronous, so the host matcher
@@ -18,8 +19,13 @@ import numpy as np
 
 from empanada_tpu_torch.core.labeling import extract_runs
 from empanada_tpu_torch.core.rle import numpy_fill_instances
+from empanada_tpu_torch.stitch.consensus import (
+    merge_objects_from_trackers,
+    merge_semantic_from_trackers,
+)
 from empanada_tpu_torch.stitch.matcher import RLEMatcher
 from empanada_tpu_torch.stitch.rle_seg import packed_to_flat_seg, runs_to_flat_seg
+from empanada_tpu_torch.stitch.tracker import InstanceTracker
 
 __all__ = [
     "create_matchers",
@@ -31,6 +37,9 @@ __all__ = [
     "update_trackers",
     "finish_tracking",
     "fill_panoptic_volume",
+    "get_axis_trackers_by_class",
+    "create_instance_consensus",
+    "create_semantic_consensus",
 ]
 
 FINISH = "finish"
@@ -232,3 +241,34 @@ def fill_panoptic_volume(volume: np.ndarray, trackers):
     """Paint every tracker's instances into the numpy ``volume``, in place."""
     for tracker in trackers:
         numpy_fill_instances(volume, tracker.instances)
+
+
+def get_axis_trackers_by_class(trackers: dict, class_id: int) -> list:
+    """The trackers of ``class_id`` from ``{axis: [trackers]}``, in axis
+    order."""
+    return [tracker for axis_trackers in trackers.values() for tracker in axis_trackers
+            if tracker.class_id == class_id]
+
+
+def _consensus_tracker(class_trackers, instances) -> InstanceTracker:
+    first = class_trackers[0]
+    tracker = InstanceTracker(first.class_id, first.label_divisor, first.shape3d, "xy")
+    tracker.instances = instances
+    tracker.finished = True
+    return tracker
+
+
+def create_instance_consensus(class_trackers, pixel_vote_thr: int = 2,
+                              cluster_iou_thr: float = 0.75,
+                              bypass: bool = False) -> InstanceTracker:
+    """A finished tracker holding the instance consensus of one thing
+    class's per-axis trackers."""
+    return _consensus_tracker(class_trackers, merge_objects_from_trackers(
+        class_trackers, pixel_vote_thr, cluster_iou_thr, bypass))
+
+
+def create_semantic_consensus(class_trackers, pixel_vote_thr: int = 2) -> InstanceTracker:
+    """A finished tracker holding the pixel vote of one semantic class's
+    per-axis trackers."""
+    return _consensus_tracker(class_trackers, merge_semantic_from_trackers(
+        class_trackers, pixel_vote_thr))

@@ -123,8 +123,17 @@ def test_xy_sweep_narrow_clamps_max_runs(models):
 def test_engine_rules(models):
     _, _, tmodel = models
     eng = MultiChipEngine3d(CFG, tmodel, device="cpu", batch_size=2)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        eng.infer_on_axis(np.zeros((2, 32, 32), np.uint8), "yz")
+    vol = np.zeros((2, 32, 32), np.uint8)
+    with pytest.raises(NotImplementedError, match="A6d"):
+        eng.infer_on_axis(vol, "xy", checkpoint_dir="ckpt")
+    with pytest.raises(NotImplementedError, match="A6d"):
+        eng.infer_orthoplane(vol, resume=True)
+    with pytest.raises(ValueError, match="axis 'zx'"):
+        eng.infer_on_axis(vol, "zx")
+    with pytest.raises(NotImplementedError, match="A6c"):
+        MultiChipEngine3d(CFG, tmodel, device="cpu", sweep_fused=True)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        MultiChipEngine3d(CFG, tmodel, device="cpu", store_url="/tmp/store")
     with pytest.raises(TypeError, match="float"):
         eng.infer_on_axis(np.zeros((2, 32, 32), np.float32), "xy")
     with pytest.raises(NotImplementedError, match="A6e"):

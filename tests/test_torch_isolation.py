@@ -1,5 +1,6 @@
 """Isolation of the PyTorch port: every module of empanada_tpu_torch, and
-chip_smoke.py, imports with jax, flax, empanada_tpu and cv2 blocked, and the
+chip_smoke.py, imports with jax, flax, empanada_tpu, cv2 and networkx
+blocked (the card's machine has no networkx), and the
 port's native host library builds and loads there too; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
 the entry points default to CUDA and raise, naming device="cpu", when there
@@ -30,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2")
+    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2", "networkx")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):

@@ -16,11 +16,12 @@ from empanada_tpu.ops.postprocess import encode_runs_packed as jax_encode
 from empanada_tpu.stitch import filters as jfilters
 from empanada_tpu.stitch import patterns as jpat
 from empanada_tpu.stitch.tracker import InstanceTracker as JaxTracker
+from empanada_tpu.stitch.tracker import to_box3d as jax_to_box3d
 from empanada_tpu_torch.core import native
 from empanada_tpu_torch.core.labeling import FlatInstances
 from empanada_tpu_torch.ops.postprocess import encode_runs_packed
 from empanada_tpu_torch.stitch import filters, patterns
-from empanada_tpu_torch.stitch.tracker import InstanceTracker
+from empanada_tpu_torch.stitch.tracker import InstanceTracker, to_box3d
 
 LABELS, DIV, THINGS = [1, 2], 1000, [1]
 
@@ -142,5 +143,11 @@ def test_match_flat_core_c3_regression():
 
 
 def test_tracker_axes():
-    with pytest.raises(NotImplementedError, match="yz"):
-        InstanceTracker(1, DIV, (4, 8, 8), "yz")
+    """The tracker takes the three sweep axes (the yz finish is held to the
+    JAX tracker in test_torch_ortho.py) and refuses another name; the 3D
+    boxes of a slice's 2D box are the JAX tracker's."""
+    with pytest.raises(ValueError, match="'zx'"):
+        InstanceTracker(1, DIV, (4, 8, 8), "zx")
+    for axis in ("xy", "xz", "yz"):
+        assert InstanceTracker(1, DIV, (4, 8, 8), axis).axis == axis
+        assert to_box3d(3, (1, 2, 5, 6), axis) == jax_to_box3d(3, (1, 2, 5, 6), axis)
