@@ -49,27 +49,40 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    turns; printed as JSON;
 7. 3D: a seeded 64 x 512 x 512 uint8 volume through
    MultiChipEngine3d.infer_on_axis(vol, "xy") at the engine's auto batch
-   and at B = 8 (2 refine launches per batch; the kernel against its plain
-   version on the first batch's real inputs of both steps; instances;
-   dropped NMS centers), with slices/s, Mvox/s, the host stage split and the device's
-   busy share; then in float32 a 16 x 256 x 256 volume: the batched
-   engine's per-slice maps against PanopticDeepLabRenderEngine3d's on the
-   card, and its filled panoptic stack against a CPU run; the f32 2D engine
-   on the card against the CPU on a small request;
+   (32: two batches) streamed from the resident volume and fused (the
+   whole-sweep path), and at B = 8 (eight batches) streamed from the host,
+   streamed from the resident volume and fused, in that order; 2 refine
+   launches per batch; the kernel against its plain version on
+   the first batch's real inputs of both steps; instances; dropped NMS
+   centers, with slices/s, Mvox/s, the host stage split, the device's busy
+   share and host syncs per batch; then in float32 a 16 x 256 x 256
+   volume: the batched engine's per-slice maps against
+   PanopticDeepLabRenderEngine3d's on the card, and its filled panoptic
+   stack against a CPU run; the f32 2D engine on the card against the CPU
+   on a small request;
 8. ortho: the same 64 x 512 x 512 volume through
    MultiChipEngine3d.infer_orthoplane (xy, xz and yz sweeps at the auto
-   batch) and api.tracker_consensus (pixel vote 2, cluster IoU 0.75): one
-   warm-up run that keeps the first xz and yz batches' inputs of both refine
-   steps (the kernel is held against its plain version on them), then the
-   median of 2 timed runs (2 refine launches per batch per axis; the
-   consensus voxels inside the union of the three sweeps' voxels), one run
-   under torch.profiler for the device's busy share and an xz sweep under
-   the sync debug mode; printed as the ``ortho:`` line (output-volume
-   Mvox/s over sweeps + consensus, each axis's slices/s, seconds and stage
-   split, the yz tracker finish, instances, dropped NMS centers); then in
-   float32 an 8 x 128 x 128 volume through the same two calls on the card
-   and on the CPU, whose per-axis trackers and consensus instances must be
-   identical (``f32 ortho:`` line).
+   batch) and api.tracker_consensus (pixel vote 2, cluster IoU 0.75), twice
+   in one process: pipelined and fused (the default: each axis's host half
+   on a worker thread while the next axis is dispatched), then streamed
+   from the host.  For each: one warm-up run that keeps the
+   first xz and yz batches' inputs of both refine steps (the kernel is held
+   against its plain version on them), then the median of 2 timed runs (2
+   refine launches per batch per axis, counted around each axis's
+   dispatch; the consensus voxels inside the union of the three sweeps'
+   voxels; no fused sweep falling back to the per-slice path), one run
+   under torch.profiler for the device's busy share, and the host syncs of
+   one xz dispatch under the sync debug mode, each attributed to its call
+   site in the port; printed as ``ortho:`` lines (output-volume Mvox/s over
+   sweeps + consensus, each axis's stage split and its seconds, or its
+   dispatch and host seconds apart where the axes overlap, the yz tracker
+   finish, instances, dropped NMS centers, fallbacks); then in float32 an 8
+   x 128 x 128 volume through the same two calls on the card and on the
+   CPU, on both paths, whose per-axis trackers and consensus instances must
+   be identical (``f32 ortho:`` line);
+9. resume: a checkpointed xy sweep of a 24 x 256 x 256 volume at B = 4
+   crashed after 10 slices and resumed on the card; its stack and trackers
+   must equal an uninterrupted sweep's (``resume:`` line).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -630,7 +643,7 @@ def blob_volume(shape, n_blobs, seed):
     return (np.clip(vol, 0, 1) * 255).astype(np.uint8)
 
 
-def sweep_3d(prr, engine, vol, fused, n_timed=2):
+def sweep_3d(prr, engine, vol, fused, n_timed=3):
     """Phase 7 at one batch size: a warm-up sweep that keeps the first
     batch's inputs of both refine steps (the kernel is then held against its
     plain version on them, which takes the point head's ``fused`` weights),
@@ -702,6 +715,8 @@ def sweep_3d(prr, engine, vol, fused, n_timed=2):
     check(np.isin(ids, list(trackers[0].instances)).all(),
           "3D: the filled stack holds ids that no tracker has")
     return {"batch": b, "n_batches": n_batches, "refine_launches": launches,
+            "path": "fused" if engine.last_fused else "streamed",
+            "resident": engine._resident is not None, "fallbacks": engine.fallbacks,
             "kernel_vs_plain": checks,
             "wall_s": walls, "slices_per_s": vol.shape[0] / wall,
             "mvox_per_s": vol.size / wall / 1e6, "instances": n_inst,
@@ -724,14 +739,14 @@ def f32_volume_check(cfg, engine_kw, MultiChipEngine3d, Engine3d, init_model):
     cpu_model = init_model(cfg, seed=1, device="cpu", dtype=torch.float32)
     eng = MultiChipEngine3d(cfg, gpu_model, **engine_kw)
     maps = []
-    post = eng._post_batch
+    post = eng._post_windows  # the postprocess of a batch on every path
 
     def keep_maps(*args, **kw):
         out = post(*args, **kw)
         maps.append(out[0].cpu())
         return out
 
-    eng._post_batch = keep_maps
+    eng._post_windows = keep_maps
     stack_gpu, _ = eng.infer_on_axis(vol, "xy")
     batched = torch.cat(maps)[:len(vol)].numpy()
 
@@ -751,7 +766,8 @@ def f32_volume_check(cfg, engine_kw, MultiChipEngine3d, Engine3d, init_model):
                                      **engine_kw).infer_on_axis(vol, "xy")
     agree = float((stack_gpu == stack_cpu).mean())
     check(agree >= 0.999, f"f32 3D: card and CPU stacks agree on {agree:.5f} of voxels")
-    return {"maps_equal_share": same, "maps_differing_pixels": int((batched != ref).sum()),
+    return {"path": "fused" if eng.last_fused else "streamed",
+            "maps_equal_share": same, "maps_differing_pixels": int((batched != ref).sum()),
             "stack_card_vs_cpu_share": agree,
             "instances_card": len(np.unique(stack_gpu)) - 1,
             "instances_cpu": len(np.unique(stack_cpu)) - 1}
@@ -770,6 +786,28 @@ def union_mask(shape, trackers):
     return painted > 0
 
 
+def axis_hooks(engine, on_enter, on_exit=None):
+    """Wrap the engine's per-axis dispatch (``_sweep_device`` of the fused
+    and pipelined paths, ``_infer_streamed`` of the streamed one) so that
+    ``on_enter(axis)`` runs before and ``on_exit(axis)`` after it; returns
+    the function that removes the wrappers."""
+    originals = {name: getattr(engine, name) for name in ("_sweep_device", "_infer_streamed")}
+
+    def wrap(fn):
+        def hooked(volume, axis_name, *args, **kw):
+            on_enter(axis_name)
+            try:
+                return fn(volume, axis_name, *args, **kw)
+            finally:
+                if on_exit is not None:
+                    on_exit(axis_name)
+        return hooked
+
+    for name, fn in originals.items():
+        setattr(engine, name, wrap(fn))
+    return lambda: [delattr(engine, name) for name in originals]
+
+
 def ortho_run(prr, api, engine, cfg, vol):
     """One ortho request: the three sweeps, then the consensus of each
     class (filtered by the engine's ``min_size`` and ``min_extent``, as the
@@ -777,15 +815,15 @@ def ortho_run(prr, api, engine, cfg, vol):
     launched per axis)."""
     import torch
 
-    infer, per_axis = engine.infer_on_axis, {}
+    per_axis, before = {}, {}
 
-    def on_axis(volume, axis_name, **kw):
-        before = prr.launches["full"]
-        out = infer(volume, axis_name, **kw)
-        per_axis[axis_name] = prr.launches["full"] - before
-        return out
+    def enter(axis):
+        before[axis] = prr.launches["full"]
 
-    engine.infer_on_axis = on_axis
+    def leave(axis):
+        per_axis[axis] = prr.launches["full"] - before[axis]
+
+    unhook = axis_hooks(engine, enter, leave)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -796,26 +834,59 @@ def ortho_run(prr, api, engine, cfg, vol):
                                           min_extent=engine.min_extent))
         t2 = time.perf_counter()
     finally:
-        del engine.infer_on_axis
+        unhook()
     return trackers, outs, t1 - t0, t2 - t1, per_axis
 
 
-def ortho_phase(prr, api, engine, cfg, vol, fused):
-    """Phase 8 on the card (module docstring).  Returns (the ``ortho:``
-    record, the refine launches of one timed run)."""
+def sync_sites(fn):
+    """Calls that make the host wait for the card during ``fn()`` (torch's
+    sync debug mode warns on each: blocking copies, ``.item()``, event
+    waits), attributed to their call sites: per warning, the innermost
+    frame of this repository on the stack and the port's frames above it.
+    Returns (count, {site: count}) ordered by count."""
+    import traceback
     import warnings
 
+    import torch
+
+    sites, n = {}, 0
+    real_show = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        nonlocal n
+        if "synchroniz" not in str(message):
+            return
+        n += 1
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f.filename.startswith(HERE) and "empanada_tpu_torch" in f.filename]
+        chain = " < ".join(f"{os.path.relpath(f.filename, HERE)}:{f.lineno} {f.name}"
+                           for f in reversed(frames[-3:])) or f"{filename}:{lineno}"
+        sites[chain] = sites.get(chain, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = real_show
+    return n, dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def ortho_phase(prr, api, engine, cfg, vol, fused):
+    """Phase 8 on the card for one engine (module docstring).  Returns (the
+    ``ortho:`` record, the refine launches of one timed run)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from empanada_tpu_torch.utils import StageTimer
+
     t_phase = time.perf_counter()
     launch, captured, current = prr.launch, {}, [None]
-    infer = engine.infer_on_axis
-
-    def on_axis(volume, axis_name, **kw):
-        current[0] = axis_name
-        return infer(volume, axis_name, **kw)
 
     def keep_inputs(*args):
         kept = captured.setdefault(current[0], [])
@@ -823,12 +894,13 @@ def ortho_phase(prr, api, engine, cfg, vol, fused):
             kept.append(args)
         return launch(*args)
 
-    engine.infer_on_axis, prr.launch = on_axis, keep_inputs
+    unhook = axis_hooks(engine, lambda axis: current.__setitem__(0, axis))
+    prr.launch = keep_inputs
     try:
         engine.infer_orthoplane(vol)
     finally:
         prr.launch = launch
-        del engine.infer_on_axis
+        unhook()
     checks = []
     for axis in ("xz", "yz"):
         check(len(captured.get(axis, [])) == 2,
@@ -842,28 +914,35 @@ def ortho_phase(prr, api, engine, cfg, vol, fused):
                   flush=True)
     del captured
 
-    runs = []
+    runs, fallbacks = [], engine.fallbacks
     for _ in range(2):
         prr.launches["full"] = 0
         runs.append(ortho_run(prr, api, engine, cfg, vol))
         launches = prr.launches["full"]
         stats = engine.last_axis_stats
+    fallbacks = engine.fallbacks - fallbacks
     trackers, outs, _, _, per_axis = runs[-1]
     totals = sorted(r[2] + r[3] for r in runs)
     sweeps_s = sorted(r[2] for r in runs)[len(runs) // 2]
     consensus_s = sorted(r[3] for r in runs)[len(runs) // 2]
     axes = {}
     for axis, a in stats.items():
-        n_batches = -(-vol.shape[engine.axes[axis]] // a["batch"])
+        n_slices = vol.shape[engine.axes[axis]]
+        n_batches = -(-n_slices // a["batch"])
         check(per_axis[axis] == 2 * n_batches,
               f"ortho {axis}: refine launched {per_axis[axis]} times for {n_batches} batches")
-        axes[axis] = {"batch": a["batch"], "n_batches": n_batches,
-                      "refine_launches": per_axis[axis], "seconds": a["seconds"],
-                      "slices_per_s": vol.shape[engine.axes[axis]] / a["seconds"],
-                      "instances": sum(len(t.instances) for t in trackers[axis]),
-                      "dropped_centers": a["dropped_centers"],
-                      "stages_s": {k: v["total_s"] for k, v in a["timing"].items()}}
-        print(f"ortho {axis}: auto batch {a['batch']}, {n_batches} batches", flush=True)
+        rec = {"batch": a["batch"], "n_batches": n_batches, "path": a["path"],
+               "refine_launches": per_axis[axis],
+               "instances": sum(len(t.instances) for t in trackers[axis]),
+               "dropped_centers": a["dropped_centers"],
+               "stages_s": {k: v["total_s"] for k, v in a["timing"].items()}}
+        if "seconds" in a:  # a serial sweep
+            rec.update(seconds=a["seconds"], slices_per_s=n_slices / a["seconds"])
+        else:  # overlapping axes: the dispatch and the host half apart
+            rec.update(dispatch_s=a["dispatch_s"], host_s=a["host_s"])
+        axes[axis] = rec
+        print(f"ortho {axis}: {a['path']}, auto batch {a['batch']}, {n_batches} batches",
+              flush=True)
     check(launches == sum(per_axis.values()), "ortho: refine launches outside the sweeps")
 
     # the consensus: right shapes and types, and only voxels some sweep saw
@@ -886,50 +965,38 @@ def ortho_phase(prr, api, engine, cfg, vol, fused):
         if str(e.device_type).endswith("CUDA"):
             t = getattr(e, "self_device_time_total", None)
             busy += (getattr(e, "self_cuda_time_total", 0) if t is None else t) / 1e6
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        engine.infer_on_axis(vol, "xz")
-    torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # host syncs of one xz sweep: the fused path's dispatch alone (its
+    # host half waits once, on the copy's event), the streamed sweep whole
+    if stats["xz"]["path"] == "pipelined":
+        syncs, sites = sync_sites(lambda: engine._sweep_device(vol, "xz", StageTimer()))
+    else:
+        syncs, sites = sync_sites(lambda: engine.infer_on_axis(vol, "xz"))
     total = totals[len(totals) // 2]
     return {"volume": list(vol.shape), "mvox_per_s": vol.size / (sweeps_s + consensus_s) / 1e6,
             "sweeps_s": sweeps_s, "consensus_s": consensus_s,
             "runs_s": [[r[2], r[3]] for r in runs], "median_total_s": total,
             "yz_finish_s": stats["yz"]["timing"]["finish_tracking"]["total_s"],
             "axes": axes, "instances_consensus": n_consensus,
-            "dropped_centers": engine.last_overflow,
+            "dropped_centers": engine.last_overflow, "fallbacks": fallbacks,
             "device_busy_s": busy if busy > 0 else "not measured",
             "device_busy_share": busy / sweeps_s if busy > 0 else "not measured",
             "host_syncs_per_batch_xz": syncs / axes["xz"]["n_batches"],
+            "host_sync_sites_xz": sites,
             "kernel_vs_plain": checks,
             "phase_s": time.perf_counter() - t_phase}, launches
 
 
-def f32_ortho_check(api, cfg, MultiChipEngine3d, init_model, engine_kw):
+def f32_ortho_check(api, cfg, MultiChipEngine3d, init_model, engine_kw, paths):
     """Phase 8, float32: an 8 x 128 x 128 volume through infer_orthoplane
     and tracker_consensus on the card and on the CPU (same weights,
-    ``fp32_strict``); the per-axis trackers and the consensus instances
-    must be identical."""
+    ``fp32_strict``), once per path of ``paths`` (name -> engine knobs);
+    the per-axis trackers and the consensus instances must be identical on
+    the card and the CPU, and on the card over the paths."""
     import numpy as np
     import torch
 
     vol = blob_volume((8, 128, 128), 12, seed=13)
-    results, n_inst = [], {}
-    for device in ("cuda", "cpu"):
-        model = init_model(cfg, seed=1, device=device, dtype=torch.float32)
-        eng = MultiChipEngine3d(cfg, model, device=device, **engine_kw)
-        t0 = time.perf_counter()
-        trackers = eng.infer_orthoplane(vol)
-        outs = list(api.tracker_consensus(trackers, None, cfg, pixel_vote_thr=2,
-                                          cluster_iou_thr=0.75, device=device,
-                                          **engine_kw))
-        n_inst[device] = {"seconds": time.perf_counter() - t0,
-                          "per_axis": {a: sum(len(t.instances) for t in trs)
-                                       for a, trs in trackers.items()},
-                          "consensus": sum(len(i) for _, _, i in outs)}
-        results.append(([(a, t.instances) for a, trs in trackers.items() for t in trs],
-                        [i for _, _, i in outs]))
+    models = {d: init_model(cfg, seed=1, device=d, dtype=torch.float32) for d in ("cuda", "cpu")}
 
     def same(a: dict, b: dict) -> bool:
         return list(a) == list(b) and all(
@@ -937,16 +1004,107 @@ def f32_ortho_check(api, cfg, MultiChipEngine3d, init_model, engine_kw):
             and np.array_equal(a[k]["starts"], b[k]["starts"])
             and np.array_equal(a[k]["runs"], b[k]["runs"]) for k in a)
 
-    (card_tr, card_cons), (cpu_tr, cpu_cons) = results
-    same_axes = {a: same(x, y) for (a, x), (_, y) in zip(card_tr, cpu_tr)}
-    same_cons = all(same(x, y) for x, y in zip(card_cons, cpu_cons))
-    rec = {"volume": list(vol.shape), "trackers_identical": same_axes,
-           "consensus_identical": same_cons, "card": n_inst["cuda"], "cpu": n_inst["cpu"]}
+    recs, card = {}, {}
+    for path, knobs in paths.items():
+        results, n_inst = [], {}
+        for device, model in models.items():
+            eng = MultiChipEngine3d(cfg, model, device=device, **engine_kw, **knobs)
+            t0 = time.perf_counter()
+            trackers = eng.infer_orthoplane(vol)
+            outs = list(api.tracker_consensus(trackers, None, cfg, pixel_vote_thr=2,
+                                              cluster_iou_thr=0.75, device=device,
+                                              **engine_kw))
+            n_inst[device] = {"seconds": time.perf_counter() - t0,
+                              "paths": {a: s["path"] for a, s in eng.last_axis_stats.items()},
+                              "per_axis": {a: sum(len(t.instances) for t in trs)
+                                           for a, trs in trackers.items()},
+                              "consensus": sum(len(i) for _, _, i in outs)}
+            results.append(([(a, t.instances) for a, trs in trackers.items() for t in trs],
+                            [i for _, _, i in outs]))
+        (card_tr, card_cons), (cpu_tr, cpu_cons) = results
+        card[path] = results[0]
+        same_axes = {a: same(x, y) for (a, x), (_, y) in zip(card_tr, cpu_tr)}
+        same_cons = all(same(x, y) for x, y in zip(card_cons, cpu_cons))
+        recs[path] = {"trackers_identical": same_axes, "consensus_identical": same_cons,
+                      "card": n_inst["cuda"], "cpu": n_inst["cpu"]}
+        check(all(same_axes.values()) and same_cons,
+              f"f32 ortho {path}: the card's trackers or consensus differ from the CPU's")
+        check(sum(n_inst["cpu"]["per_axis"].values()) > 0, "f32 ortho: no instance tracked")
+    (first, (tr0, cons0)), *rest = card.items()
+    across = {p: all(same(x, y) for (_, x), (_, y) in zip(tr0, tr)) and
+              all(same(x, y) for x, y in zip(cons0, cons)) for p, (tr, cons) in rest}
+    rec = {"volume": list(vol.shape), "paths": recs, f"card_same_as_{first}": across}
     print("f32 ortho: " + json.dumps(rec), flush=True)
-    check(all(same_axes.values()) and same_cons,
-          "f32 ortho: the card's trackers or consensus differ from the CPU's")
-    check(sum(n_inst["cpu"]["per_axis"].values()) > 0, "f32 ortho: no instance tracked")
+    check(all(across.values()), f"f32 ortho: the paths' card results differ: {across}")
     return rec
+
+
+def resume_check(prr, cfg, model, MultiChipEngine3d, data_parallel):
+    """Phase 9: a checkpointed xy sweep of a 24 x 256 x 256 volume at B = 4,
+    crashed after 10 slices (a ``MatcherWorker`` that raises, as the tests
+    crash it), then resumed on the card from its checkpoint directory; the
+    resumed sweep's stack and trackers must equal an uninterrupted sweep's.
+    Returns (the ``resume:`` record, refine launches of the resumed sweep)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    vol = blob_volume((24, 256, 256), 40, seed=17)
+    kw = dict(batch_size=4, save_panoptic=True, min_size=64, min_extent=2)
+    want_stack, want = MultiChipEngine3d(cfg, model, **kw).infer_on_axis(vol, "xy")
+    real_worker, count = data_parallel.MatcherWorker, [0]
+
+    class CrashWorker(real_worker):
+        def put(self, item):
+            if count[0] >= 10:
+                raise RuntimeError("simulated crash")
+            count[0] += 1
+            return super().put(item)
+
+    cdir = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                               "build"))
+    try:
+        data_parallel.MatcherWorker = CrashWorker
+        try:
+            MultiChipEngine3d(cfg, model, **kw).infer_on_axis(vol, "xy", checkpoint_dir=cdir,
+                                                              checkpoint_every=4)
+            fail("resume: the crashing sweep did not crash")
+        except RuntimeError as exc:
+            check("simulated crash" in str(exc), f"resume: unexpected error {exc!r}")
+        finally:
+            data_parallel.MatcherWorker = real_worker
+        segments = sorted(f for f in os.listdir(cdir) if f.startswith("forward_xy."))
+        check(segments, "resume: the crashed sweep left no checkpoint")
+        torch.cuda.synchronize()
+        prr.launches["full"] = 0
+        t0 = time.perf_counter()
+        got_stack, got = MultiChipEngine3d(cfg, model, **kw).infer_on_axis(
+            vol, "xy", checkpoint_dir=cdir, resume=True)
+        seconds = time.perf_counter() - t0
+        launches = prr.launches["full"]
+        left = os.listdir(cdir)
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    same_stack = bool(np.array_equal(got_stack, want_stack))
+    same_trackers = all(
+        list(g.instances) == list(w.instances) and all(
+            tuple(g.instances[k]["box"]) == tuple(w.instances[k]["box"])
+            and np.array_equal(g.instances[k]["starts"], w.instances[k]["starts"])
+            and np.array_equal(g.instances[k]["runs"], w.instances[k]["runs"])
+            for k in w.instances) for g, w in zip(got, want))
+    rec = {"volume": list(vol.shape), "batch": 4, "segments_after_crash": len(segments),
+           "refine_launches_resumed": launches, "resumed_s": seconds,
+           "stack_identical": same_stack, "trackers_identical": same_trackers,
+           "instances": sum(len(t.instances) for t in got), "files_left": left}
+    print("resume: " + json.dumps(rec), flush=True)
+    check(same_stack and same_trackers, "resume: the resumed sweep differs from the "
+          "uninterrupted one")
+    check(not left, f"resume: the finished sweep left {left}")
+    check(launches > 0 and launches % 2 == 0, f"resume: {launches} refine launches")
+    check(rec["instances"] > 0, "resume: no instance tracked")
+    return rec, launches
 
 
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
@@ -1013,6 +1171,7 @@ def main():
     from empanada_tpu_torch.ops import _build
     from empanada_tpu_torch.ops import pointrend_refine as prr
     from empanada_tpu_torch.ops import refine_profile as rp
+    from empanada_tpu_torch.parallel import data_parallel
     from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 
     dev = torch.device("cuda")
@@ -1197,12 +1356,27 @@ def main():
               "steps": step_times}
     print("times: " + json.dumps(timing), flush=True)
 
-    # ---- 7. 3D: the batched xy sweep of a 64 x 512 x 512 volume
+    # ---- 7. 3D: the batched xy sweep of a 64 x 512 x 512 volume at the
+    # auto batch (32, two batches) streamed from the resident volume and
+    # fused, and at B = 8 (8 batches) streamed from the host, streamed from
+    # the resident volume and fused
     vol = blob_volume((64, 512, 512), 300, seed=3)
     engine3d_kw = dict(save_panoptic=True, min_size=64, min_extent=2)
-    results_3d = [sweep_3d(prr, MultiChipEngine3d(cfg, model, batch_size=b, **engine3d_kw),
-                           vol, real_fused) for b in (None, 8)]
-    launches_3d = sum(r["refine_launches"] for r in results_3d)
+    host_streamed = dict(sweep_fused=False, volume_resident=False)
+    resident_streamed = dict(sweep_fused=False)
+    runs_3d = ((None, resident_streamed, "streamed"), (None, {}, "fused"),
+               (8, host_streamed, "streamed"), (8, resident_streamed, "streamed"),
+               (8, {}, "fused"))
+    results_3d = [sweep_3d(prr, MultiChipEngine3d(cfg, model, batch_size=b, **engine3d_kw,
+                                                  **knobs), vol, real_fused)
+                  for b, knobs, _ in runs_3d]
+    check([(r["path"], r["resident"]) for r in results_3d]
+          == [(path, knobs != host_streamed) for _, knobs, path in runs_3d],
+          f"3D: paths {[(r['path'], r['resident']) for r in results_3d]}")
+    check(not any(r["fallbacks"] for r in results_3d),
+          "3D: a fused sweep fell back to the per-slice path")
+    launches_3d = sum(r["refine_launches"] for r in results_3d if r["path"] == "streamed")
+    launches_3d_fused = sum(r["refine_launches"] for r in results_3d if r["path"] == "fused")
     max_err = max([max_err] + [c["max_abs_err"] for r in results_3d
                                for c in r["kernel_vs_plain"]])
     print("3d: " + json.dumps({"card": card, "volume": list(vol.shape),
@@ -1224,15 +1398,27 @@ def main():
                               PanopticDeepLabRenderEngine3d, init_model_from_config)
     print("f32 3d: " + json.dumps(f32_3d), flush=True)
 
-    # ---- 8. ortho: the three sweeps and the consensus of phase 7's volume
+    # ---- 8. ortho: the three sweeps and the consensus of phase 7's volume,
+    # pipelined and fused (the default) and streamed from the host, on the
+    # same volume in the same process
     ortho_kw = dict(min_size=64, min_extent=2)
-    ortho, launches_ortho = ortho_phase(prr, api, MultiChipEngine3d(cfg, model, **ortho_kw),
-                                        cfg, vol, real_fused)
-    max_err = max([max_err] + [c["max_abs_err"] for c in ortho["kernel_vs_plain"]])
-    print("ortho: " + json.dumps({"card": card, **ortho}), flush=True)
+    ortho, launches_ortho = {}, {}
+    for path, knobs in (("pipelined", {}), ("streamed", host_streamed)):
+        ortho[path], launches_ortho[path] = ortho_phase(
+            prr, api, MultiChipEngine3d(cfg, model, **ortho_kw, **knobs), cfg, vol, real_fused)
+        max_err = max([max_err] + [c["max_abs_err"] for c in ortho[path]["kernel_vs_plain"]])
+        print("ortho: " + json.dumps({"card": card, "path": path, **ortho[path]}), flush=True)
+    check(all(a["path"] == "pipelined" for a in ortho["pipelined"]["axes"].values()),
+          "ortho: the default path is not the pipelined one")
+    check(ortho["pipelined"]["fallbacks"] == 0, "ortho: a fused sweep fell back")
     t0 = time.perf_counter()
-    f32_ortho_check(api, cfg, MultiChipEngine3d, init_model_from_config, ortho_kw)
-    print(f"phase 8 seconds: {ortho['phase_s'] + time.perf_counter() - t0:.1f}", flush=True)
+    f32_ortho_check(api, cfg, MultiChipEngine3d, init_model_from_config, ortho_kw,
+                    {"pipelined": {}, "streamed": host_streamed})
+    phase_s = sum(o["phase_s"] for o in ortho.values()) + time.perf_counter() - t0
+    print(f"phase 8 seconds: {phase_s:.1f}", flush=True)
+
+    # ---- 9. resume: a crashed checkpointed sweep resumed on the card
+    resume, launches_resume = resume_check(prr, cfg, model, MultiChipEngine3d, data_parallel)
 
     per_req = [s for s in step_times if s["n"] == 1 and "case" not in s]
     kernels = [{
@@ -1240,9 +1426,13 @@ def main():
         "route": "cuda",
         "source": "empanada_tpu_torch/csrc/pointrend_refine.cu",
         "replaces": "empanada_tpu/ops/pallas_pointrend.py:202",
-        "launches": launches + launches_3d + launches_ortho,
+        "launches": (launches + launches_3d + launches_3d_fused
+                     + sum(launches_ortho.values()) + launches_resume),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
-                             "volume_ortho": launches_ortho},
+                             "volume_xy_fused": launches_3d_fused,
+                             "volume_ortho_pipelined": launches_ortho["pipelined"],
+                             "volume_ortho_streamed": launches_ortho["streamed"],
+                             "volume_xy_resumed": launches_resume},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -201,6 +201,29 @@ class FlatInstances:
         e = np.empty(0, dtype=np.int64)
         return FlatInstances(e, np.empty((0, 4), dtype=np.int64), np.zeros(1, dtype=np.int64), e, e)
 
+    def to_dict(self) -> dict:
+        """The nested ``{label: {"box", "starts", "runs"}}`` form (the
+        starts and runs are views into the flat arrays)."""
+        off = self.offsets.tolist()
+        boxes = self.boxes.tolist()
+        return {label: {"box": tuple(boxes[k]), "starts": self.starts[off[k]: off[k + 1]],
+                        "runs": self.runs[off[k]: off[k + 1]]}
+                for k, label in enumerate(self.labels.tolist())}
+
+    @staticmethod
+    def from_dict(d: dict) -> "FlatInstances":
+        """Inverse of ``to_dict``, instances in the dict's order."""
+        if not d:
+            return FlatInstances.empty()
+        starts = [np.asarray(a["starts"], dtype=np.int64) for a in d.values()]
+        runs = [np.asarray(a["runs"], dtype=np.int64) for a in d.values()]
+        offsets = np.zeros(len(d) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in starts], out=offsets[1:])
+        return FlatInstances(np.fromiter(d.keys(), dtype=np.int64, count=len(d)),
+                             np.array([a["box"] for a in d.values()], dtype=np.int64),
+                             offsets, np.concatenate(starts), np.concatenate(runs))
+
+
 def runs_to_flat(values, rows, col_starts, col_ends, width: int) -> FlatInstances:
     """Group runs by value into a FlatInstances (vectorized over all runs).
 

@@ -35,6 +35,7 @@ __all__ = [
     "extract_runs",
     "runs_build_flat",
     "packed_build_flat",
+    "match_sweep",
     "match_flat_core",
     "merge_groups_flat",
     "solve_spill",
@@ -107,6 +108,11 @@ def load() -> ctypes.CDLL:
         lib.packed_build_flat.argtypes = [vp, i64, i64, i64, i64, i64, ci, ci,
                                           vp, vp, vp, vp, vp, vp]
         lib.packed_build_flat.restype = i64
+        lib.match_sweep.argtypes = [vp, i64, i64, i64, i64, i64,       # packed rows
+                                    i64, i64, ci, ci, ci,              # id window, flags
+                                    ctypes.c_double, ctypes.c_double, i64,
+                                    vp, vp, vp, vp, vp, vp]            # outputs
+        lib.match_sweep.restype = i64
         lib.match_flat_core.argtypes = [vp, vp, vp, vp, vp, i64,   # target flat
                                         vp, vp, vp, vp, vp, i64,   # match flat
                                         ctypes.c_double,           # iou_thr
@@ -287,6 +293,48 @@ def packed_build_flat(row_buf: np.ndarray, width: int, min_id: int, max_id: int,
     k = int(n_inst[0])
     return (labels[:k].copy(), boxes[:k].copy(), offsets[: k + 1].copy(),
             starts[:n_out].copy(), runs[:n_out].copy())
+
+
+def match_sweep(packed_slices: np.ndarray, width: int, min_id: int, max_id: int,
+                force_connected: bool, iou_thr: float, ioa_thr: float,
+                next_label_start: int, match: bool = True, connectivity: int = 8):
+    """One class over a whole sweep in one call: per slice the
+    ``packed_build_flat`` build, then (``match``) the forward matching with
+    fresh ids from ``next_label_start`` and the backward matching, equal to
+    the ``stitch.patterns`` loops.  Without ``match`` the slices are only
+    built, as the streamed path treats a class that is not a thing.
+
+    ``packed_slices``: (n_slices, H, 2R+1) int16 rows of
+    ``ops.postprocess.encode_runs_packed``.  Returns one FlatInstances
+    field tuple (labels, boxes, offsets, starts, runs) per slice, what the
+    backward pass hands the trackers, or the string "fallback" when a
+    slice overflowed its run capacity or, for a connected class, its id
+    window (the per-slice path then raises the proper error)."""
+    lib = load()
+    buf = np.ascontiguousarray(packed_slices, dtype=np.int16)
+    s_n, h, twr = buf.shape
+    rcap = (twr - 1) // 2
+    run_cap = max(1, int(s_n * h * rcap))
+    slice_off = np.empty(s_n + 1, dtype=np.int64)
+    labels = np.empty(run_cap, dtype=np.int64)
+    boxes = np.empty((run_cap, 4), dtype=np.int64)
+    run_off = np.empty(run_cap + 1, dtype=np.int64)
+    starts = np.empty(run_cap, dtype=np.int64)
+    runs = np.empty(run_cap, dtype=np.int64)
+    n = lib.match_sweep(
+        _ptr(buf), s_n, h * twr, h, rcap, int(width), int(min_id), int(max_id),
+        int(force_connected), int(connectivity), int(match), float(iou_thr),
+        float(ioa_thr), int(next_label_start), _ptr(slice_off), _ptr(labels),
+        _ptr(boxes), _ptr(run_off), _ptr(starts), _ptr(runs))
+    if n < 0:
+        return "fallback"
+    out = []
+    for s in range(s_n):
+        k0, k1 = int(slice_off[s]), int(slice_off[s + 1])
+        r0, r1 = int(run_off[k0]), int(run_off[k1])
+        out.append((labels[k0:k1].copy(), boxes[k0:k1].copy(),
+                    run_off[k0:k1 + 1] - r0, starts[r0:r1].copy(), runs[r0:r1].copy()))
+    return out
 
 
 def match_flat_core(tf, mf, iou_thr: float):

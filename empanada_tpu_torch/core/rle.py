@@ -13,8 +13,23 @@ __all__ = [
     "rle_decode",
     "rle_intersection",
     "rle_iou",
+    "rle_to_string",
+    "string_to_rle",
     "numpy_fill_instances",
 ]
+
+
+def rle_to_string(starts, runs) -> str:
+    """The "start run start run ..." text form of an RLE."""
+    return " ".join(f"{int(s)} {int(r)}" for s, r in zip(starts, runs))
+
+
+def string_to_rle(encoding: str):
+    """Parse the "start run start run ..." text form: ``(starts, runs)``."""
+    if not encoding or not encoding.strip():
+        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+    vals = np.array(encoding.split(), dtype=np.int64)
+    return vals[::2].copy(), vals[1::2].copy()
 
 
 def rle_encode(indices: np.ndarray):

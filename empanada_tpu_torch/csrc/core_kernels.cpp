@@ -1284,6 +1284,8 @@ void match_pair(const FlatV& tf, const FlatV& mf, double iou_thr,
 }  // namespace
 
 // Full forward+backward matching over a packed sweep for one class.
+// With match == 0 the slices are only built, as the streamed path builds
+// a class that has no matcher (not in thing_list): no id crosses slices.
 // Returns total output runs of the BACKWARD pass, -1 on packed-capacity
 // overflow of any slice, -2 on per-slice CC-label overflow (caller falls
 // back to the Python path, which raises the proper error).
@@ -1293,7 +1295,7 @@ int64_t match_sweep(
     const int16_t* packed, int64_t n_slices, int64_t slice_stride,
     int64_t h, int64_t rcap, int64_t width,
     int64_t min_id, int64_t max_id, int force_connected, int connectivity,
-    double iou_thr, double ioa_thr, int64_t next_label_start,
+    int match, double iou_thr, double ioa_thr, int64_t next_label_start,
     int64_t* out_slice_off, int64_t* out_labels, int64_t* out_boxes,
     int64_t* out_run_off, int64_t* out_starts, int64_t* out_runs) {
     const int64_t cap = h * rcap;
@@ -1316,7 +1318,9 @@ int64_t match_sweep(
         built.starts.assign(ts.begin(), ts.begin() + n_out);
         built.runs.assign(tr.begin(), tr.begin() + n_out);
         built.compute_areas();
-        if (s == 0) {
+        if (!match) {
+            fstack[s] = std::move(built);
+        } else if (s == 0) {
             // initialize_target_flat: first slice passes through
             if (built.size() > 0) {
                 int64_t mx = built.labels[0];
@@ -1333,7 +1337,7 @@ int64_t match_sweep(
     // backward pass: reversed, assign_new=False, last slice passes through
     std::vector<FlatV> bstack(n_slices);
     for (int64_t s = n_slices - 1; s >= 0; --s) {
-        if (s == n_slices - 1) bstack[s] = fstack[s];
+        if (!match || s == n_slices - 1) bstack[s] = fstack[s];
         else
             match_pair(bstack[s + 1], fstack[s], iou_thr, ioa_thr,
                        /*assign_new=*/false, next_label, bstack[s]);

@@ -308,6 +308,11 @@ class RLEMatcher:
         if len(flat):
             self.next_label = int(flat.labels.max()) + 1
 
+    def update_target(self, flat: "FlatInstances"):
+        """Make ``flat`` the target without touching ``next_label`` (a
+        resumed sweep sets that to its own watermark)."""
+        self._target_flat = flat
+
     def reset_target(self):
         self._target_flat = None
 

@@ -19,13 +19,15 @@ are at least 2 apart and no run can cross from one instance to the next.
 
 from __future__ import annotations
 
+import json
 import math
+import os
 
 import numpy as np
 
 from empanada_tpu_torch.core.boxes import merge_boxes
 from empanada_tpu_torch.core.labeling import FlatInstances
-from empanada_tpu_torch.core.rle import rle_decode, rle_encode
+from empanada_tpu_torch.core.rle import rle_decode, rle_encode, rle_to_string, string_to_rle
 
 __all__ = ["InstanceTracker", "to_box3d"]
 
@@ -119,3 +121,36 @@ class InstanceTracker:
                 inst["starts"] = starts_all[bounds[k]: bounds[k + 1]]
                 inst["runs"] = runs_all[bounds[k]: bounds[k + 1]]
         self.finished = True
+
+    def write_to_json(self, savepath: str):
+        """Finish if needed, then write the tracker as the JSON of the JAX
+        package's tracker (RLEs as "start run ..." strings), atomically: a
+        crash mid-write leaves no truncated file that passes a resume's
+        existence check."""
+        if not self.finished:
+            self.finish()
+        save_dict = {"class_id": self.class_id, "label_divisor": self.label_divisor,
+                     "shape3d": list(self.shape3d), "axis": self.axis, "finished": True,
+                     "instances": {str(k): {"box": [int(b) for b in attrs["box"]],
+                                            "rle": rle_to_string(attrs["starts"],
+                                                                 attrs["runs"])}
+                                   for k, attrs in self.instances.items()}}
+        tmp = savepath + ".tmp"
+        with open(tmp, "w") as handle:
+            json.dump(save_dict, handle, indent=2)
+        os.replace(tmp, savepath)
+
+    def load_from_json(self, fpath: str):
+        """Replace this tracker by the one ``write_to_json`` saved."""
+        with open(fpath) as handle:
+            load_dict = json.load(handle)
+        self.class_id = load_dict["class_id"]
+        self.label_divisor = load_dict["label_divisor"]
+        self.shape3d = tuple(load_dict["shape3d"])
+        self.axis = load_dict["axis"]
+        self.finished = load_dict.get("finished", True)
+        self.instances = {}
+        for k, attrs in load_dict["instances"].items():
+            starts, runs = string_to_rle(attrs["rle"])
+            self.instances[int(k)] = {"box": tuple(attrs["box"]), "starts": starts,
+                                      "runs": runs}

@@ -9,11 +9,24 @@ and the PointRend uncertainty are not near-constant), and the weight bridge
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from empanada_tpu.models import create_model as jax_create_model
 from empanada_tpu_torch.models import create_model as torch_create_model
 from empanada_tpu_torch.port.weights import flatten_variables, load_flax
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's many small CPU ops (autouse in the
+    modules that import it): the suite runs several test processes side by
+    side, and a thread pool per process on shared cores slows each op's
+    parallel region by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # a small PanopticDeepLabPR with every module of MitoNet_v1's chain: resnet18
 # at output stride 16, one low-level stage, an instance decoder, K = 256

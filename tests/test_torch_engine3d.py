@@ -2,7 +2,8 @@
 the CPU: the same small PanopticDeepLabPR weights (flax init, carried over
 by the weight bridge) through ``MultiChipEngine3d`` of both packages (the
 JAX one on a one-device mesh, streamed path: ``sweep_fused=False``,
-``volume_resident=False``).  Tracker instances (ids, boxes, runs) and the
+``volume_resident=False``; the port's streamed path too, its batches sliced
+from the resident volume).  Tracker instances (ids, boxes, runs) and the
 filled panoptic stacks must be identical; the random-weight fixtures hold
 no PointRend top-k ties or Hungarian ties (PARITY "Known divergences" 2
 and 8), so no tie class needs to be excused."""
@@ -10,11 +11,12 @@ and 8), so no tie class needs to be excused."""
 import numpy as np
 import pytest
 
-from _torch_port import SMALL_PR, jax_init, port_model
+from _torch_port import SMALL_PR, jax_init, one_torch_thread, port_model  # noqa: F401
 from conftest import make_blob_image
 from empanada_tpu.parallel.data_parallel import MultiChipEngine3d as JaxEngine3d
 from empanada_tpu.parallel.mesh import create_mesh
 from empanada_tpu_torch.core import native
+from empanada_tpu_torch.parallel import data_parallel as dp
 from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 
 CFG = {
@@ -63,7 +65,7 @@ def _run_both(models, vol, jax_kw=(), **kw):
     jeng = JaxEngine3d(CFG, model_and_variables=(model, variables), sweep_fused=False,
                        volume_resident=False, mesh=create_mesh(1), **ENGINE_KW, **kw,
                        **dict(jax_kw))
-    teng = MultiChipEngine3d(CFG, tmodel, device="cpu", **ENGINE_KW, **kw)
+    teng = MultiChipEngine3d(CFG, tmodel, device="cpu", sweep_fused=False, **ENGINE_KW, **kw)
     want = jeng.infer_on_axis(vol, "xy")
     got = teng.infer_on_axis(vol, "xy")
     assert teng.last_batch_size == jeng.last_batch_size
@@ -120,18 +122,27 @@ def test_xy_sweep_narrow_clamps_max_runs(models):
     _assert_same(got, want)
 
 
-def test_engine_rules(models):
+def test_engine_rules(models, tmp_path):
+    """Checkpointing (A6d) and the fused path's knobs (A6c) are taken;
+    scale > 1 (A6e), stores (item 8), float volumes and unknown axes are
+    refused."""
     _, _, tmodel = models
     eng = MultiChipEngine3d(CFG, tmodel, device="cpu", batch_size=2)
     vol = np.zeros((2, 32, 32), np.uint8)
-    with pytest.raises(NotImplementedError, match="A6d"):
-        eng.infer_on_axis(vol, "xy", checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="A6d"):
-        eng.infer_orthoplane(vol, resume=True)
+    ckpt_dir = tmp_path / "ckpt"
+    stack, trackers = eng.infer_on_axis(vol, "xy", checkpoint_dir=str(ckpt_dir))
+    assert stack is None and [t.class_id for t in trackers] == [1]
+    assert not list(ckpt_dir.iterdir())  # a finished axis leaves no forward state
+    assert set(eng.infer_orthoplane(vol, resume=True)) == {"xy", "xz", "yz"}
     with pytest.raises(ValueError, match="axis 'zx'"):
         eng.infer_on_axis(vol, "zx")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        MultiChipEngine3d(CFG, tmodel, device="cpu", sweep_fused=True)
+    assert (eng.sweep_fused, eng.volume_resident) == ("auto", "auto")
+    assert (dp.SWEEP_FUSED_MAX_BYTES, dp.RESIDENT_MAX_BYTES) == (1 << 30, 256 << 20)
+    assert MultiChipEngine3d(CFG, tmodel, device="cpu", volume_resident=False).sweep_fused
+    for knob, value in (("sweep_fused", "always"), ("sweep_fused", True),
+                        ("volume_resident", True), ("volume_resident", 0)):
+        with pytest.raises(ValueError, match=knob):
+            MultiChipEngine3d(CFG, tmodel, device="cpu", **{knob: value})
     with pytest.raises(NotImplementedError, match="item 8"):
         MultiChipEngine3d(CFG, tmodel, device="cpu", store_url="/tmp/store")
     with pytest.raises(TypeError, match="float"):

@@ -54,6 +54,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     native.load()  # the host library builds from the port's own source
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    assert "empanada_tpu_torch.stitch.checkpoint" in names
     print("imported", len(names), "modules")
 """)
 

@@ -1,8 +1,9 @@
 """The port's ortho-plane path against the JAX package's, in float32 on the
 CPU: the xz and yz sweeps of ``MultiChipEngine3d`` (the JAX engine on a
 one-device mesh, streamed path: ``sweep_fused=False``,
-``volume_resident=False``), ``infer_orthoplane``, and the finishes
-``tracker_consensus`` / ``stack_postprocessing`` on its trackers.  Ids,
+``volume_resident=False``, and the port's likewise), ``infer_orthoplane``,
+and the finishes ``tracker_consensus`` / ``stack_postprocessing`` on its
+trackers.  Ids,
 boxes, starts, runs and filled volumes must be identical; the configs are
 thing-only (the JAX fused path's fault C1 is not reached) and the
 random-weight fixtures hold no PointRend top-k or Hungarian ties (PARITY
@@ -68,7 +69,8 @@ def _engines(models, **kw):
     kw = {**ENGINE_KW, **kw}
     jeng = JaxEngine3d(CFG, model_and_variables=(model, variables), sweep_fused=False,
                        volume_resident=False, mesh=create_mesh(1), **kw)
-    teng = MultiChipEngine3d(CFG, tmodel, device="cpu", **kw)
+    teng = MultiChipEngine3d(CFG, tmodel, device="cpu", sweep_fused=False,
+                             volume_resident=False, **kw)
     return jeng, teng
 
 
