@@ -82,7 +82,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    be identical (``f32 ortho:`` line);
 9. resume: a checkpointed xy sweep of a 24 x 256 x 256 volume at B = 4
    crashed after 10 slices and resumed on the card; its stack and trackers
-   must equal an uninterrupted sweep's (``resume:`` line).
+   must equal an uninterrupted sweep's (``resume:`` line);
+10. engine2d: ``api.Engine2d`` with MitoNet_v1's model: a 512 x 512
+    request equal to PanopticDeepLabRenderEngine + ``force_connected``; a
+    seeded 4096 x 4096 image in 2048 x 2048 tiles (9 tiles, overlap 128):
+    18 refine launches, the kernel held against its plain version on the
+    first tile's real step inputs, wall seconds (the faster of 2 runs)
+    and the device's busy share; a NucleoNet_base_v2 600 x 700 request
+    (padded to 1024 x 1024); ``inference_scale`` 2 on a 1024 x 1024
+    request (3 launches, the third step at sf 8 held against the plain
+    version); a float32 tiled request (300 x 340, tiles of 128) equal on
+    the card and the CPU (``engine2d:`` line);
+11. engine3d: ``api.Engine3d`` over phase 7's volume, slice by slice (2
+    launches a slice; slices/s beside phase 7's fused B = 32 figure),
+    ``MultiChipEngine3d`` at ``inference_scale`` 2 (3 launches a batch, the
+    sf 8 step held against the plain version), both engines' panoptic
+    stacks written into a chunked store and read back equal to the numpy
+    stacks, and in float32 a 16 x 256 x 256 volume whose Engine3d trackers
+    and stack on the card equal MultiChipEngine3d's on the card and
+    Engine3d's on the CPU (``engine3d:`` line).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -148,14 +166,15 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def compare_refine(prr, up, thr, feats, coarse, packed, fused):
+def compare_refine(prr, up, thr, feats, coarse, packed, fused, strict=False):
     """Kernel vs plain version on the same inputs: the mask and every
     copied-through pixel bit-exact, refined pixels within the tolerance of
-    tests/test_pointrend_fused.py.  The kernel takes the head's packed
-    weights, the plain version its fused weights (``fused_weights``), so a
-    fault of the packing shows here.  Returns (max abs error, refined
-    share).  The plain version runs 8 images at a time, to bound its
-    memory."""
+    tests/test_pointrend_fused.py (``strict``: also every refined logit
+    within 2^-7 max(1, |plain logit|), one bf16 step).  The kernel takes the
+    head's packed weights, the plain version its fused weights
+    (``fused_weights``), so a fault of the packing shows here.  Returns
+    (max abs error, refined share).  The plain version runs 8 images at a
+    time, to bound its memory."""
     import torch
 
     got = prr.launch(up, thr, feats, coarse, packed).float()
@@ -175,6 +194,10 @@ def compare_refine(prr, up, thr, feats, coarse, packed, fused):
     check(q_err <= 0.05 * (1 + q_ref), f"refined p99 error {q_err} > 0.05 (1 + {q_ref})")
     check(err.mean().item() < 0.02 * (1 + ref.abs().mean().item()),
           f"refined mean error {err.mean().item()}")
+    if strict:
+        over = err > 2.0 ** -7 * ref.abs().clamp(min=1.0)
+        check(not over.any(), f"{int(over.sum())} refined logits off by more than one bf16 "
+              f"step (max |err| {err.max().item():.4g})")
     return err.max().item(), mask.float().mean().item()
 
 
@@ -1039,6 +1062,19 @@ def f32_ortho_check(api, cfg, MultiChipEngine3d, init_model, engine_kw, paths):
     return rec
 
 
+def same_trackers(got, want) -> bool:
+    """Two lists of trackers with equal instances: ids in the same order,
+    boxes, starts and runs."""
+    import numpy as np
+
+    return len(got) == len(want) and all(
+        list(g.instances) == list(w.instances) and all(
+            tuple(g.instances[k]["box"]) == tuple(w.instances[k]["box"])
+            and np.array_equal(g.instances[k]["starts"], w.instances[k]["starts"])
+            and np.array_equal(g.instances[k]["runs"], w.instances[k]["runs"])
+            for k in w.instances) for g, w in zip(got, want))
+
+
 def resume_check(prr, cfg, model, MultiChipEngine3d, data_parallel):
     """Phase 9: a checkpointed xy sweep of a 24 x 256 x 256 volume at B = 4,
     crashed after 10 slices (a ``MatcherWorker`` that raises, as the tests
@@ -1088,22 +1124,289 @@ def resume_check(prr, cfg, model, MultiChipEngine3d, data_parallel):
     finally:
         shutil.rmtree(cdir, ignore_errors=True)
     same_stack = bool(np.array_equal(got_stack, want_stack))
-    same_trackers = all(
-        list(g.instances) == list(w.instances) and all(
-            tuple(g.instances[k]["box"]) == tuple(w.instances[k]["box"])
-            and np.array_equal(g.instances[k]["starts"], w.instances[k]["starts"])
-            and np.array_equal(g.instances[k]["runs"], w.instances[k]["runs"])
-            for k in w.instances) for g, w in zip(got, want))
     rec = {"volume": list(vol.shape), "batch": 4, "segments_after_crash": len(segments),
            "refine_launches_resumed": launches, "resumed_s": seconds,
-           "stack_identical": same_stack, "trackers_identical": same_trackers,
+           "stack_identical": same_stack, "trackers_identical": same_trackers(got, want),
            "instances": sum(len(t.instances) for t in got), "files_left": left}
     print("resume: " + json.dumps(rec), flush=True)
-    check(same_stack and same_trackers, "resume: the resumed sweep differs from the "
-          "uninterrupted one")
+    check(same_stack and rec["trackers_identical"], "resume: the resumed sweep differs from "
+          "the uninterrupted one")
     check(not left, f"resume: the finished sweep left {left}")
     check(launches > 0 and launches % 2 == 0, f"resume: {launches} refine launches")
     check(rec["instances"] > 0, "resume: no instance tracked")
+    return rec, launches
+
+
+def tile_blob_image(shape, n_blobs, seed):
+    """Seeded EM-like uint8 image of any size: dark Gaussian blobs (sigma
+    8-30 px) on noise, each blob computed in its own window."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = rng.normal(0.5, 0.08, size=shape).astype(np.float32)
+    for _ in range(n_blobs):
+        cy, cx = rng.integers(0, shape[0]), rng.integers(0, shape[1])
+        sig = rng.uniform(8, 30)
+        y0, y1 = max(0, int(cy - 3 * sig)), min(shape[0], int(cy + 3 * sig) + 1)
+        x0, x1 = max(0, int(cx - 3 * sig)), min(shape[1], int(cx + 3 * sig) + 1)
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        img[y0:y1, x0:x1] -= 0.4 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def kept_steps(prr, fn, n):
+    """``fn()`` with the refine wrapper keeping the inputs of its first
+    ``n`` launches; returns (fn's result, the kept inputs)."""
+    launch, kept = prr.launch, []
+
+    def keep(*args):
+        if len(kept) < n:
+            kept.append(args)
+        return launch(*args)
+
+    prr.launch = keep
+    try:
+        out = fn()
+    finally:
+        prr.launch = launch
+    check(len(kept) == n, f"kept {len(kept)} refine steps' inputs, not {n}")
+    return out, kept
+
+
+def hold_steps(prr, kept, fused, label):
+    """The kernel against its plain version on kept step inputs (the mask
+    and copied pixels bit-exact; every refined logit within one bf16 step,
+    2^-7 max(1, |logit|), of the plain one).  Returns the records."""
+    recs = []
+    for up, thr, feats, coarse, packed in kept:
+        sf = up.shape[1] // feats.shape[1]
+        err, share = compare_refine(prr, up, thr, feats, coarse, packed, fused, strict=True)
+        recs.append({"sf": sf, "shape": list(up.shape), "features": list(feats.shape),
+                     "max_abs_err": err, "refined_share": share})
+        print(f"kernel vs plain on {label}: N={len(up)} sf={sf} up {tuple(up.shape[1:3])}: "
+              f"refined {share:.4f}, max |err| {err:.4g}", flush=True)
+    return recs
+
+
+def busy_seconds(fn):
+    """(fn's result, device busy seconds of one call from torch.profiler)."""
+    import torch
+
+    prof = profiled(fn, 1)
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            busy += (getattr(e, "self_cuda_time_total", 0) if t is None else t) / 1e6
+    torch.cuda.synchronize()
+    return busy
+
+
+def counted(prr, fn):
+    """(fn's result, refine launches during it, its wall seconds): the count
+    set to 0 just before the call and read just after."""
+    import torch
+
+    torch.cuda.synchronize()
+    prr.launches["full"] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, prr.launches["full"], time.perf_counter() - t0
+
+
+def engine2d_phase(prr, api, cfg, model, fused, card, f32_models):
+    """Phase 10 (module docstring).  Returns (the ``engine2d:`` record,
+    refine launches per path)."""
+    import numpy as np
+
+    from empanada_tpu_torch.engine import PanopticDeepLabRenderEngine
+    from empanada_tpu_torch.stitch.tile import Tiler
+
+    rec, launches, holds = {"card": card}, {}, {}
+    pre = api.Preprocessor(**cfg["norms"])
+    # (a) one 512 x 512 request: Engine2d against the render engine (its
+    # defaults) followed by force_connected
+    eng = api.Engine2d(cfg, model=model)
+    img = blob_image((512, 512), 40, 21)
+    got, launches["engine2d_512"], _ = counted(prr, lambda: eng.infer(img))
+    ref = PanopticDeepLabRenderEngine(model, thing_list=cfg["thing_list"], label_divisor=1000,
+                                      nms_threshold=0.1, nms_kernel=3, confidence_thr=0.3,
+                                      padding_factor=cfg["padding_factor"],
+                                      coarse_boundaries=True, max_centers=256)
+    want = eng.force_connected(ref(pre(img)["image"], img.shape).astype(np.int64))
+    check(got.dtype == np.int64 and np.array_equal(got, want),
+          "engine2d: Engine2d differs from the render engine + force_connected")
+    check(launches["engine2d_512"] == 2, f"engine2d: {launches['engine2d_512']} launches for "
+          "one request, not 2")
+    rec["request_512"] = {"instances": int(len(np.unique(got[got > 0])))}
+
+    # (b) a 4096 x 4096 image in 2048 x 2048 tiles: 3 x 3 tiles
+    big = tile_blob_image((4096, 4096), 2500, 22)
+    eng.tile_size = 2048
+    tiler = Tiler(big.shape, 2048, 128)
+    check(len(tiler) == 9, f"engine2d: {len(tiler)} tiles, not 9")
+    _, kept = kept_steps(prr, lambda: eng.infer(big), 2)  # warm-up, first tile's steps
+    holds["tile_2048"] = hold_steps(prr, kept, fused, "the first 2048 x 2048 tile")
+    del kept
+    walls = []
+    for _ in range(2):
+        tiled, n, wall = counted(prr, lambda: eng.infer(big))
+        walls.append(wall)
+        check(n == 18, f"engine2d tiled: {n} refine launches for 9 tiles, not 18")
+    launches["engine2d_tiled"] = n
+    busy = busy_seconds(lambda: eng.infer(big))
+    # the tile merge numbers instances from the smallest tile id up, past
+    # the label divisor when there are more (as the JAX package does)
+    ids = np.unique(tiled[tiled > 0])
+    check(tiled.shape == big.shape and tiled.dtype == np.int64 and len(ids) > 0
+          and ids.min() >= 1000, f"engine2d tiled: malformed map, ids {ids[:3]}")
+    wall = min(walls)
+    rec["tiled_4096"] = {"tiles": len(tiler), "tile": 2048, "overlap": tiler.overlap_width,
+                         "wall_s": walls, "seconds_per_image": wall,
+                         "mpix_per_s": big.size / wall / 1e6, "refine_launches": n,
+                         "device_busy_s": busy, "device_busy_share": busy / wall,
+                         "instances": int(len(ids)),
+                         "ids_past_divisor": int((ids >= 2000).sum()),
+                         "dropped_centers": eng.last_overflow}
+    eng.tile_size = 0
+
+    # (c) NucleoNet_base_v2: a 600 x 700 request padded to 1024 x 1024
+    cfg_n = api.load_config("NucleoNet_base_v2")
+    eng_n = api.Engine2d(cfg_n, model=model)
+    img_n = blob_image((600, 700), 50, 23)
+    (pan_n, kept), n, _ = counted(prr, lambda: kept_steps(prr, lambda: eng_n.infer(img_n), 2))
+    check(n == 2, f"engine2d NucleoNet: {n} launches, not 2")
+    check(kept[1][0].shape[1:3] == (1024, 1024), "engine2d NucleoNet: not padded to 1024")
+    holds["nucleonet_1024"] = hold_steps(prr, kept, fused, "a NucleoNet 1024 x 1024 request")
+    launches["engine2d_nucleonet"] = n
+    rec["nucleonet_600x700"] = {"padded": [1024, 1024],
+                                "instances": int(len(np.unique(pan_n[pan_n > 0])))}
+    del kept
+
+    # (d) inference_scale 2 on a 1024 x 1024 request: a third step at sf 8
+    eng_s = api.Engine2d(cfg, model=model, inference_scale=2)
+    img_s = blob_image((1024, 1024), 80, 24)
+    (pan_s, kept), n, _ = counted(prr, lambda: kept_steps(prr, lambda: eng_s.infer(img_s), 3))
+    check(n == 3, f"engine2d scale 2: {n} launches, not 3")
+    holds["scale2_1024"] = hold_steps(prr, kept, fused, "a scale-2 1024 x 1024 request")
+    check([h["sf"] for h in holds["scale2_1024"]] == [2, 4, 8],
+          f"engine2d scale 2: steps at sf {[h['sf'] for h in holds['scale2_1024']]}")
+    launches["engine2d_scale2"] = n
+    check(pan_s.shape == img_s.shape and (pan_s > 0).any(), "engine2d scale 2: empty map")
+    rec["scale2_1024"] = {"instances": int(len(np.unique(pan_s[pan_s > 0])))}
+    del kept
+
+    # (e) float32: a tiled request on the card against the CPU
+    small = blob_image((300, 340), 12, 25)
+    f32 = [api.Engine2d(cfg, model=m, device=d, tile_size=128).infer(small)
+           for d, m in f32_models.items()]
+    same = float((f32[0] == f32[1]).mean())
+    rec["f32_tiled_300x340"] = {"tile": 128, "equal_share": same,
+                                "instances": [int(len(np.unique(p[p > 0]))) for p in f32]}
+    check(same == 1.0, f"engine2d f32 tiled: card and CPU agree on {same:.6f} of pixels")
+    rec["kernel_vs_plain"] = holds
+    print("engine2d: " + json.dumps(rec), flush=True)
+    return rec, launches
+
+
+
+def engine3d_phase(prr, api, cfg, model, fused, card, vol, fused_record, MultiChipEngine3d,
+                   f32_models):
+    """Phase 11 (module docstring).  Returns (the ``engine3d:`` record,
+    refine launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    rec, launches, holds = {"card": card, "volume": list(vol.shape)}, {}, {}
+    kw = dict(median_kernel_size=3, min_size=64, min_extent=2, save_panoptic=True)
+    # the per-slice engine over phase 7's volume
+    eng = api.Engine3d(cfg, model=model, **kw)
+    (stack, trackers), kept = kept_steps(prr, lambda: eng.infer_on_axis(vol, "xy"), 2)
+    holds["engine3d_slice"] = hold_steps(prr, kept, fused, "an Engine3d slice")
+    del kept
+    (stack, trackers), n, wall = counted(prr, lambda: eng.infer_on_axis(vol, "xy"))
+    check(n == 2 * vol.shape[0], f"engine3d: {n} launches for {vol.shape[0]} slices")
+    launches["engine3d_xy"] = n
+    busy = busy_seconds(lambda: eng.infer_on_axis(vol, "xy"))
+    n_inst = sum(len(t.instances) for t in trackers)
+    check(n_inst > 0 and stack.shape == vol.shape, "engine3d: no instance or bad stack")
+    rec["per_slice"] = {"wall_s": wall, "slices_per_s": vol.shape[0] / wall,
+                        "refine_launches": n, "device_busy_s": busy,
+                        "device_busy_share": busy / wall, "instances": n_inst,
+                        "stages_s": {k: v["total_s"] for k, v in eng.last_timing.items()},
+                        "multichip_fused_b32_slices_per_s": fused_record["slices_per_s"]}
+
+    # MultiChipEngine3d at inference_scale 2 (streamed: slices downsampled
+    # on the host), three refine steps a batch, the third at sf 8
+    eng_s = MultiChipEngine3d(cfg, model, inference_scale=2, **kw)
+    _, kept = kept_steps(prr, lambda: eng_s.infer_on_axis(vol, "xy"), 3)
+    holds["multichip_scale2"] = hold_steps(prr, kept, fused, "a scale-2 3D batch")
+    check([h["sf"] for h in holds["multichip_scale2"]] == [2, 4, 8], "scale 2: steps' sf")
+    del kept
+    (stack_s, tr_s), n, wall_s = counted(prr, lambda: eng_s.infer_on_axis(vol, "xy"))
+    n_batches = -(-vol.shape[0] // eng_s.last_batch_size)
+    check(n == 3 * n_batches, f"scale 2: {n} launches for {n_batches} batches, not 3 each")
+    launches["multichip_xy_scale2"] = n
+    check(not eng_s.last_fused and sum(len(t.instances) for t in tr_s) > 0,
+          "scale 2: fused, or no instance")
+    rec["multichip_scale2"] = {"batch": eng_s.last_batch_size, "n_batches": n_batches,
+                               "wall_s": wall_s, "slices_per_s": vol.shape[0] / wall_s,
+                               "refine_launches": n,
+                               "instances": sum(len(t.instances) for t in tr_s),
+                               "stages_s": {k: v["total_s"]
+                                            for k, v in eng_s.last_timing.items()}}
+
+    # the panoptic stack into a chunked store, read back
+    sdir = tempfile.mkdtemp(prefix="store-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                              "build"))
+    try:
+        stores = {}
+        makers = {"engine3d": lambda url: api.Engine3d(cfg, model=model, store_url=url, **kw),
+                  "multichip": lambda url: MultiChipEngine3d(cfg, model, store_url=url, **kw)}
+        for name, make in makers.items():
+            e = make(os.path.join(sdir, name))
+            (st, _), n, _ = counted(prr, lambda e=e: e.infer_on_axis(vol, "xy"))
+            launches[f"{name}_xy_store"] = n
+            stores[name] = st
+        numpy_stack = {"engine3d": stack,
+                       "multichip": MultiChipEngine3d(cfg, model, **kw).infer_on_axis(
+                           vol, "xy")[0]}
+        from empanada_tpu_torch.core.chunked import open_chunked
+
+        equal = {}
+        for name, st in stores.items():
+            back = open_chunked(os.path.join(sdir, name, "panoptic_xy"))
+            equal[name] = bool(np.array_equal(np.asarray(st), numpy_stack[name])
+                               and np.array_equal(np.asarray(back), numpy_stack[name]))
+        chunks = sorted(os.listdir(os.path.join(sdir, "multichip", "panoptic_xy")))
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    rec["store"] = {"read_back_equal_to_numpy": equal, "files": len(chunks)}
+    check(all(equal.values()), f"engine3d store: read back differs from numpy: {equal}")
+
+    # float32 on a 16 x 256 x 256 volume: Engine3d on the card against the
+    # batched engine on the card and Engine3d on the CPU
+    small = blob_volume((16, 256, 256), 20, seed=11)
+    out = {}
+    for name, make in (("engine3d_card", lambda: api.Engine3d(cfg, model=f32_models["cuda"],
+                                                                **kw)),
+                       ("multichip_card", lambda: MultiChipEngine3d(
+                           cfg, f32_models["cuda"], **kw)),
+                       ("engine3d_cpu", lambda: api.Engine3d(cfg, model=f32_models["cpu"],
+                                                             device="cpu", **kw))):
+        out[name] = make().infer_on_axis(small, "xy")
+    f32 = {k: same_trackers(v[1], out["engine3d_card"][1]) and bool(
+        np.array_equal(v[0], out["engine3d_card"][0])) for k, v in out.items()}
+    rec["f32_16x256x256"] = {"identical_to_engine3d_card": f32,
+                             "instances": sum(len(t.instances)
+                                              for t in out["engine3d_card"][1])}
+    check(all(f32.values()) and rec["f32_16x256x256"]["instances"] > 0,
+          f"engine3d f32: {f32}")
+    rec["kernel_vs_plain"] = holds
+    print("engine3d: " + json.dumps(rec), flush=True)
     return rec, launches
 
 
@@ -1420,6 +1723,20 @@ def main():
     # ---- 9. resume: a crashed checkpointed sweep resumed on the card
     resume, launches_resume = resume_check(prr, cfg, model, MultiChipEngine3d, data_parallel)
 
+    # ---- 10. engine2d: the public 2D engine (a request, a tiled 4096 x
+    # 4096 image, NucleoNet_base_v2 at padding 512, scale 2, f32 tiled)
+    t0 = time.perf_counter()
+    f32_models = {"cuda": gpu_model, "cpu": cpu_model}
+    _, launches_2d = engine2d_phase(prr, api, cfg, model, real_fused, card, f32_models)
+    print(f"phase 10 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
+    # ---- 11. engine3d: the per-slice engine beside the batched one, scale 2,
+    # stores, f32
+    t0 = time.perf_counter()
+    _, launches_3d_api = engine3d_phase(prr, api, cfg, model, real_fused, card, vol,
+                                        results_3d[1], MultiChipEngine3d, f32_models)
+    print(f"phase 11 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     per_req = [s for s in step_times if s["n"] == 1 and "case" not in s]
     kernels = [{
         "name": "pointrend_refine",
@@ -1427,12 +1744,14 @@ def main():
         "source": "empanada_tpu_torch/csrc/pointrend_refine.cu",
         "replaces": "empanada_tpu/ops/pallas_pointrend.py:202",
         "launches": (launches + launches_3d + launches_3d_fused
-                     + sum(launches_ortho.values()) + launches_resume),
+                     + sum(launches_ortho.values()) + launches_resume
+                     + sum(launches_2d.values()) + sum(launches_3d_api.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
-                             "volume_xy_resumed": launches_resume},
+                             "volume_xy_resumed": launches_resume,
+                             **launches_2d, **launches_3d_api},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -23,6 +23,8 @@ __all__ = [
     "extract_runs",
     "connected_components_runs",
     "runs_to_flat",
+    "runs_to_regions",
+    "label_2d",
     "FlatInstances",
     "decode_runs_packed",
 ]
@@ -268,6 +270,24 @@ def runs_to_flat(values, rows, col_starts, col_ends, width: int) -> FlatInstance
 
     offsets = np.concatenate([group_idx, [len(v)]]).astype(np.int64, copy=False)
     return FlatInstances(labels, boxes, offsets, starts_flat, lens)
+
+
+def runs_to_regions(values, rows, col_starts, col_ends, width: int) -> dict:
+    """Runs grouped by value: ``{label: {"box": (y1, x1, y2, x2), "starts",
+    "runs"}}`` with flat starts ``row * width + col_start``."""
+    return runs_to_flat(values, rows, col_starts, col_ends, width).to_dict()
+
+
+def label_2d(seg: np.ndarray, connectivity: int = 8) -> np.ndarray:
+    """Connected components of a dense multilabel map, numbered from 1 in
+    row-major order of first appearance; pixels of different values never
+    merge."""
+    values, rows, cs, ce = extract_runs(seg)
+    comp = connected_components_runs(values, rows, cs, ce, connectivity)
+    out = np.zeros(seg.shape, dtype=np.int64)
+    for v, r, s, e in zip(comp, rows, cs, ce):
+        out[r, s:e] = v
+    return out
 
 
 def decode_runs_packed(row_buf: np.ndarray, width: int):

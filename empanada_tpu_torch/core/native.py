@@ -31,6 +31,7 @@ __all__ = [
     "connected_components_runs",
     "batch_pair_intersection",
     "fill_ranges",
+    "chunk_split_ranges",
     "box_overlap_pairs",
     "extract_runs",
     "runs_build_flat",
@@ -127,6 +128,8 @@ def load() -> ctypes.CDLL:
         lib.vote_ranges.restype = i64
         lib.vote_sorted_sets.argtypes = [vp, vp, i64, i64, vp]
         lib.vote_sorted_sets.restype = i64
+        lib.chunk_split_ranges.argtypes = [vp, i64, i64, i64, vp, i64]
+        lib.chunk_split_ranges.restype = i64
         _LIB = lib
         return lib
 
@@ -190,6 +193,25 @@ def fill_ranges(flat: np.ndarray, ranges, value):
         lib.fill_ranges_i64(_ptr(flat), _ptr(r), len(r), int(value))
     else:
         raise TypeError(f"unsupported fill dtype {flat.dtype}")
+
+
+def chunk_split_ranges(ranges, modulo: int, divisor: int) -> np.ndarray:
+    """[start, end) ranges split wherever ``p % modulo`` crosses a multiple
+    of ``divisor`` or wraps, so each piece lies in one chunk along that
+    axis; (k, 2) int64."""
+    lib = load()
+    r = _i64(ranges).reshape(-1, 2)
+    lens = r[:, 1] - r[:, 0]
+    # pieces: one per range, plus one per divisor boundary and per wrap
+    # crossed; the kernel returns -1 when the buffer is short
+    cap = int(2 * len(r) + (lens // max(divisor, 1)).sum()
+              + (lens // max(modulo, 1)).sum() + 8)
+    while True:
+        out = np.empty((cap, 2), dtype=np.int64)
+        n = lib.chunk_split_ranges(_ptr(r), len(r), int(modulo), int(divisor), _ptr(out), cap)
+        if n >= 0:
+            return out[:n].copy()
+        cap *= 4
 
 
 def box_overlap_pairs(boxes1, boxes2=None) -> np.ndarray:

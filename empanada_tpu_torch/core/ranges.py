@@ -20,7 +20,9 @@ import numpy as np
 from empanada_tpu_torch.core import native
 
 __all__ = [
+    "rle_to_ranges",
     "ranges_to_rle",
+    "invert_ranges",
     "concat_sort_ranges",
     "join_ranges",
     "intersection_from_ranges",
@@ -33,6 +35,22 @@ __all__ = [
 _MAX_SORTED_SETS = 64
 
 _EMPTY = np.empty((0, 2), dtype=np.int64)
+
+
+def rle_to_ranges(rle: np.ndarray) -> np.ndarray:
+    """Convert an ``(n, 2)`` array of (start, run) pairs to (start, end) ranges."""
+    return np.cumsum(np.asarray(rle), axis=1)
+
+
+def invert_ranges(ranges: np.ndarray, size: int) -> np.ndarray:
+    """Complement of sorted disjoint ranges within ``[0, size)``."""
+    ranges = np.asarray(ranges).reshape(-1, 2)
+    if len(ranges) == 0:
+        return np.array([[0, size]], dtype=np.int64)
+    gap_starts = np.concatenate([[0], ranges[:, 1]])
+    gap_ends = np.concatenate([ranges[:, 0], [size]])
+    keep = gap_starts < gap_ends
+    return np.stack([gap_starts[keep], gap_ends[keep]], axis=1).astype(np.int64)
 
 
 def ranges_to_rle(ranges: np.ndarray) -> np.ndarray:

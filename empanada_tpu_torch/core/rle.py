@@ -1,6 +1,6 @@
 """Run-length codec over flat voxel indices (counterpart of
-``empanada_tpu/core/rle.py``): encode, decode, intersection and IoU, and
-the volume fill."""
+``empanada_tpu/core/rle.py``): encode, decode, union, intersection, IoU
+and IoA, and the volume fill."""
 
 from __future__ import annotations
 
@@ -11,8 +11,11 @@ from empanada_tpu_torch.core import ranges as R
 __all__ = [
     "rle_encode",
     "rle_decode",
+    "merge_rles",
     "rle_intersection",
     "rle_iou",
+    "rle_ioa",
+    "rle_area",
     "rle_to_string",
     "string_to_rle",
     "numpy_fill_instances",
@@ -58,6 +61,21 @@ def rle_decode(starts: np.ndarray, runs: np.ndarray) -> np.ndarray:
     return np.cumsum(out)
 
 
+def _rle_ranges(starts, runs) -> np.ndarray:
+    starts = np.asarray(starts, dtype=np.int64)
+    return np.stack([starts, starts + np.asarray(runs, dtype=np.int64)], axis=1)
+
+
+def merge_rles(starts_a, runs_a, starts_b=None, runs_b=None):
+    """Union of two RLEs (or the merge of one) into one sorted RLE of
+    disjoint runs, touching runs joined: ``(starts, runs)``."""
+    sets = [_rle_ranges(starts_a, runs_a)]
+    if starts_b is not None and runs_b is not None:
+        sets.append(_rle_ranges(starts_b, runs_b))
+    rle = R.ranges_to_rle(R.join_ranges(sets))
+    return rle[:, 0], rle[:, 1]
+
+
 def rle_intersection(starts_a, runs_a, starts_b, runs_b) -> int:
     """Number of overlapping indices between two RLEs."""
     ranges_a = np.stack([starts_a, np.asarray(starts_a) + np.asarray(runs_a)], axis=1)
@@ -73,6 +91,20 @@ def rle_iou(starts_a, runs_a, starts_b, runs_b, return_intersection: bool = Fals
     if return_intersection:
         return iou, inter
     return iou
+
+
+def rle_ioa(starts_a, runs_a, starts_b, runs_b, return_intersection: bool = False):
+    """Intersection over the area of the *second* RLE."""
+    inter = rle_intersection(starts_a, runs_a, starts_b, runs_b)
+    area = rle_area(runs_b)
+    ioa = inter / area if area > 0 else 0.0
+    if return_intersection:
+        return ioa, inter
+    return ioa
+
+
+def rle_area(runs) -> int:
+    return int(np.asarray(runs).sum())
 
 
 def numpy_fill_instances(volume: np.ndarray, instances: dict) -> np.ndarray:

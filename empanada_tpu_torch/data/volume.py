@@ -2,9 +2,11 @@
 ``empanada_tpu/data/volume.py``).
 
 Slices are taken along an axis of a numpy array (or any array-like with
-numpy-style indexing) and normalised by the given preprocessor.  The JAX
-package downsamples by a power-of-two ``scale`` with cv2's bilinear resize;
-the port does not depend on cv2, so a scale above 1 raises here.
+numpy-style indexing, such as ``core.chunked.ChunkedArray``), downsampled
+by a power-of-two ``scale`` and normalised by the given preprocessor.  The
+JAX package downsamples with cv2's bilinear resize; the port does not
+depend on cv2 and computes cv2's fixed-point arithmetic for uint8 in numpy,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -18,14 +20,53 @@ from empanada_tpu_torch.core.masks import take
 __all__ = ["resize_by_factor", "factor_pad_numpy", "VolumeDataset"]
 
 
+# cv2's fixed-point resize: weights in units of 2^-11
+_COEF_SCALE = 2048
+
+
+def _linear_taps(n_in: int, n_out: int):
+    """cv2 ``INTER_LINEAR`` taps of one axis: for each output index the two
+    source indices and their integer weights.  The source position is
+    computed in double and rounded to float32, its fraction ``f`` in
+    float32; positions before the first or past the last source pixel
+    clamp to it with ``f = 0``; the weights are ``round(2048 (1 - f))`` and
+    ``round(2048 f)`` (half to even)."""
+    scale = 1.0 / (n_out / n_in)
+    pos = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(pos).astype(np.int64)
+    f = pos - i0.astype(np.float32)
+    clamp = (i0 < 0) | (i0 >= n_in - 1)
+    f[clamp] = 0
+    i0 = np.clip(i0, 0, n_in - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE)).astype(np.int64)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int64)
+    return i0, np.minimum(i0 + 1, n_in - 1), w0, w1
+
+
 def resize_by_factor(image: np.ndarray, scale_factor: int = 1) -> np.ndarray:
-    """Identity at scale 1; the bilinear downsample of a larger scale (cv2's
-    in the JAX package) is not ported yet and raises."""
+    """Bilinear downsample of an (H, W) uint8 image to (ceil(H / s),
+    ceil(W / s)), bit-identical to the JAX package's ``cv2.resize(...,
+    INTER_LINEAR)``: an integer horizontal pass with 11-bit weights, then
+    cv2's vertical pass ``((b0 (r0 >> 4)) >> 16) + ((b1 (r1 >> 4)) >> 16)
+    + 2 >> 2``.  Other dtypes take cv2's float path, which is not ported,
+    and raise at a scale above 1."""
     if scale_factor == 1:
         return image
-    raise NotImplementedError(
-        f"inference_scale {scale_factor} > 1 needs the bilinear downsample, "
-        "which the port does not have yet (it does not depend on cv2)")
+    if image.dtype != np.uint8:
+        raise NotImplementedError(
+            f"resize_by_factor of a {image.dtype} image: only uint8 is bit-identical "
+            "to the JAX package's cv2 resize; scale 1 takes any integer dtype")
+    h, w = image.shape
+    dh, dw = math.ceil(h / scale_factor), math.ceil(w / scale_factor)
+    if (dh, dw) == (h, w):
+        return image.copy()
+    x0, x1, a0, a1 = _linear_taps(w, dw)
+    y0, y1, b0, b1 = _linear_taps(h, dh)
+    src = image.astype(np.int64)
+    rows = src[:, x0] * a0 + src[:, x1] * a1                 # (h, dw)
+    out = (((b0[:, None] * (rows[y0] >> 4)) >> 16)
+           + ((b1[:, None] * (rows[y1] >> 4)) >> 16) + 2) >> 2
+    return out.astype(np.uint8)
 
 
 def factor_pad_numpy(image: np.ndarray, factor: int = 128) -> np.ndarray:
@@ -60,6 +101,7 @@ class VolumeDataset:
         return self.array.shape[self.axis]
 
     def __getitem__(self, idx: int) -> dict:
+        # a ChunkedArray reads only the chunks the slice crosses
         image = np.asarray(take(self.array, idx, self.axis))
         h, w = image.shape
         image = resize_by_factor(image, self.scale)

@@ -38,9 +38,13 @@ Boundary semantics match the median queue: slices closer than
 ``mid = (ks - 1) // 2`` to either end of the stack pass through unmedianed.
 Checkpoint/resume (``checkpoint_dir``) follows ``stitch/checkpoint.py``.
 
-Not ported yet, and refused with ``NotImplementedError`` naming its ROADMAP
-item: ``inference_scale > 1`` (A6e) and chunked stores (``store_url``,
-item 8).
+At ``inference_scale`` s > 1 each slice is downsampled on the host
+(``data.volume.resize_by_factor``, cv2's bilinear, uint8 only) and the
+model renders ``2 + log2(s)`` PointRend steps back to full resolution; such
+a sweep streams from the host, as the JAX engine's does.  The input may be a
+numpy volume or a ``core.chunked.ChunkedArray`` (streamed, slice by slice);
+with ``store_url`` the panoptic stack (``save_panoptic``) is written into a
+chunked store ``<store_url>/panoptic_<axis>`` instead of a numpy array.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from empanada_tpu_torch.core import native
+from empanada_tpu_torch.core.chunked import create_chunked
 from empanada_tpu_torch.core.labeling import FlatInstances
 from empanada_tpu_torch.data.volume import VolumeDataset, factor_pad_numpy
 from empanada_tpu_torch.ops import postprocess as pp
@@ -74,7 +79,7 @@ from empanada_tpu_torch.stitch.patterns import (
     update_trackers,
 )
 from empanada_tpu_torch.stitch.tracker import InstanceTracker
-from empanada_tpu_torch.utils import Progress, StageTimer, resolve_device
+from empanada_tpu_torch.utils import Progress, StageTimer, resolve_device, to_host_async
 
 __all__ = ["MultiChipEngine3d"]
 
@@ -96,6 +101,9 @@ class MultiChipEngine3d:
     to ``device`` (default "cuda", which raises without a GPU unless
     ``device="cpu"``) and computes in its own parameter dtype.
 
+    ``inference_scale``: a power of 2 (module docstring).  ``store_url``:
+    with ``save_panoptic``, the stack goes into the chunked store
+    ``<store_url>/panoptic_<axis>`` (chunks of ``chunk_size``).
     ``sweep_fused``: "auto" fuses every resident sweep with packed rows
     whose outputs fit ``SWEEP_FUSED_MAX_BYTES``, False none.
     ``volume_resident``: "auto" keeps an integer volume of up to
@@ -129,20 +137,15 @@ class MultiChipEngine3d:
         merge_ioa_thr: float = 0.25,
         force_connected: bool = True,
         store_url=None,
+        chunk_size=(256, 256, 256),
         sweep_fused="auto",
         volume_resident="auto",
         device=None,
     ):
         if median_kernel_size % 2 != 1:
             raise ValueError("median_kernel_size must be an odd integer")
-        if inference_scale != 1:
-            raise NotImplementedError(
-                f"inference_scale={inference_scale}: the port runs at scale 1 only; "
-                "the downsample without cv2 is ROADMAP item A6e")
-        if store_url is not None:
-            raise NotImplementedError(
-                "store_url: the port fills numpy volumes only; chunked stores are "
-                "ROADMAP item 8")
+        if inference_scale < 1 or not math.log2(inference_scale).is_integer():
+            raise ValueError(f"inference_scale {inference_scale} must be a power of 2")
         for name, value in (("sweep_fused", sweep_fused), ("volume_resident", volume_resident)):
             if not (value == "auto" or value is False):
                 raise ValueError(f"{name}={value!r}: expected 'auto' or False")
@@ -171,7 +174,10 @@ class MultiChipEngine3d:
         self.merge_ioa_thr = float(merge_ioa_thr)
         self.force_connected = bool(force_connected)
         self.batch_size = batch_size
+        self.inference_scale = int(inference_scale)
         self.save_panoptic = save_panoptic
+        self.store_url = store_url
+        self.chunk_size = tuple(chunk_size)
         self.sweep_fused = sweep_fused
         self.volume_resident = volume_resident
         self.mean = float(model_config["norms"]["mean"])
@@ -194,12 +200,13 @@ class MultiChipEngine3d:
 
     def _resolve_batch(self, volume_shape, axis: int) -> int:
         """Per-axis batch size: explicit if given, else scaled so one batch
-        carries ~AUTO_BATCH_TARGET_PX padded model-input pixels, capped by
-        the axis length and AUTO_BATCH_MAX, then snapped down to the
-        smallest batch with the same number of batches."""
+        carries ~AUTO_BATCH_TARGET_PX padded model-input pixels (after the
+        ``inference_scale`` downsample), capped by the axis length and
+        AUTO_BATCH_MAX, then snapped down to the smallest batch with the
+        same number of batches."""
         if self.batch_size is not None:
             return self.batch_size
-        dims = [s for i, s in enumerate(volume_shape) if i != axis]
+        dims = [-(-s // self.inference_scale) for i, s in enumerate(volume_shape) if i != axis]
         area = max(1, math.prod(d + (-d) % self.padding_factor for d in dims))
         n_slices = volume_shape[axis]
         b = max(1, round(AUTO_BATCH_TARGET_PX / area))
@@ -231,8 +238,9 @@ class MultiChipEngine3d:
     @torch.no_grad()
     def _forward_device(self, x: torch.Tensor, max_value: float):
         """Raw slices (B, H, W) on the device -> (sem in median space, ctr,
-        off) on the device, at scale 1 (two refine steps)."""
-        out = self.model(self.normalize(x, max_value), render_steps=2,
+        off) on the device; ``2 + log2(inference_scale)`` refine steps."""
+        out = self.model(self.normalize(x, max_value),
+                         render_steps=2 + int(math.log2(self.inference_scale)),
                          interpolate_ins=not self.coarse_boundaries)
         return pp.to_median_space(out["sem_logits"]), out["ctr_hmp"], out["offsets"]
 
@@ -257,10 +265,11 @@ class MultiChipEngine3d:
         # to the JAX engine's median in its compute dtype
         med = windows.float().median(dim=1).values.to(windows.dtype)
         sem = torch.where(use_median[:, None, None, None], med, windows[:, self.mid])
+        scale = self.inference_scale
         cells, n_over = pp.get_instance_cells(
-            ctr, off, self.coarse_boundaries, 1, self.nms_threshold, self.nms_kernel,
+            ctr, off, self.coarse_boundaries, scale, self.nms_threshold, self.nms_kernel,
             self.max_centers, return_overflow=True, keep_coarse=True)
-        step = 4 if self.coarse_boundaries else 1
+        step = scale * (4 if self.coarse_boundaries else 1)
         sem_h = pp.harden_median_space(sem, self.confidence_thr)
         pans = pp.merge_semantic_and_instance_coarse(
             sem_h, cells, self.label_divisor, self.thing_list, self.stuff_area,
@@ -279,22 +288,12 @@ class MultiChipEngine3d:
         use = torch.as_tensor(use_median, device=stack.device)
         return self._post_windows(windows, use, ctr, off, crop, max_runs)
 
-    def _to_host(self, t: torch.Tensor):
-        """Start the device-to-host copy of ``t``: (host tensor, CUDA event
-        recorded after the copy, or None on the CPU).  The host bytes may be
-        read only after the event has completed."""
-        if t.device.type != "cuda":
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
     # ------------------------------------------------------------------
     def _resident_ok(self, volume) -> bool:
-        """Whether ``volume`` lives on the card for its sweeps."""
-        if self.volume_resident is False:
+        """Whether ``volume`` lives on the card for its sweeps (never at an
+        ``inference_scale`` above 1, whose slices are downsampled on the
+        host)."""
+        if self.volume_resident is False or self.inference_scale != 1:
             return False
         if not isinstance(volume, np.ndarray) or not np.issubdtype(volume.dtype, np.integer):
             return False
@@ -382,8 +381,8 @@ class MultiChipEngine3d:
                 n_over.append(no)
             del outs, sems
             packed = torch.stack(packed)
-            over_host, _ = self._to_host(torch.stack(n_over).max().reshape(1))
-            packed_host, event = self._to_host(packed)
+            over_host, _ = to_host_async(torch.stack(n_over).max().reshape(1))
+            packed_host, event = to_host_async(packed)
         return {"axis_name": axis_name, "b": b, "n_slices": n_slices, "w": w,
                 "packed": packed_host, "n_over": over_host, "event": event, "pans": pans}
 
@@ -430,7 +429,7 @@ class MultiChipEngine3d:
                     for tracker in trackers:
                         tracker.update(FlatInstances(*per_class[tracker.class_id][idx]), idx)
             bar.update(n_slices)
-            stack = self._finalize_trackers(trackers, volume, timer)
+            stack = self._finalize_trackers(trackers, volume, axis_name, timer)
         else:
             matchers = create_matchers(self.thing_list, self.label_divisor,
                                        self.merge_iou_thr, self.merge_ioa_thr)
@@ -443,7 +442,7 @@ class MultiChipEngine3d:
                                               self.thing_list, self.force_connected)
                     rle_stack.append(apply_matchers_flat(flat_seg, matchers))
                     bar.update()
-            stack = self._finish_axis(rle_stack, matchers, trackers, volume, timer)
+            stack = self._finish_axis(rle_stack, matchers, trackers, volume, axis_name, timer)
         bar.close()
         # the per-slice path taken for what the data did, not for a switch
         fallback = per_class is None and native.available()
@@ -460,7 +459,7 @@ class MultiChipEngine3d:
             "label_divisor": self.label_divisor,
             "labels": [int(c) for c in self.labels],
             "thing_list": [int(c) for c in self.thing_list],
-            "inference_scale": 1,
+            "inference_scale": self.inference_scale,
             "median_kernel_size": self.ks,
             "force_connected": self.force_connected,
             "merge_iou_thr": self.merge_iou_thr,
@@ -484,9 +483,10 @@ class MultiChipEngine3d:
                       timer: Optional[StageTimer] = None, checkpoint_dir=None,
                       checkpoint_every: int = 64, resume: bool = False,
                       progress: bool = False):
-        """(Z, H, W) integer volume, swept along ``axis_name`` ("xy", "xz"
-        or "yz") -> ``(stack, trackers)``: the filled panoptic volume
-        (int32, or None unless ``save_panoptic``) and one finished
+        """(Z, H, W) integer volume (numpy or ``ChunkedArray``), swept along
+        ``axis_name`` ("xy", "xz" or "yz") -> ``(stack, trackers)``: the
+        filled panoptic volume (int32, a ``ChunkedArray`` with
+        ``store_url``, or None unless ``save_panoptic``) and one finished
         ``InstanceTracker`` per label.  ``timer`` collects host stages;
         ``last_timing`` holds its report afterwards.
 
@@ -549,7 +549,9 @@ class MultiChipEngine3d:
             size = tuple(s for i, s in enumerate(volume.shape) if i != axis)
             batch_gen = None
         else:
-            batch_gen = self._batches(VolumeDataset(volume, axis, None, start=feed_batch * b), b)
+            batch_gen = self._batches(VolumeDataset(volume, axis, None,
+                                                    scale=self.inference_scale,
+                                                    start=feed_batch * b), b)
             size = None
 
         trackers = [InstanceTracker(label, self.label_divisor, volume.shape, axis_name)
@@ -681,7 +683,7 @@ class MultiChipEngine3d:
                         overflow_dev = (n_over if overflow_dev is None
                                         else torch.maximum(overflow_dev, n_over))
                         # start the copy now, so it overlaps the next batch
-                        host, event = self._to_host(packed if packed is not None else pans)
+                        host, event = to_host_async(packed if packed is not None else pans)
                     if drain_err:
                         break
                     # the padded tail slices never reach the matcher
@@ -700,21 +702,22 @@ class MultiChipEngine3d:
         timer.add("matcher_busy", worker.stats["busy_s"])
         bar.close()
         n_over = int(overflow_dev) if overflow_dev is not None else 0
-        stack = self._finish_axis(rle_stack, matchers, trackers, volume, timer)
+        stack = self._finish_axis(rle_stack, matchers, trackers, volume, axis_name, timer)
         if fc is not None:
             fc.remove()  # the axis is complete; its partial state is stale
         return stack, trackers, {"dropped_centers": n_over, "fallback": False}
 
-    def _finish_axis(self, rle_stack, matchers, trackers, volume, timer):
+    def _finish_axis(self, rle_stack, matchers, trackers, volume, axis_name, timer):
         """Backward matching with the tracker updates, then
         ``_finalize_trackers``."""
         with timer.stage("backward_matching"):
             for index, flat_seg in backward_matching(rle_stack, matchers, len(rle_stack)):
                 update_trackers(flat_seg, index, trackers)
-        return self._finalize_trackers(trackers, volume, timer)
+        return self._finalize_trackers(trackers, volume, axis_name, timer)
 
-    def _finalize_trackers(self, trackers, volume, timer):
-        """Finish and filter the trackers; the filled volume (or None)."""
+    def _finalize_trackers(self, trackers, volume, axis_name, timer):
+        """Finish and filter the trackers; the filled volume (a numpy array,
+        a chunked store with ``store_url``, or None)."""
         with timer.stage("finish_tracking"):
             finish_tracking(trackers)
         for tracker in trackers:
@@ -722,7 +725,11 @@ class MultiChipEngine3d:
             filters.remove_pancakes(tracker, min_span=self.min_extent)
         if not self.save_panoptic:
             return None
-        stack = np.zeros(volume.shape, dtype=np.int32)
+        if self.store_url is not None:
+            stack = create_chunked(f"{self.store_url.rstrip('/')}/panoptic_{axis_name}",
+                                   volume.shape, self.chunk_size, np.int32)
+        else:
+            stack = np.zeros(volume.shape, dtype=np.int32)
         with timer.stage("fill_volume"):
             fill_panoptic_volume(stack, trackers)
         return stack

@@ -1,6 +1,6 @@
 """Instance and semantic consensus across the trackers of the three
-ortho-plane sweeps (counterpart of ``empanada_tpu/stitch/consensus.py``,
-the tracker merges; the tile merges wait for Engine2d tiling).
+ortho-plane sweeps, and the merges of ``Engine2d``'s tiles (counterpart of
+``empanada_tpu/stitch/consensus.py``).
 
 Instances: box screening -> RLE-IoU weighted object graph -> connected
 components (those smaller than the majority cluster size dropped) -> per
@@ -20,7 +20,8 @@ from itertools import combinations
 import numpy as np
 
 from empanada_tpu_torch.core.boxes import merge_boxes, overlapping_box_pairs
-from empanada_tpu_torch.core.ranges import join_ranges, vote_by_ranges
+from empanada_tpu_torch.core.ranges import join_ranges, ranges_to_rle, vote_by_ranges
+from empanada_tpu_torch.core.rle import rle_ioa
 from empanada_tpu_torch.stitch.graph import Graph, connected_components
 from empanada_tpu_torch.stitch.matcher import _batch_intersections, _instance_areas
 
@@ -30,6 +31,8 @@ MIN_IOU = 1e-2
 __all__ = [
     "merge_objects_from_trackers",
     "merge_semantic_from_trackers",
+    "merge_objects_from_tiles",
+    "merge_semantic_from_tiles",
     "bounding_box_screening",
     "object_iou_graph",
 ]
@@ -249,3 +252,58 @@ def merge_objects_from_trackers(object_trackers, pixel_vote_thr: int = 2,
         resolved = [resolve_component(c) for c in components]
     merged = [attrs for group in resolved for attrs in group]
     return {i + 1: attrs for i, attrs in enumerate(merged)}
+
+
+def merge_semantic_from_tiles(tiles) -> dict:
+    """Union of one semantic class's records across tiles: one record,
+    keyed by the first tile record's id, or ``{}``."""
+    records = [(instance_id, attrs) for tile in tiles for instance_id, attrs in tile.items()]
+    if not records:
+        return {}
+    merged_box = records[0][1]["box"]
+    for _, attrs in records[1:]:
+        merged_box = merge_boxes(merged_box, attrs["box"])
+    seg = join_ranges([_ranges_of(a["starts"], a["runs"]) for _, a in records])
+    return {records[0][0]: {"box": merged_box, "starts": seg[:, 0],
+                            "runs": seg[:, 1] - seg[:, 0]}}
+
+
+def merge_objects_from_tiles(tiles, overlap_rle=None) -> dict:
+    """Union of one thing class's instances across tiles: the components
+    of the object graph (``object_iou_graph``, tiles as sources), numbered
+    from the smallest tile instance id in component order.  A component of
+    one object whose RLE lies more than 10 % inside ``overlap_rle`` (the
+    tiles' shared pixels) is dropped: the neighbouring tile saw no such
+    object."""
+    tile_indices, object_labels = [], []
+    object_boxes, object_starts, object_runs = [], [], []
+    for tile_idx, tile in enumerate(tiles):
+        for instance_id, attrs in tile.items():
+            tile_indices.append(tile_idx)
+            object_labels.append(int(instance_id))
+            object_boxes.append(attrs["box"])
+            object_starts.append(attrs["starts"])
+            object_runs.append(attrs["runs"])
+    if not object_boxes:
+        return {}
+    graph = object_iou_graph(np.array(tile_indices), np.array(object_labels),
+                             np.array(object_boxes), object_starts, object_runs)
+    instance_id = int(np.min(object_labels))
+    instances = {}
+    for cluster in connected_components(graph):
+        cluster = list(cluster)
+        merged_box = graph.nodes[cluster[0]]["box"]
+        for node_id in cluster[1:]:
+            merged_box = merge_boxes(merged_box, graph.nodes[node_id]["box"])
+        voted = join_ranges([_ranges_of(graph.nodes[n]["starts"], graph.nodes[n]["runs"])
+                             for n in cluster])
+        if overlap_rle is not None and len(cluster) < 2 and np.any(voted):
+            rle = ranges_to_rle(voted)
+            if rle_ioa(*overlap_rle, rle[:, 0], rle[:, 1]) > 0.1:
+                continue
+        if np.any(voted):
+            instances[instance_id] = {"box": tuple(int(b) for b in merged_box),
+                                      "starts": voted[:, 0],
+                                      "runs": voted[:, 1] - voted[:, 0]}
+            instance_id += 1
+    return instances

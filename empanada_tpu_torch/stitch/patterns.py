@@ -17,6 +17,7 @@ import threading
 
 import numpy as np
 
+from empanada_tpu_torch.core.chunked import ChunkedArray, chunked_fill_instances
 from empanada_tpu_torch.core.labeling import extract_runs
 from empanada_tpu_torch.core.rle import numpy_fill_instances
 from empanada_tpu_torch.stitch.consensus import (
@@ -36,6 +37,7 @@ __all__ = [
     "backward_matching",
     "update_trackers",
     "finish_tracking",
+    "fill_volume",
     "fill_panoptic_volume",
     "get_axis_trackers_by_class",
     "create_instance_consensus",
@@ -237,10 +239,21 @@ def finish_tracking(trackers):
         tracker.finish()
 
 
-def fill_panoptic_volume(volume: np.ndarray, trackers):
-    """Paint every tracker's instances into the numpy ``volume``, in place."""
+def fill_volume(volume, instances: dict, processes: int = 4):
+    """Paint ``instances`` into a numpy array or a ``ChunkedArray``, in
+    place (a store chunk by chunk, in ``processes`` threads)."""
+    if isinstance(volume, np.ndarray):
+        numpy_fill_instances(volume, instances)
+    elif isinstance(volume, ChunkedArray):
+        chunked_fill_instances(volume, instances, processes)
+    else:
+        raise TypeError(f"Unknown volume type of {type(volume)}")
+
+
+def fill_panoptic_volume(volume, trackers, processes: int = 4):
+    """Paint every tracker's instances into ``volume`` (``fill_volume``)."""
     for tracker in trackers:
-        numpy_fill_instances(volume, tracker.instances)
+        fill_volume(volume, tracker.instances, processes)
 
 
 def get_axis_trackers_by_class(trackers: dict, class_id: int) -> list:

@@ -11,7 +11,7 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["resolve_device", "fp32_strict", "StageTimer", "Progress"]
+__all__ = ["resolve_device", "fp32_strict", "to_host_async", "StageTimer", "Progress"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,6 +33,20 @@ def fp32_strict() -> None:
     checks on the card run in full float32 (cuDNN defaults to TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def to_host_async(t: torch.Tensor):
+    """Start the device-to-host copy of ``t``: (host tensor, CUDA event
+    recorded after the copy, or None for a tensor already on the CPU).  The
+    host bytes may be read only after the event has completed, so a copy
+    started before the next dispatch overlaps it."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 class StageTimer:

@@ -123,9 +123,9 @@ def test_xy_sweep_narrow_clamps_max_runs(models):
 
 
 def test_engine_rules(models, tmp_path):
-    """Checkpointing (A6d) and the fused path's knobs (A6c) are taken;
-    scale > 1 (A6e), stores (item 8), float volumes and unknown axes are
-    refused."""
+    """Checkpointing (A6d), the fused path's knobs (A6c), scale 2 (A6e)
+    and stores (item 8) are taken; a scale that is not a power of 2, float
+    volumes and unknown axes are refused."""
     _, _, tmodel = models
     eng = MultiChipEngine3d(CFG, tmodel, device="cpu", batch_size=2)
     vol = np.zeros((2, 32, 32), np.uint8)
@@ -143,11 +143,13 @@ def test_engine_rules(models, tmp_path):
                         ("volume_resident", True), ("volume_resident", 0)):
         with pytest.raises(ValueError, match=knob):
             MultiChipEngine3d(CFG, tmodel, device="cpu", **{knob: value})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MultiChipEngine3d(CFG, tmodel, device="cpu", store_url="/tmp/store")
+    store = MultiChipEngine3d(CFG, tmodel, device="cpu", batch_size=2, save_panoptic=True,
+                              store_url=str(tmp_path / "store"), chunk_size=(2, 16, 16))
+    assert store.infer_on_axis(vol, "xy")[0].chunks == (2, 16, 16)
     with pytest.raises(TypeError, match="float"):
         eng.infer_on_axis(np.zeros((2, 32, 32), np.float32), "xy")
-    with pytest.raises(NotImplementedError, match="A6e"):
-        MultiChipEngine3d(CFG, tmodel, device="cpu", inference_scale=2)
+    assert MultiChipEngine3d(CFG, tmodel, device="cpu", inference_scale=2).inference_scale == 2
+    with pytest.raises(ValueError, match="power of 2"):
+        MultiChipEngine3d(CFG, tmodel, device="cpu", inference_scale=3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiChipEngine3d(CFG, tmodel)  # no GPU here: the default device raises

@@ -1,6 +1,6 @@
 """Isolation of the PyTorch port: every module of empanada_tpu_torch, and
-chip_smoke.py, imports with jax, flax, empanada_tpu, cv2 and networkx
-blocked (the card's machine has no networkx), and the
+chip_smoke.py, imports with jax, flax, empanada_tpu, cv2, networkx, PIL
+and zarr blocked (the card's machine has none of the last four), and the
 port's native host library builds and loads there too; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
 the entry points default to CUDA and raise, naming device="cpu", when there
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from empanada_tpu_torch import resolve_device
-from empanada_tpu_torch.api import init_model_from_config, load_config
+from empanada_tpu_torch.api import Engine2d, Engine3d, init_model_from_config, load_config
 from empanada_tpu_torch.api.utils import CONFIG_DIR
 from empanada_tpu_torch.engine import PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d
 from empanada_tpu_torch.models import create_model
@@ -31,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2", "networkx")
+    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2", "networkx", "PIL", "zarr")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -54,7 +54,10 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     native.load()  # the host library builds from the port's own source
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    assert "empanada_tpu_torch.stitch.checkpoint" in names
+    for new in ("api.config", "core.chunked", "stitch.tile", "stitch.filters"):
+        assert f"empanada_tpu_torch.{new}" in names, new
+    from empanada_tpu_torch.api import Engine2d, Engine3d
+    from empanada_tpu_torch.data.volume import resize_by_factor
     print("imported", len(names), "modules")
 """)
 
@@ -71,7 +74,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 35  # every module of the port, not an empty walk
+    assert n >= 38  # every module of the port, not an empty walk
 
 
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
@@ -124,6 +127,9 @@ def test_entry_points_raise_without_a_gpu():
             engine(model, thing_list=[1])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiChipEngine3d(load_config("MitoNet_v1"), model)
+    for engine in (Engine2d, Engine3d):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine(load_config("MitoNet_v1"), model=model)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -11,6 +11,7 @@ random-weight fixtures hold no PointRend top-k or Hungarian ties (PARITY
 not merge runs across instances (the JAX tracker's fault C2)."""
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -206,10 +207,16 @@ def test_stack_postprocessing_matches_jax(ortho, kind):
     _assert_same_outputs(got, want)
 
 
-def test_finishes_refuse_stores_and_default_to_cuda(ortho):
+def test_finishes_refuse_stores_and_default_to_cuda(ortho, tmp_path):
+    """With ``store_url`` a finish writes its volume into a chunked store
+    (item 8, no longer refused) equal to the numpy volume; without a GPU
+    the default device raises."""
     got_tr = ortho["thing"][0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        next(api.tracker_consensus(got_tr, "/tmp/store", CFG, device="cpu"))
+    kw = dict(min_size=10, min_extent=1, device="cpu")
+    (store, _, _), = api.tracker_consensus(got_tr, str(tmp_path), CFG, **kw)
+    (volume, _, _), = api.tracker_consensus(got_tr, None, CFG, **kw)
+    np.testing.assert_array_equal(np.asarray(store), volume)
+    assert os.path.isfile(os.path.join(tmp_path, "mito", ".zarray"))
     import torch
 
     if not torch.cuda.is_available():
