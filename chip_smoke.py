@@ -91,8 +91,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     and the device's busy share; a NucleoNet_base_v2 600 x 700 request
     (padded to 1024 x 1024); ``inference_scale`` 2 on a 1024 x 1024
     request (3 launches, the third step at sf 8 held against the plain
-    version); a float32 tiled request (300 x 340, tiles of 128) equal on
-    the card and the CPU (``engine2d:`` line);
+    version, and its device ms beside its bound); a float32 tiled request
+    (300 x 340, tiles of 128) equal on the card and the CPU (``engine2d:``
+    line);
 11. engine3d: ``api.Engine3d`` over phase 7's volume, slice by slice (2
     launches a slice; slices/s beside phase 7's fused B = 32 figure),
     ``MultiChipEngine3d`` at ``inference_scale`` 2 (3 launches a batch, the
@@ -100,7 +101,26 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     stacks written into a chunked store and read back equal to the numpy
     stacks, and in float32 a 16 x 256 x 256 volume whose Engine3d trackers
     and stack on the card equal MultiChipEngine3d's on the card and
-    Engine3d's on the CPU (``engine3d:`` line).
+    Engine3d's on the CPU (``engine3d:`` line);
+12. mini_bc: MitoNet_v1_mini from its config at full width
+    (regnety_6p4gf, fpn_dim 160, 3 BiFPN layers, K = 8192; seeded random
+    weights and BN statistics, bf16) through ``api.Engine2d`` (four 512 x
+    512 requests and one 600 x 700, padded to 640 x 768) and through
+    ``MultiChipEngine3d.infer_on_axis(vol, "xy")`` on phase 7's volume at
+    the auto batch, fused: 0 refine launches (F = 160 takes the torch
+    PointRend path, as JAX takes XLA), the engine's ms, busy share and
+    stage split, the torch steps' device ms beside MitoNet_v1's kernel
+    steps of phase 6, the sweep's slices/s and busy share; in float32 a 16
+    x 256 x 256 sweep and a 256 x 256 request equal on the card and the
+    CPU (``mini:`` line).  ``PanopticDeepLabBC`` at MitoNet_v1's widths
+    (bf16): four 512 x 512 requests through ``BCEngine`` (4 launches a
+    request; the kernel held against its plain version on one request's
+    real step inputs of both heads), a 7-slice stack through ``BCEngine3d``
+    and ``bc_watershed``; in float32 a request's maps on the card within
+    1e-5 of the CPU's and their watershed labels equal; the plain engines
+    ``PanopticDeepLabEngine{,3d}`` with ``PanopticDeepLab`` at MitoNet_v1's
+    widths in float32, a request and a 7-slice stack equal on the card and
+    the CPU (``bc:`` line).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -1294,7 +1314,12 @@ def engine2d_phase(prr, api, cfg, model, fused, card, f32_models):
           f"engine2d scale 2: steps at sf {[h['sf'] for h in holds['scale2_1024']]}")
     launches["engine2d_scale2"] = n
     check(pan_s.shape == img_s.shape and (pan_s > 0).any(), "engine2d scale 2: empty map")
-    rec["scale2_1024"] = {"instances": int(len(np.unique(pan_s[pan_s > 0])))}
+    up8, thr8, feats8 = kept[2][:3]
+    n_weights = sum(q.numel() for layer in fused[0] for q in layer) + 2 + fused[1][0].numel()
+    rec["scale2_1024"] = {"instances": int(len(np.unique(pan_s[pan_s > 0]))),
+                          "sf8_step": {"up": list(up8.shape),
+                                       "launch_ms": device_ms(lambda: prr.launch(*kept[2]), 20),
+                                       **step_bound(up8, thr8, feats8, n_weights)}}
     del kept
 
     # (e) float32: a tiled request on the card against the CPU
@@ -1408,6 +1433,215 @@ def engine3d_phase(prr, api, cfg, model, fused, card, vol, fused_record, MultiCh
     rec["kernel_vs_plain"] = holds
     print("engine3d: " + json.dumps(rec), flush=True)
     return rec, launches
+
+
+def mini_bc_phase(prr, api, cfg, card, vol, kernel_steps, engine3d_kw):
+    """Phase 12 (module docstring).  Returns ({"mini": record, "bc": record},
+    refine launches per path).  ``kernel_steps``: phase 6's records of
+    MitoNet_v1's two kernel steps of one 512 x 512 request."""
+    import numpy as np
+    import torch
+
+    from empanada_tpu_torch.api import init_model_from_config
+    from empanada_tpu_torch.engine import (
+        BCEngine,
+        BCEngine3d,
+        PanopticDeepLabEngine,
+        PanopticDeepLabEngine3d,
+    )
+    from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
+    from empanada_tpu_torch.stitch.watershed import bc_watershed
+
+    bf16 = torch.bfloat16
+    launches = {}
+    pre = api.Preprocessor(**cfg["norms"])
+    requests = [blob_image((512, 512), 40, 200 + s) for s in range(4)]
+    requests.append(blob_image((600, 700), 50, 204))
+
+    # ---- MitoNet_v1_mini at full width: Engine2d and the batched sweep
+    cfg_m = api.load_config("MitoNet_v1_mini")
+    model_m = init_model_from_config(cfg_m, seed=0, device="cuda", dtype=bf16)
+    pr_m = model_m.semantic_pr
+    fdim = pr_m.point_head.fc1.in_features - 1
+    check(pr_m.fused_render == "auto" and fdim == cfg_m["model_kwargs"]["fpn_dim"],
+          f"mini: fused_render {pr_m.fused_render}, F {fdim}")
+    check(not prr.fused_step_supported(256, 256, 128, 128, 1, fdim, bf16),
+          f"mini: the refine kernel claims F = {fdim}")
+    rec = {"card": card, "feature_dim": fdim, "padding_factor": cfg_m["padding_factor"]}
+    eng = api.Engine2d(cfg_m, model=model_m)
+    maps, n, wall = counted(prr, lambda: [eng.infer(img) for img in requests])
+    launches["mini_engine2d"] = n
+    check(n == 0, f"mini: {n} refine launches, not 0 (F = 160 takes the torch path)")
+    for img, pan in zip(requests, maps):
+        check(pan.shape == img.shape and pan.dtype == np.int64, f"mini map {pan.shape}")
+    pf = cfg_m["padding_factor"]
+    padded = tuple(eng.engine._prepare(pre(requests[-1])["image"]).shape[1:3])
+    check(padded == tuple(-(-d // pf) * pf for d in requests[-1].shape),
+          f"mini: {requests[-1].shape} padded to {padded}")
+    img0 = pre(requests[0])["image"]
+    engine_ms = cuda_ms(lambda: eng.engine.dispatch(img0, requests[0].shape), iters=10)
+    rec["engine2d"] = {"requests": len(requests), "padded_last": list(padded),
+                       "wall_s": wall, "refine_launches": n,
+                       "instances": [int(len(np.unique(p[p > 0]))) for p in maps],
+                       "engine_ms_per_512_request": engine_ms,
+                       "stages": stage_times(eng.engine, model_m, img0, engine_ms)}
+    # the plain PointRend steps at F = 160 (torch path) on one request's
+    # real features, beside MitoNet_v1's kernel steps from phase 6
+    x = eng.engine._prepare(img0)
+    with torch.no_grad():
+        sem_x, _ = model_m._encode_decode(x)
+        coarse = model_m.semantic_head(sem_x).permute(0, 2, 3, 1).contiguous()
+        feats = sem_x.permute(0, 2, 3, 1).contiguous()
+        steps, sem = [], coarse
+        for sf in (2, 4):
+            step_ms = device_ms(lambda sem=sem: pr_m.step(sem, coarse, feats), 10)
+            steps.append({"sf": sf, "device_ms": step_ms})
+            sem = pr_m.step(sem, coarse, feats)
+    rec["pointrend_steps"] = {
+        "mini_torch_path": steps, "mini_ms": sum(s["device_ms"] for s in steps),
+        "mitonet_v1_kernel_ms": sum(s["launch_ms"] for s in kernel_steps),
+        "mitonet_v1_kernel_steps": [{"sf": s["sf"], "launch_ms": s["launch_ms"]}
+                                    for s in kernel_steps]}
+    sweep = MultiChipEngine3d(cfg_m, model_m, **engine3d_kw)
+    (stack, trackers), n, _ = counted(prr, lambda: sweep.infer_on_axis(vol, "xy"))
+    check(n == 0, f"mini sweep: {n} refine launches, not 0")
+    launches["mini_volume_xy"] = n
+    walls = []
+    for _ in range(2):
+        (stack, trackers), n, wall = counted(prr, lambda: sweep.infer_on_axis(vol, "xy"))
+        walls.append(wall)
+    busy = busy_seconds(lambda: sweep.infer_on_axis(vol, "xy"))
+    wall = min(walls)
+    n_inst = sum(len(t.instances) for t in trackers)
+    check(sweep.last_fused and not sweep.fallbacks, "mini sweep: not fused, or fell back")
+    check(stack.shape == vol.shape and stack.dtype.name == "int32", "mini sweep: bad stack")
+    rec["volume_xy"] = {"volume": list(vol.shape), "batch": sweep.last_batch_size,
+                        "path": "fused", "wall_s": walls,
+                        "slices_per_s": vol.shape[0] / wall, "device_busy_s": busy,
+                        "device_busy_share": busy / wall, "instances": n_inst,
+                        "refine_launches": n,
+                        "stages_s": {k: v["total_s"] for k, v in sweep.last_timing.items()}}
+    del sweep, stack, trackers
+    # float32: a 16 x 256 x 256 volume and a small request, card against CPU
+    f32_m = {d: init_model_from_config(cfg_m, seed=1, device=d, dtype=torch.float32)
+             for d in ("cuda", "cpu")}
+    small_vol = blob_volume((16, 256, 256), 20, seed=12)
+    runs = {d: MultiChipEngine3d(cfg_m, m, device=d, **engine3d_kw).infer_on_axis(
+        small_vol, "xy") for d, m in f32_m.items()}
+    small = blob_image((256, 256), 12, 13)
+    pans = {d: api.Engine2d(cfg_m, model=m, device=d).infer(small) for d, m in f32_m.items()}
+    rec["f32"] = {
+        "volume_16x256x256": {
+            "trackers_equal": same_trackers(runs["cuda"][1], runs["cpu"][1]),
+            "stack_equal_share": float((runs["cuda"][0] == runs["cpu"][0]).mean()),
+            "instances": sum(len(t.instances) for t in runs["cpu"][1])},
+        "request_256": {"equal_share": float((pans["cuda"] == pans["cpu"]).mean()),
+                        "instances": int(len(np.unique(pans["cpu"][pans["cpu"] > 0])))}}
+    print("mini: " + json.dumps(rec), flush=True)
+    check(rec["f32"]["volume_16x256x256"]["trackers_equal"]
+          and rec["f32"]["volume_16x256x256"]["stack_equal_share"] == 1.0
+          and rec["f32"]["request_256"]["equal_share"] == 1.0,
+          "mini f32: the card differs from the CPU")
+    mini = rec
+    del model_m, f32_m, eng, runs
+
+    # ---- BC at MitoNet_v1's widths: BCEngine (4 launches a request), the
+    # kernel on both heads' real step inputs, BCEngine3d into the watershed
+    bc_cfg = {"arch": "PanopticDeepLabBC", "model_kwargs": cfg["model_kwargs"]}
+    model_bc = init_model_from_config(bc_cfg, seed=0, device="cuda", dtype=bf16)
+    rec = {"card": card}
+    bc = BCEngine(model_bc, padding_factor=cfg["padding_factor"])
+    xs = [pre(img)["image"] for img in requests[:4]]
+    (outs, kept), n, wall = counted(prr, lambda: kept_steps(
+        prr, lambda: [bc(x) for x in xs], 4))
+    launches["bc_engine"] = n
+    check(n == 4 * len(xs), f"bc: {n} refine launches for {len(xs)} requests, not 4 each")
+    for img, out in zip(requests, outs):
+        check(out.shape == img.shape + (2,) and bool(np.isfinite(out).all())
+              and 0 <= out.min() and out.max() <= 1, "bc: maps malformed")
+    heads = (model_bc.semantic_pr.point_head, model_bc.boundary_pr.point_head)
+    holds = {}
+    for name, head, kept_head in zip(("semantic", "boundary"), heads, (kept[:2], kept[2:])):
+        holds[name] = hold_steps(prr, kept_head, head.fused_weights(kept_head[0][2].shape[-1]),
+                                 f"the BC {name} head")
+    del kept
+    x_bc = bc._prepare(xs[0])
+    rec["engine"] = {"requests": len(xs), "wall_s": wall, "refine_launches": n,
+                     "engine_ms_per_512_request": cuda_ms(lambda: bc.infer(x_bc), 10),
+                     "device_busy_ms_per_request": busy_seconds(lambda: bc.infer(x_bc)) * 1e3,
+                     "kernel_vs_plain": holds}
+    stack = [pre(blob_image((512, 512), 40, 210 + z))["image"] for z in range(7)]
+    bc3 = BCEngine3d(model_bc, padding_factor=cfg["padding_factor"], median_kernel_size=3)
+
+    def run3d():
+        outs = [bc3(x, size=x.shape[-2:]) for x in stack]
+        return [o for o in outs if o is not None] + bc3.end()
+
+    outs3, n, wall = counted(prr, run3d)
+    launches["bc_engine3d"] = n
+    check(n == 4 * len(stack) and len(outs3) == len(stack),
+          f"bc 3d: {n} launches, {len(outs3)} maps for {len(stack)} slices")
+    vol_bc = (np.stack(outs3).transpose(3, 0, 1, 2) * 255).astype(np.uint8)
+    # thresholds at the stack's own percentiles: random weights give maps
+    # that the defaults (0.9 / 0.8 / 0.85) seed nowhere
+    thr = dict(thres1=np.percentile(vol_bc[0], 90) / 255,
+               thres2=np.percentile(vol_bc[1], 50) / 255,
+               thres3=np.percentile(vol_bc[0], 60) / 255)
+    t0 = time.perf_counter()
+    seg = bc_watershed(vol_bc, **thr)
+    ws_s = time.perf_counter() - t0
+    check(seg.shape == (len(stack),) + stack[0].shape[-2:], f"bc watershed: {seg.shape}")
+    rec["engine3d"] = {"slices": len(stack), "wall_s": wall, "refine_launches": n,
+                       "watershed_s": ws_s, "thresholds": thr,
+                       "instances": int(len(np.unique(seg[seg > 0]))), "dtype": seg.dtype.name}
+    # float32, a small request: the card's maps against the CPU's
+    f32_bc = {d: init_model_from_config(bc_cfg, seed=1, device=d, dtype=torch.float32)
+              for d in ("cuda", "cpu")}
+    small = pre(blob_image((256, 256), 12, 14))["image"]
+    bcs = {d: BCEngine(m, device=d)(small) for d, m in f32_bc.items()}
+    labels = {}
+    for d, out in bcs.items():
+        v = (out.transpose(2, 0, 1) * 255).astype(np.uint8)
+        labels[d] = bc_watershed(v, thres1=np.percentile(v[0], 90) / 255,
+                                 thres2=np.percentile(v[1], 50) / 255,
+                                 thres3=np.percentile(v[0], 60) / 255, min_size=16)
+    err = float(np.abs(bcs["cuda"] - bcs["cpu"]).max())
+    rec["f32_request_256"] = {"max_abs_err": err,
+                              "labels_equal_share": float((labels["cuda"]
+                                                           == labels["cpu"]).mean()),
+                              "instances": int(len(np.unique(labels["cpu"])) - 1)}
+    del f32_bc, model_bc, bc, bc3
+
+    # ---- the plain engines with PanopticDeepLab at MitoNet_v1's widths
+    plain_kw = {k: v for k, v in cfg["model_kwargs"].items()
+                if k not in ("num_fc", "train_num_points", "oversample_ratio",
+                             "importance_sample_ratio", "subdivision_num_points")}
+    plain = {d: init_model_from_config({"arch": "PanopticDeepLab", "model_kwargs": plain_kw},
+                                       seed=2, device=d, dtype=torch.float32)
+             for d in ("cuda", "cpu")}
+    kw = dict(thing_list=cfg["thing_list"], **{k: v for k, v in cfg["FINETUNE"][
+        "engine_params"].items() if k != "thing_list"})
+    small = pre(blob_image((256, 256), 12, 15))["image"]
+    stack = [pre(blob_image((256, 256), 12, 220 + z))["image"] for z in range(7)]
+    out2d, out3d = {}, {}
+    for d, m in plain.items():
+        out2d[d] = PanopticDeepLabEngine(m, device=d, **kw)(small)
+        e3 = PanopticDeepLabEngine3d(m, device=d, median_kernel_size=3, **kw)
+        maps = [e3(x) for x in stack]
+        out3d[d] = np.stack([p for p in maps if p is not None] + e3.end())
+    rec_plain = {"request_256_equal_share": float((out2d["cuda"] == out2d["cpu"]).mean()),
+                 "stack_7x256x256_equal_share": float((out3d["cuda"] == out3d["cpu"]).mean()),
+                 "instances_2d": int(len(np.unique(out2d["cpu"][out2d["cpu"] > 0]))),
+                 "slices": len(out3d["cpu"])}
+    rec["plain_engines_f32"] = rec_plain
+    print("bc: " + json.dumps(rec), flush=True)
+    check(err <= 1e-5 and rec["f32_request_256"]["labels_equal_share"] == 1.0,
+          f"bc f32: card vs CPU max |err| {err}, labels {rec['f32_request_256']}")
+    check(rec_plain["request_256_equal_share"] == 1.0
+          and rec_plain["stack_7x256x256_equal_share"] == 1.0
+          and rec_plain["slices"] == len(stack), f"plain engines f32: {rec_plain}")
+    return {"mini": mini, "bc": rec}, launches
+
 
 
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
@@ -1737,7 +1971,14 @@ def main():
                                         results_3d[1], MultiChipEngine3d, f32_models)
     print(f"phase 11 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 12. mini_bc: MitoNet_v1_mini through the public engines (the
+    # torch PointRend path), the BC model through BCEngine{,3d} and the
+    # watershed, the plain engines
+    t0 = time.perf_counter()
     per_req = [s for s in step_times if s["n"] == 1 and "case" not in s]
+    _, launches_12 = mini_bc_phase(prr, api, cfg, card, vol, per_req, engine3d_kw)
+    print(f"phase 12 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -1745,13 +1986,14 @@ def main():
         "replaces": "empanada_tpu/ops/pallas_pointrend.py:202",
         "launches": (launches + launches_3d + launches_3d_fused
                      + sum(launches_ortho.values()) + launches_resume
-                     + sum(launches_2d.values()) + sum(launches_3d_api.values())),
+                     + sum(launches_2d.values()) + sum(launches_3d_api.values())
+                     + sum(launches_12.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
                              "volume_xy_resumed": launches_resume,
-                             **launches_2d, **launches_3d_api},
+                             **launches_2d, **launches_3d_api, **launches_12},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -141,8 +141,10 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded LeCun-normal weights (flax's default) and zero biases."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                # a transposed conv's weight is (in, out, k, k)
+                fan_in = (m.weight.shape[0] * m.weight[0, 0].numel()
+                          if isinstance(m, nn.ConvTranspose2d) else m.weight[0].numel())
                 w = torch.randn(m.weight.shape, generator=generator)
                 m.weight.copy_(w / math.sqrt(fan_in))
                 if m.bias is not None:

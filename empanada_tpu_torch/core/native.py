@@ -42,6 +42,8 @@ __all__ = [
     "solve_spill",
     "vote_ranges",
     "vote_sorted_sets",
+    "mask_watershed",
+    "gray_watershed",
 ]
 
 # False routes every caller to its numpy formulation
@@ -130,6 +132,10 @@ def load() -> ctypes.CDLL:
         lib.vote_sorted_sets.restype = i64
         lib.chunk_split_ranges.argtypes = [vp, i64, i64, i64, vp, i64]
         lib.chunk_split_ranges.restype = i64
+        lib.mask_watershed.argtypes = [vp, i64, vp, i64, vp, i64, vp]
+        lib.mask_watershed.restype = None
+        lib.gray_watershed.argtypes = [vp, vp, i64, vp, i64, vp, i64, vp]
+        lib.gray_watershed.restype = None
         _LIB = lib
         return lib
 
@@ -212,6 +218,40 @@ def chunk_split_ranges(ranges, modulo: int, divisor: int) -> np.ndarray:
         if n >= 0:
             return out[:n].copy()
         cap *= 4
+
+
+def _watershed_args(mask_flat, marker_locations, neighborhood, output_flat):
+    mask = np.ascontiguousarray(mask_flat, dtype=np.uint8).reshape(-1)
+    ml, nb = _i64(marker_locations), _i64(neighborhood)
+    if output_flat.dtype != np.int64 or not output_flat.flags.c_contiguous:
+        raise ValueError("watershed output must be a C-contiguous int64 array")
+    if output_flat.size != mask.size or (len(ml) and not 0 <= ml.min() <= ml.max() < mask.size):
+        raise ValueError("watershed: output size or marker locations out of range")
+    return mask, ml, nb
+
+
+def mask_watershed(mask_flat, marker_locations, neighborhood, output_flat: np.ndarray):
+    """Flood ``output_flat`` (int64, seeded with the markers' labels) over
+    the nonzero ``mask_flat`` in insertion order from ``marker_locations``,
+    stepping by the flat ``neighborhood`` offsets; in place.  The arrays
+    are padded by the caller so that no step leaves them."""
+    lib = load()
+    mask, ml, nb = _watershed_args(mask_flat, marker_locations, neighborhood, output_flat)
+    lib.mask_watershed(_ptr(mask), mask.size, _ptr(ml), len(ml), _ptr(nb), len(nb),
+                       _ptr(output_flat))
+
+
+def gray_watershed(image_flat, mask_flat, marker_locations, neighborhood,
+                   output_flat: np.ndarray):
+    """``mask_watershed`` in order of (``image_flat`` value, insertion age):
+    the priority flood of skimage's watershed."""
+    lib = load()
+    mask, ml, nb = _watershed_args(mask_flat, marker_locations, neighborhood, output_flat)
+    image = np.ascontiguousarray(image_flat, dtype=np.float32).reshape(-1)
+    if image.size != mask.size:
+        raise ValueError("watershed: image and mask sizes differ")
+    lib.gray_watershed(_ptr(image), _ptr(mask), mask.size, _ptr(ml), len(ml), _ptr(nb),
+                       len(nb), _ptr(output_flat))
 
 
 def box_overlap_pairs(boxes1, boxes2=None) -> np.ndarray:

@@ -1,9 +1,15 @@
 """Inference engines."""
 
 from empanada_tpu_torch.engine.engines import (
+    BCEngine,
+    BCEngine3d,
     MedianQueue,
+    PanopticDeepLabEngine,
+    PanopticDeepLabEngine3d,
     PanopticDeepLabRenderEngine,
     PanopticDeepLabRenderEngine3d,
 )
 
-__all__ = ["MedianQueue", "PanopticDeepLabRenderEngine", "PanopticDeepLabRenderEngine3d"]
+__all__ = ["BCEngine", "BCEngine3d", "MedianQueue", "PanopticDeepLabEngine",
+           "PanopticDeepLabEngine3d", "PanopticDeepLabRenderEngine",
+           "PanopticDeepLabRenderEngine3d"]

@@ -1,12 +1,15 @@
-"""Inference engines for PointRend models (counterpart of
-``empanada_tpu/engine/engines.py``).
+"""Inference engines (counterpart of ``empanada_tpu/engine/engines.py``).
 
-``engine(image, size, upsampling)`` returns a dense panoptic map (numpy),
-or ``None`` while the 3D median queue fills; ``dispatch`` returns the
-unfetched device tensor.  The model forward and the postprocess (harden,
-center NMS, grouping, coarse merge) are queued on the device without a
-host round trip; ``dropped_centers()`` reads the cap's worst-case overflow
-with one fetch.
+The render engines serve every panoptic model: ``engine(image, size,
+upsampling)`` returns a dense panoptic map (numpy), or ``None`` while the
+3D median queue fills; ``dispatch`` returns the unfetched device tensor.
+The model forward and the postprocess (harden, center NMS, grouping,
+coarse merge) are queued on the device without a host round trip;
+``dropped_centers()`` reads the cap's worst-case overflow with one fetch.
+``PanopticDeepLabEngine{,3d}`` are the plain engines (``engine(image)``,
+probabilities medianed, the dense merge at input resolution), and
+``BCEngine{,3d}`` return the sigmoid semantic and boundary maps that
+``stitch.watershed.bc_watershed`` segments.
 """
 
 from __future__ import annotations
@@ -24,8 +27,12 @@ from empanada_tpu_torch.utils import resolve_device
 
 __all__ = [
     "MedianQueue",
+    "PanopticDeepLabEngine",
+    "PanopticDeepLabEngine3d",
     "PanopticDeepLabRenderEngine",
     "PanopticDeepLabRenderEngine3d",
+    "BCEngine",
+    "BCEngine3d",
 ]
 
 
@@ -72,23 +79,41 @@ class MedianQueue:
         return tail
 
 
-class PanopticDeepLabRenderEngine:
-    """PointRend-aware 2D engine: ``__call__(image, size, upsampling)``.
+class _EngineBase:
+    """Holds the model on ``device`` (default "cuda", which raises without a
+    GPU unless ``device="cpu"``); the model computes in its own parameter
+    dtype.  ``model`` is a port model (``empanada_tpu_torch.models``);
+    images are zero-padded to multiples of ``padding_factor``."""
 
-    ``model`` is a port model (``empanada_tpu_torch.models``); it is moved
-    to ``device`` (default "cuda", which raises without a GPU unless
-    ``device="cpu"``) and computes in its own parameter dtype.
-    """
+    def __init__(self, model, device=None, padding_factor: int = 1):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.dtype = next(model.parameters()).dtype
+        self.padding_factor = int(padding_factor)
+
+    def _prepare(self, image) -> torch.Tensor:
+        """(H, W) or (1, H, W) array -> padded (1, H', W', 1) device tensor."""
+        image = np.asarray(image)
+        if image.ndim == 2:
+            image = image[None]
+        if image.ndim != 3 or image.shape[0] != 1:
+            raise ValueError(f"expected an (H, W) or (1, H, W) image, got {image.shape}")
+        x = torch.from_numpy(np.ascontiguousarray(image[..., None], dtype=np.float32))
+        x = x.to(self.device, non_blocking=True).to(self.dtype)
+        return pp.factor_pad(x, self.padding_factor)
+
+
+class PanopticDeepLabEngine(_EngineBase):
+    """Single-slice engine over a plain (non-render) model at input
+    resolution: ``engine(image)`` -> (H, W) int32 panoptic map.  The
+    semantic probabilities are hardened by ``confidence_thr`` (argmax when
+    multiclass) and merged densely with the grouped instances."""
 
     def __init__(self, model, thing_list: Sequence[int], label_divisor: int = 1000,
                  stuff_area: int = 64, void_label: int = 0,
                  nms_threshold: float = 0.1, nms_kernel: int = 7,
-                 confidence_thr: float = 0.5, padding_factor: int = 16,
-                 coarse_boundaries: bool = True, max_centers: int = 256,
-                 device=None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
-        self.dtype = next(model.parameters()).dtype
+                 confidence_thr: float = 0.5, max_centers: int = 256, device=None):
+        super().__init__(model, device)
         self.thing_list = tuple(int(t) for t in thing_list)
         self.label_divisor = int(label_divisor)
         self.stuff_area = int(stuff_area)
@@ -96,7 +121,67 @@ class PanopticDeepLabRenderEngine:
         self.nms_threshold = float(nms_threshold)
         self.nms_kernel = int(nms_kernel)
         self.confidence_thr = float(confidence_thr)
-        self.padding_factor = int(padding_factor)
+        self.max_centers = int(max_centers)
+        self.num_classes = int(model.num_classes) + 1  # class ids are 1-based
+
+    @torch.no_grad()
+    def infer(self, image) -> dict:
+        out = self.model(self._prepare(image))
+        out["sem"] = pp.logits_to_prob(out["sem_logits"])
+        return out
+
+    @torch.no_grad()
+    def postprocess(self, out: dict) -> torch.Tensor:
+        """(1, H, W) int32 panoptic map of one ``infer`` output."""
+        sem = pp.harden_seg(out["sem"], self.confidence_thr)
+        return pp.get_panoptic_segmentation(
+            sem, out["ctr_hmp"], out["offsets"], self.thing_list, self.label_divisor,
+            self.stuff_area, self.void_label, self.nms_threshold, self.nms_kernel,
+            self.num_classes, self.max_centers)
+
+    def __call__(self, image) -> np.ndarray:
+        return self.postprocess(self.infer(image))[0].cpu().numpy()
+
+
+class PanopticDeepLabEngine3d(PanopticDeepLabEngine):
+    """The plain engine with the median queue over z on the probabilities:
+    ``engine(image)`` returns the middle slice's map, or None while the
+    queue fills; ``end()`` drains the rest."""
+
+    def __init__(self, *args, median_kernel_size: int = 3, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.median = MedianQueue(median_kernel_size)
+
+    def __call__(self, image) -> Optional[np.ndarray]:
+        self.median.enqueue(self.infer(image))
+        median_out = self.median.get_next(keys=["sem"])
+        if median_out is None:
+            return None
+        return self.postprocess(median_out)[0].cpu().numpy()
+
+    def end(self):
+        return [self.postprocess(o)[0].cpu().numpy() for o in self.median.end()]
+
+
+class PanopticDeepLabRenderEngine(_EngineBase):
+    """PointRend-aware 2D engine: ``__call__(image, size, upsampling)``.
+    Plain models are served too: their logits are interpolated to the
+    target resolution."""
+
+    def __init__(self, model, thing_list: Sequence[int], label_divisor: int = 1000,
+                 stuff_area: int = 64, void_label: int = 0,
+                 nms_threshold: float = 0.1, nms_kernel: int = 7,
+                 confidence_thr: float = 0.5, padding_factor: int = 16,
+                 coarse_boundaries: bool = True, max_centers: int = 256,
+                 device=None):
+        super().__init__(model, device, padding_factor)
+        self.thing_list = tuple(int(t) for t in thing_list)
+        self.label_divisor = int(label_divisor)
+        self.stuff_area = int(stuff_area)
+        self.void_label = int(void_label)
+        self.nms_threshold = float(nms_threshold)
+        self.nms_kernel = int(nms_kernel)
+        self.confidence_thr = float(confidence_thr)
         self.coarse_boundaries = bool(coarse_boundaries)
         self.max_centers = int(max_centers)
         self.num_classes = int(model.num_classes) + 1  # class ids are 1-based
@@ -151,17 +236,6 @@ class PanopticDeepLabRenderEngine:
         self._track_overflow(n_over)
         return pan
 
-    def _prepare(self, image) -> torch.Tensor:
-        """(H, W) or (1, H, W) array -> padded (1, H', W', 1) device tensor."""
-        image = np.asarray(image)
-        if image.ndim == 2:
-            image = image[None]
-        if image.ndim != 3 or image.shape[0] != 1:
-            raise ValueError(f"expected an (H, W) or (1, H, W) image, got {image.shape}")
-        x = torch.from_numpy(np.ascontiguousarray(image[..., None], dtype=np.float32))
-        x = x.to(self.device, non_blocking=True).to(self.dtype)
-        return pp.factor_pad(x, self.padding_factor)
-
     def _forward_out(self, image, size, upsampling: int):
         """Pad + forward with render_steps = 2 + log2(upsampling); records
         the crop size."""
@@ -212,3 +286,49 @@ class PanopticDeepLabRenderEngine3d(PanopticDeepLabRenderEngine):
             h, w = out["size"]
             final.append(self._post_fused(out, upsampling)[0, :h, :w].cpu().numpy())
         return final
+
+
+class BCEngine(_EngineBase):
+    """Boundary-contour engine: ``engine(image)`` -> (H, W, 2) float32 maps,
+    the sigmoid of the semantic and of the boundary logits (a
+    ``PanopticDeepLabBC`` model), for ``stitch.watershed.bc_watershed``."""
+
+    def __init__(self, model, padding_factor: int = 16, device=None):
+        super().__init__(model, device, padding_factor)
+
+    @torch.no_grad()
+    def infer(self, x: torch.Tensor, render_steps: int = 2) -> dict:
+        out = self.model(x, render_steps=render_steps)
+        sem = torch.sigmoid(out["sem_logits"])
+        cnt = torch.sigmoid(out["cnt_logits"])
+        return {"bc": torch.cat([sem, cnt], dim=-1)}  # (1, H, W, 2)
+
+    def __call__(self, image) -> np.ndarray:
+        h, w = np.shape(image)[-2:]
+        return self.infer(self._prepare(image))["bc"][0, :h, :w].float().cpu().numpy()
+
+
+class BCEngine3d(BCEngine):
+    """BC engine + median queue over z on the (sem, cnt) maps:
+    ``engine(image, size, upsampling)`` returns the middle slice's maps
+    cropped to its recorded size, or None while the queue fills."""
+
+    def __init__(self, *args, median_kernel_size: int = 3, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.median = MedianQueue(median_kernel_size)
+
+    def __call__(self, image, size, upsampling: int = 1) -> Optional[np.ndarray]:
+        if upsampling < 1 or not math.log2(upsampling).is_integer():
+            raise ValueError(f"upsampling {upsampling} must be a power of 2")
+        out = self.infer(self._prepare(image), render_steps=int(2 + math.log2(upsampling)))
+        out["size"] = tuple(size)
+        self.median.enqueue(out)
+        median_out = self.median.get_next(keys=["bc"])
+        if median_out is None:
+            return None
+        h, w = median_out["size"]  # the middle slice's size
+        return median_out["bc"][0, :h, :w].float().cpu().numpy()
+
+    def end(self, upsampling: int = 1):
+        return [o["bc"][0, :o["size"][0], :o["size"][1]].float().cpu().numpy()
+                for o in self.median.end()]

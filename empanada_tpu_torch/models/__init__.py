@@ -1,17 +1,26 @@
-"""Model layer: PyTorch Panoptic-DeepLab models, eval only (counterpart of
-``empanada_tpu/models``; BC, BiFPN and RegNet are not ported yet)."""
+"""Model layer: PyTorch Panoptic-DeepLab and Panoptic-BiFPN models, eval
+only (counterpart of ``empanada_tpu/models``)."""
 
 from __future__ import annotations
 
 import torch
 
-from empanada_tpu_torch.models.panoptic_deeplab import PanopticDeepLab, PanopticDeepLabPR
+from empanada_tpu_torch.models.panoptic_bifpn import PanopticBiFPN, PanopticBiFPNPR
+from empanada_tpu_torch.models.panoptic_deeplab import (
+    PanopticDeepLab,
+    PanopticDeepLabBC,
+    PanopticDeepLabPR,
+)
+from empanada_tpu_torch.models.regnet import RegNet, RegNetParams, regnet_configs
 from empanada_tpu_torch.models.resnet import ResNet, resnet_configs
 from empanada_tpu_torch.utils import resolve_device
 
 MODEL_REGISTRY = {
     "PanopticDeepLab": PanopticDeepLab,
     "PanopticDeepLabPR": PanopticDeepLabPR,
+    "PanopticDeepLabBC": PanopticDeepLabBC,
+    "PanopticBiFPN": PanopticBiFPN,
+    "PanopticBiFPNPR": PanopticBiFPNPR,
 }
 
 
@@ -29,6 +38,12 @@ __all__ = [
     "create_model",
     "PanopticDeepLab",
     "PanopticDeepLabPR",
+    "PanopticDeepLabBC",
+    "PanopticBiFPN",
+    "PanopticBiFPNPR",
     "ResNet",
+    "RegNet",
+    "RegNetParams",
     "resnet_configs",
+    "regnet_configs",
 ]

@@ -15,15 +15,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
+
 __all__ = [
     "BatchNorm",
     "ConvBnAct",
+    "ConvTransposeBnAct",
+    "Interpolate2d",
+    "Resample2d",
+    "Resize2d",
     "SeparableConv",
     "SeparableConvBnAct",
+    "SqueezeExcite",
     "max_pool_2d",
 ]
 
-_ACTS = {"relu": F.relu, None: None}
+_ACTS = {"relu": F.relu, "silu": F.silu, None: None}
 
 
 def max_pool_2d(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:
@@ -101,3 +108,91 @@ class SeparableConvBnAct(nn.Module):
     def forward(self, x):
         x = self.bn(self.sepconv(x))
         return self.act(x) if self.act is not None else x
+
+
+class ConvTransposeBnAct(nn.Module):
+    """Transposed conv with stride == kernel (no bias) + batch norm +
+    activation.  The flax kernel maps to ``tconv.weight`` flipped in space
+    (``port.weights``): flax's ``ConvTranspose`` does not transpose its
+    kernel, so its output tap ``a`` reads kernel tap ``k - 1 - a``."""
+
+    def __init__(self, nin: int, nout: int, kernel_size: int = 2,
+                 activation: Optional[str] = "relu"):
+        super().__init__()
+        self.tconv = nn.ConvTranspose2d(nin, nout, kernel_size, stride=kernel_size,
+                                        bias=False)
+        self.bn = BatchNorm(nout)
+        self.act = _ACTS[activation]
+
+    def forward(self, x):
+        x = self.bn(self.tconv(x))
+        return self.act(x) if self.act is not None else x
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-excite with squeeze factor 4 that gates PER PIXEL: 1x1
+    squeeze (with bias), relu, 1x1 excite (with bias), sigmoid.  There is no
+    pooling: the reference's ``AvgPool2d((1, 1))`` is the identity, and its
+    published SE weights were trained so (PARITY §2.2)."""
+
+    def __init__(self, nin: int):
+        super().__init__()
+        self.squeeze = nn.Conv2d(nin, nin // 4, 1, bias=True)
+        self.excite = nn.Conv2d(nin // 4, nin, 1, bias=True)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.excite(F.relu(self.squeeze(x))))
+
+
+class Resample2d(nn.Module):
+    """1x1 ConvBnAct when the width or the stride changes; otherwise the
+    identity, with no parameters."""
+
+    def __init__(self, nin: int, nout: int, stride: int = 1,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.conv = None
+        if nin != nout or stride > 1:
+            self.conv = ConvBnAct(nin, nout, 1, stride=stride, activation=activation)
+
+    def forward(self, x):
+        return x if self.conv is None else self.conv(x)
+
+
+class Interpolate2d(nn.Module):
+    """Resize by an integer ``scale_factor``: nearest (source index
+    floor(i / s)) or bilinear with the stated corner alignment."""
+
+    def __init__(self, scale_factor: int, mode: str = "nearest",
+                 align_corners: bool = False):
+        super().__init__()
+        if mode not in ("nearest", "bilinear"):
+            raise ValueError(f"mode {mode!r}: expected 'nearest' or 'bilinear'")
+        self.scale_factor = int(scale_factor)
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        if self.mode == "nearest":
+            return F.interpolate(x, scale_factor=self.scale_factor, mode="nearest")
+        s = self.scale_factor
+        return bilinear_resize_nchw(x, (x.shape[2] * s, x.shape[3] * s),
+                                    align_corners=self.align_corners)
+
+
+class Resize2d(nn.Module):
+    """Nearest upsample by ``scale_factor`` ("up"), or a 3x3 max pool at
+    stride ``scale_factor`` with padding 1 ("down")."""
+
+    def __init__(self, scale_factor: int = 2, up_or_down: str = "up"):
+        super().__init__()
+        if up_or_down not in ("up", "down"):
+            raise ValueError(f"up_or_down {up_or_down!r}: expected 'up' or 'down'")
+        self.scale_factor = int(scale_factor)
+        self.up = up_or_down == "up"
+
+    def forward(self, x):
+        if self.up:
+            # at an integer factor, floor(i / s): the JAX package's table
+            return F.interpolate(x, scale_factor=self.scale_factor, mode="nearest")
+        return max_pool_2d(x, 3, self.scale_factor, 1)

@@ -10,6 +10,8 @@ Internally the network runs NCHW in ``channels_last`` memory, so the NHWC
 views of its outputs are free.  With ``interpolate_ins`` False the center
 and offset maps stay at 1/4 resolution (the coarse-boundaries contract);
 the PR variant refines ``sem_logits`` with ``render_steps`` PointRend steps.
+The BC variant returns ``sem_logits`` and ``cnt_logits`` (boundary
+contours), both refined, and no center or offset maps.
 """
 
 from __future__ import annotations
@@ -22,10 +24,26 @@ from torch import nn
 from empanada_tpu_torch.models.decoders import PanopticDeepLabDecoder
 from empanada_tpu_torch.models.heads import PanopticDeepLabHead
 from empanada_tpu_torch.models.point_rend import PointRendSemSegHead
+from empanada_tpu_torch.models.regnet import RegNet, RegNetParams, regnet_configs
 from empanada_tpu_torch.models.resnet import ResNet, resnet_configs
 from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
 
-__all__ = ["PanopticDeepLab", "PanopticDeepLabPR"]
+__all__ = ["PanopticDeepLab", "PanopticDeepLabPR", "PanopticDeepLabBC", "create_encoder"]
+
+
+def create_encoder(name: str, output_stride: int = 32):
+    """(encoder, pyramid widths): a ResNet or RegNet by config name; the
+    widths are those of the encoder's whole pyramid, stem first."""
+    if name in resnet_configs:
+        enc = ResNet(output_stride=output_stride, **resnet_configs[name])
+        return enc, (64,) + enc.widths
+    if name in regnet_configs:
+        params = RegNetParams(**regnet_configs[name])
+        enc = RegNet(params.widths, params.depths, params.groups, use_se=params.use_se,
+                     output_stride=output_stride)
+        return enc, (RegNetParams.w_stem,) + tuple(params.widths)
+    raise ValueError(f"unknown encoder {name!r}; choices: "
+                     f"{sorted(resnet_configs) + sorted(regnet_configs)}")
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +55,8 @@ def _up4(x: torch.Tensor) -> torch.Tensor:
 
 
 class PanopticDeepLab(nn.Module):
+    instance_heads = True  # the center and offset heads
+
     def __init__(self, encoder: str = "resnet50", num_classes: int = 1,
                  stage4_stride: int = 16, decoder_channels: int = 256,
                  low_level_stages: Sequence[int] = (3, 2, 1),
@@ -46,12 +66,8 @@ class PanopticDeepLab(nn.Module):
                  ins_decoder: bool = False, ins_ratio: float = 0.5):
         # aspp_dropout is a training setting: eval dropout is the identity
         super().__init__()
-        if encoder not in resnet_configs:
-            raise ValueError(f"encoder {encoder!r}: this port has the ResNet "
-                             f"family only ({sorted(resnet_configs)})")
         self.num_classes = num_classes
-        self.encoder = ResNet(output_stride=stage4_stride, **resnet_configs[encoder])
-        widths = (64,) + self.encoder.widths
+        self.encoder, widths = create_encoder(encoder, stage4_stride)
         self.semantic_decoder = PanopticDeepLabDecoder(
             widths, decoder_channels, low_level_stages, low_level_channels_project,
             atrous_rates, aspp_channels)
@@ -62,8 +78,9 @@ class PanopticDeepLab(nn.Module):
                 [int(s * ins_ratio) for s in low_level_channels_project],
                 atrous_rates, aspp_channels)
         self.semantic_head = PanopticDeepLabHead(decoder_channels, num_classes)
-        self.ins_center = PanopticDeepLabHead(decoder_channels, 1)
-        self.ins_xy = PanopticDeepLabHead(decoder_channels, 2)
+        if self.instance_heads:
+            self.ins_center = PanopticDeepLabHead(decoder_channels, 1)
+            self.ins_xy = PanopticDeepLabHead(decoder_channels, 2)
 
     def _encode_decode(self, x):
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -108,3 +125,31 @@ class PanopticDeepLabPR(PanopticDeepLab):
         pr = self.semantic_pr(sem, _nhwc(semantic_x), subdivision_steps=render_steps)
         return {"sem_logits": pr["sem_seg_logits"], "ctr_hmp": ctr_hmp,
                 "offsets": offsets}
+
+
+class PanopticDeepLabBC(PanopticDeepLab):
+    """Boundary-contour variant: a semantic and a boundary head, each
+    refined by its own PointRend head; no center or offset heads (the flax
+    model builds them but never calls them, so they hold no parameters)."""
+
+    instance_heads = False
+
+    def __init__(self, *args, num_fc: int = 3, subdivision_num_points: int = 8192,
+                 fused_render: str = "auto", train_num_points: int = 1024,
+                 oversample_ratio: int = 3, importance_sample_ratio: float = 0.75,
+                 **kwargs):
+        # the three sampling settings are training-time; kept so configs load
+        super().__init__(*args, **kwargs)
+        dc = self.semantic_head.predict.in_channels
+        self.boundary_head = PanopticDeepLabHead(dc, 1)
+        pr = (dc, self.num_classes, dc, num_fc, subdivision_num_points, fused_render)
+        self.semantic_pr = PointRendSemSegHead(*pr)
+        self.boundary_pr = PointRendSemSegHead(*pr)
+
+    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True):
+        semantic_x, instance_x = self._encode_decode(x)
+        sem = _nhwc(self.semantic_head(semantic_x))
+        cnt = _nhwc(self.boundary_head(instance_x))
+        sem = self.semantic_pr(sem, _nhwc(semantic_x), subdivision_steps=render_steps)
+        cnt = self.boundary_pr(cnt, _nhwc(instance_x), subdivision_steps=render_steps)
+        return {"sem_logits": sem["sem_seg_logits"], "cnt_logits": cnt["sem_seg_logits"]}

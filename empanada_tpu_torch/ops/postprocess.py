@@ -25,6 +25,7 @@ from empanada_tpu_torch.ops.interpolate import nearest_resize
 __all__ = [
     "factor_pad",
     "bucket_dim",
+    "logits_to_prob",
     "harden_seg",
     "harden_logits",
     "to_median_space",
@@ -34,6 +35,7 @@ __all__ = [
     "get_instance_cells",
     "merge_semantic_and_instance",
     "merge_semantic_and_instance_coarse",
+    "get_panoptic_segmentation",
     "find_instance_centers",
     "encode_runs_packed",
 ]
@@ -63,6 +65,13 @@ def factor_pad(x: torch.Tensor, factor: int = 16, buckets: bool = False) -> torc
     if pad_b == 0 and pad_r == 0:
         return x
     return F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+
+
+def logits_to_prob(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over channels if multiclass, else the sigmoid."""
+    if logits.shape[-1] > 1:
+        return torch.softmax(logits, dim=-1)
+    return torch.sigmoid(logits)
 
 
 def harden_seg(sem_prob: torch.Tensor, confidence_thr: float = 0.5) -> torch.Tensor:
@@ -267,6 +276,20 @@ def merge_semantic_and_instance_coarse(sem, cells_coarse, label_divisor: int,
                          f"{tuple(cells_coarse.shape)} x step {step}")
     cells = cells_coarse[:, :, None, :, None].expand(n, hc, step, wc, step)
     cells = cells.reshape(n, big_h, big_w)
+    ins = torch.where(_thing_mask(sem, thing_list), cells, torch.zeros_like(cells))
+    return merge_semantic_and_instance(sem, ins, label_divisor, thing_list, stuff_area,
+                                       void_label, num_classes, max_centers)
+
+
+def get_panoptic_segmentation(sem, ctr_hmp, offsets, thing_list, label_divisor: int,
+                              stuff_area: int, void_label: int, threshold: float = 0.1,
+                              nms_kernel: int = 7, num_classes: int = 2,
+                              max_centers: int = 256) -> torch.Tensor:
+    """Hardened semantics (N, H, W), ``ctr_hmp`` (N, H, W, 1) and
+    ``offsets`` (N, H, W, 2), all at one resolution -> (N, H, W) int32
+    panoptic maps: center NMS, grouping at step 1, the dense merge."""
+    centers, valid, _ = find_instance_centers(ctr_hmp, threshold, nms_kernel, max_centers)
+    cells = group_pixels(centers, valid, offsets, step=1)
     ins = torch.where(_thing_mask(sem, thing_list), cells, torch.zeros_like(cells))
     return merge_semantic_and_instance(sem, ins, label_divisor, thing_list, stuff_area,
                                        void_label, num_classes, max_centers)

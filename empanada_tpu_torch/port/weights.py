@@ -5,6 +5,10 @@ The port names its submodules after the flax modules, so a flax leaf
 ``params/<a>/<b>/.../<leaf>`` maps to the state-dict key ``a.b....<name>``:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (k, k, 1, C) -> (C, 1, k, k));
+- ``ConvTranspose`` kernel (a ``tconv`` module) HWIO -> ``weight`` IOHW,
+  flipped in space: flax's ``ConvTranspose`` (``transpose_kernel=False``)
+  computes ``y[s*i + a] = x[i] k[s - 1 - a]`` where torch's
+  ``conv_transpose2d`` computes ``y[s*i + a] = x[i] W[a]``;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``;
 - ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
@@ -21,6 +25,7 @@ _RENAME = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
+    ("params", "fusion_weights"): "fusion_weights",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -37,7 +42,9 @@ def flatten_variables(variables, prefix=()) -> dict:
     return flat
 
 
-def _convert(leaf: str, a: np.ndarray) -> np.ndarray:
+def _convert(module: str, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and a.ndim == 4 and module == "tconv":
+        return np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
     if leaf == "kernel" and a.ndim == 4:
         return np.transpose(a, (3, 2, 0, 1))
     if leaf == "kernel" and a.ndim == 2:
@@ -62,7 +69,8 @@ def from_flax(variables, model: torch.nn.Module) -> dict:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: not a port parameter")
         if key in state:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: set twice")
-        t = torch.from_numpy(np.array(_convert(leaf, np.asarray(a)), order="C"))
+        a = _convert(mods[-1] if mods else "", leaf, np.asarray(a))
+        t = torch.from_numpy(np.array(a, order="C"))
         if tuple(t.shape) != tuple(expected[key].shape):
             raise ValueError(f"{key}: flax shape {tuple(t.shape)} != port shape "
                              f"{tuple(expected[key].shape)}")

@@ -2,6 +2,7 @@
 package's, in float32 on the CPU with the same weights (flax values carried
 by the weight bridge): configs with ``BASE`` inheritance and the registry,
 bundles (the port's own format, and a JAX bundle carried into it),
+the other architectures through configs and bundles,
 ``combine_panoptic_maps``, ``Engine2d`` (plain, tiled with objects crossing
 tiles, semantic-only, ``inference_scale`` 2, ``force_connected``,
 ``update_params``) and ``Engine3d`` (an xy sweep whose trackers also equal
@@ -91,18 +92,52 @@ def test_load_config_base_inheritance(tmp_path):
         api.load_config(str(tmp_path / "cycle.yaml"))
 
 
-@pytest.mark.parametrize("name", ["MitoNet_v1", "NucleoNet_base_v2", "DropNet_base_v1"])
+@pytest.mark.parametrize("name", ["MitoNet_v1", "NucleoNet_base_v2", "DropNet_base_v1",
+                                  "MitoNet_v1_mini"])
 def test_registry_configs_are_the_jax_configs(name):
     """The port's copy equals the JAX package's config but for the bundle
     path (the port's own format) and the description."""
     assert sorted(api.get_configs()) == ["DropNet_base_v1", "MitoNet_v1",
-                                         "NucleoNet_base_v2"]
+                                         "MitoNet_v1_mini", "NucleoNet_base_v2"]
     got = api.load_config(name)
     want = jax_api.load_config(jax_api.get_configs()[name])
     for cfg in (got, want):
         cfg.pop("model"), cfg.pop("description")
     assert got == want
-    assert got["padding_factor"] == (16 if name == "MitoNet_v1" else 512)
+    assert got["padding_factor"] == {"MitoNet_v1": 16, "MitoNet_v1_mini": 128}.get(name, 512)
+
+
+BUNDLE_ARCHS = {
+    "PanopticDeepLab": dict(encoder="regnety_200mf", decoder_channels=32,
+                            low_level_stages=[1], low_level_channels_project=[16]),
+    "PanopticDeepLabBC": dict(SMALL_PR),
+    "PanopticBiFPN": dict(encoder="regnety_200mf", fpn_dim=32, fpn_layers=2),
+    "PanopticBiFPNPR": dict(encoder="regnety_200mf", fpn_dim=32, fpn_layers=2,
+                            subdivision_num_points=256),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(BUNDLE_ARCHS))
+def test_architectures_through_configs_and_bundles(arch, tmp_path):
+    """``init_model_from_config`` builds each architecture from its seed
+    alone (the transposed convs too), and its bundle loads back
+    (``load_model_from_config``) with the same weights and the same maps."""
+    cfg = {"arch": arch, "model_kwargs": BUNDLE_ARCHS[arch]}
+    model = api.init_model_from_config(cfg, seed=3, device="cpu")
+    again = api.init_model_from_config(cfg, seed=3, device="cpu")
+    for (k, a), b in zip(model.state_dict().items(), again.state_dict().values()):
+        assert torch.equal(a, b), k
+    path = api.save_model_bundle(str(tmp_path / arch), arch, BUNDLE_ARCHS[arch], model)
+    back = api.load_model_from_config({**cfg, "model": path}, device="cpu")
+    assert type(back) is type(model)
+    for (k, a), (k2, b) in zip(model.state_dict().items(), back.state_dict().items()):
+        assert k == k2 and torch.equal(a, b)
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 1, (1, 128, 128, 1))
+                         .astype(np.float32))
+    with torch.no_grad():
+        out, out_back = model(x), back(x)
+    for k in out:
+        assert torch.equal(out[k], out_back[k])
 
 
 def test_bundle_round_trip_and_a_jax_bundle(tmp_path, models, engines2d):

@@ -20,7 +20,14 @@ import torch
 from empanada_tpu_torch import resolve_device
 from empanada_tpu_torch.api import Engine2d, Engine3d, init_model_from_config, load_config
 from empanada_tpu_torch.api.utils import CONFIG_DIR
-from empanada_tpu_torch.engine import PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d
+from empanada_tpu_torch.engine import (
+    BCEngine,
+    BCEngine3d,
+    PanopticDeepLabEngine,
+    PanopticDeepLabEngine3d,
+    PanopticDeepLabRenderEngine,
+    PanopticDeepLabRenderEngine3d,
+)
 from empanada_tpu_torch.models import create_model
 from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 
@@ -54,7 +61,8 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     native.load()  # the host library builds from the port's own source
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    for new in ("api.config", "core.chunked", "stitch.tile", "stitch.filters"):
+    for new in ("api.config", "core.chunked", "stitch.tile", "stitch.filters",
+                "models.regnet", "models.panoptic_bifpn", "stitch.watershed"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -74,7 +82,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 38  # every module of the port, not an empty walk
+    assert n >= 46  # every module of the port, not an empty walk
 
 
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
@@ -110,6 +118,10 @@ def test_config_is_the_ports_own():
     assert cfg["arch"] == "PanopticDeepLabPR"
     assert cfg["model_kwargs"]["encoder"] == "resnet50"
     assert cfg["model_kwargs"]["subdivision_num_points"] == 8192
+    mini = load_config("MitoNet_v1_mini")
+    assert (mini["arch"], mini["model_kwargs"]["encoder"], mini["padding_factor"]) == (
+        "PanopticBiFPNPR", "regnety_6p4gf", 128)
+    assert mini["model"].endswith(".eptorch")
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -122,9 +134,15 @@ def test_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_model_from_config(load_config("MitoNet_v1"), seed=0)
     model = create_model("PanopticDeepLabPR", device="cpu", **SMALL_PR)
-    for engine in (PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d):
+    for engine in (PanopticDeepLabRenderEngine, PanopticDeepLabRenderEngine3d,
+                   PanopticDeepLabEngine, PanopticDeepLabEngine3d):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             engine(model, thing_list=[1])
+    for engine in (BCEngine, BCEngine3d):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model("PanopticBiFPNPR", encoder="regnety_200mf", fpn_dim=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiChipEngine3d(load_config("MitoNet_v1"), model)
     for engine in (Engine2d, Engine3d):
