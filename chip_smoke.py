@@ -120,7 +120,28 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     1e-5 of the CPU's and their watershed labels equal; the plain engines
     ``PanopticDeepLabEngine{,3d}`` with ``PanopticDeepLab`` at MitoNet_v1's
     widths in float32, a request and a 7-slice stack equal on the card and
-    the CPU (``bc:`` line).
+    the CPU (``bc:`` line);
+13. train: one train step of MitoNet_v1's widths (aspp_dropout 0, fed
+    PointRend points, batch 2, 128 x 128) on the card against the CPU, in
+    float32 and float64: the loss, every gradient (over all and per
+    tensor), the batch statistics, and the card's AdamW update and moments
+    against AdamW's of its own gradients; in float64 also the moments and
+    updated parameters against the CPU's; then MitoNet_v1 at full width trained
+    through ``train.main`` at ``training/train_config.yaml``'s TRAIN
+    defaults (batch 16, 256 x 256 crops, the seven augmentations,
+    PanopticLoss with its PointRend term, AdamW/OneCycle, bf16 autocast)
+    for two epochs on 64 seeded 512 x 512 blob images written as PNG here,
+    validated on 2 (IoU, PQ, F1) through ``PanopticDeepLabEngine``: ms per step
+    split into the host's data loading and the step's dispatch (over all
+    steps, and over steps 2.. without the first's warm-up), the
+    device's step (CUDA events) and busy time (profiler), samples/s, peak
+    memory, host syncs per step and their sites, the losses (falling), the
+    refine launches of ``eval_step`` and ``validate`` (the kernel held
+    against its plain version on validate's real step inputs); and a run
+    crashed after its first epoch's checkpoint and resumed: the state
+    loaded equal to the state saved, bit for bit, and the resumed
+    parameters as close to the straight run's as a second straight run's
+    (``train:`` line).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -1644,6 +1665,466 @@ def mini_bc_phase(prr, api, cfg, card, vol, kernel_steps, engine3d_kw):
 
 
 
+def write_png(path, image):
+    """A grey PNG (8-bit for uint8, 16-bit big-endian otherwise) with no row
+    filter, written with zlib: the training folder's files."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    depth = 8 if image.dtype == np.uint8 else 16
+    h, w = image.shape
+    rows = image.astype(">u2").view(np.uint8).reshape(h, -1) if depth == 16 else image
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def blob_example(shape, n_blobs, seed):
+    """Seeded EM-like uint8 image of dark elliptic organelles on noise and
+    its instance mask (uint16, 0 background)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = rng.normal(0.72, 0.06, shape).astype(np.float32)
+    mask = np.zeros(shape, np.uint16)
+    for i in range(n_blobs):
+        cy, cx = rng.integers(0, h), rng.integers(0, w)
+        ry, rx = rng.uniform(6, 22, 2)
+        y0, y1 = max(0, int(cy - ry)), min(h, int(cy + ry) + 1)
+        x0, x1 = max(0, int(cx - rx)), min(w, int(cx + rx) + 1)
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        img[y0:y1, x0:x1][inside] = rng.normal(0.3, 0.05)
+        mask[y0:y1, x0:x1][inside] = i + 1
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8), mask
+
+
+def train_dataset(root, n_train, n_eval):
+    """``root/{train,eval}/blobs/{images,masks}/*.png`` of seeded blob
+    examples."""
+    for split, n, base in (("train", n_train, 1000), ("eval", n_eval, 2000)):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(root, split, "blobs", sub))
+        for i in range(n):
+            img, mask = blob_example((512, 512), 60, base + i)
+            write_png(os.path.join(root, split, "blobs", "images", f"{i:03d}.png"), img)
+            write_png(os.path.join(root, split, "blobs", "masks", f"{i:03d}.png"), mask)
+
+
+def adamw_expected(p0, grad, group):
+    """The parameter after AdamW's first step from ``p0`` and ``grad``,
+    computed in float64 on the host as ``torch.optim.AdamW`` computes it:
+    decay, then lr / (1 - b1) m / (sqrt(v) / sqrt(1 - b2) + eps)."""
+    import torch
+
+    (b1, b2), lr, eps = group["betas"], group["lr"], group["eps"]
+    p, g = p0.double(), grad.double()
+    m, v = (1 - b1) * g, (1 - b2) * g * g
+    return p * (1 - lr * group["weight_decay"]) - lr / (1 - b1) * m / (
+        torch.sqrt(v) / (1 - b2) ** 0.5 + eps)
+
+
+def train_step_check(cfg, dtype):
+    """One train step of a MitoNet_v1-width model (aspp_dropout 0) at batch
+    2 on 128 x 128 crops with fed PointRend points, in ``dtype`` on the card
+    (TF32 off) and on the CPU from the same weights: the loss, every
+    gradient, the new batch statistics, Adam's moments and every updated
+    parameter compared (tolerances in ``train_phase``); the card's updated
+    parameters also against AdamW's update of the card's own gradients,
+    computed on the host.  The semantic CE averages every pixel
+    (``top_k_percent`` 1): a top 20 % of 32 768 nearly equal pixel losses
+    would swap boundary pixels between the two devices.  Returns the
+    record."""
+    import numpy as np
+    import torch
+
+    from empanada_tpu_torch.api import init_model_from_config
+    from empanada_tpu_torch.train import PanopticLoss, create_train_state, onecycle_schedule
+
+    kw = dict(cfg["model_kwargs"], aspp_dropout=0.0)
+    mcfg = {"arch": cfg["arch"], "model_kwargs": kw}
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.normal(0, 1, (2, 128, 128, 1)).astype(np.float32),
+             "sem": rng.integers(0, 2, (2, 128, 128)).astype(np.int32),
+             "ctr_hmp": rng.random((2, 128, 128, 1)).astype(np.float32),
+             "offsets": rng.normal(0, 4, (2, 128, 128, 2)).astype(np.float32)}
+    coords = rng.random((2, kw["train_num_points"], 2)).astype(np.float32)
+    schedule = onecycle_schedule(3e-3, 8)
+    lr0, eps = schedule(0), torch.finfo(dtype).eps
+    runs = []
+    for dev in ("cuda", "cpu"):
+        model = init_model_from_config(mcfg, seed=3, device=dev, dtype=dtype)
+        state = create_train_state(model, schedule, 0.1)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+        out = model(b["image"], train=True,
+                    point_coords=torch.from_numpy(coords).to(dev, dtype))
+        loss, _ = PanopticLoss(top_k_percent=1.0)(out, b)
+        loss.backward()
+        loss = loss.detach()
+        names = {id(p): n for n, p in model.named_parameters()}
+        p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr0
+        state.optimizer.step()
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        # the update against AdamW's of this device's own gradients, per
+        # element over |p0| + lr(0) (the rounding of the stored parameter
+        # and of the update term); Adam's moments against (1 - b) g, g^2
+        update_err = moment_err = 0.0
+        moments = {}
+        for group in state.optimizer.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                n = names[id(p)]
+                want = adamw_expected(p0[n], grads[n], group)
+                update_err = max(update_err, float(
+                    ((params[n].double() - want).abs() / (p0[n].double().abs() + lr0)).max()))
+                st = state.optimizer.state[p]
+                moments[n] = (st["exp_avg"].cpu(), st["exp_avg_sq"].cpu())
+                g = grads[n].double()
+                for got, want in zip(moments[n], ((1 - b1) * g, (1 - b2) * g * g)):
+                    moment_err = max(moment_err, float((got.double() - want).abs().max()
+                                                       / want.abs().max().clamp(min=1e-300)))
+        runs.append((float(loss), grads, params, moments,
+                     {n: b_.detach().cpu() for n, b_ in model.named_buffers()},
+                     update_err, moment_err))
+    (loss_g, grads_g, params_g, mom_g, stats_g, upd_g, mom_err_g), \
+        (loss_c, grads_c, params_c, mom_c, stats_c, _, _) = runs
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    # gradients: the relative L2 error over all of them, and per tensor
+    # (the worst five, with each tensor's norm beside the largest norm)
+    diff = torch.cat([(grads_g[n] - grads_c[n]).flatten() for n in grads_c])
+    ref = torch.cat([grads_c[n].flatten() for n in grads_c])
+    per = sorted(((rel_l2(grads_g[n], grads_c[n]), n, float(grads_c[n].norm()))
+                  for n in grads_c), reverse=True)
+    moment_l2 = max(rel_l2(a, b) for n in mom_c for a, b in zip(mom_g[n], mom_c[n]))
+    param_err = max(float((params_g[n] - params_c[n]).abs().max()) for n in params_c)
+    stat_err = max(float((stats_g[n] - stats_c[n]).abs().max()
+                         / stats_c[n].abs().max().clamp(min=1e-30)) for n in stats_c)
+    return {"dtype": str(dtype).replace("torch.", ""), "loss_card": loss_g, "loss_cpu": loss_c,
+            "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+            "grad_rel_l2": float(diff.norm() / ref.norm()),
+            "grad_worst_rel_l2": [[n, e, g] for e, n, g in per[:5]],
+            "grad_max_norm": max(g for _, _, g in per),
+            "moments_worst_rel_l2": moment_l2,
+            "param_max_abs_err": param_err, "param_max_abs_err_of_lr0": param_err / lr0,
+            "lr0": lr0, "update_err_of_own_grads_in_eps": upd_g / eps,
+            "moments_err_of_own_grads_in_eps": mom_err_g / eps,
+            "stats_err_of_max": stat_err, "n_tensors": len(grads_c)}
+
+
+def train_phase(prr, api, card):
+    """Phase 13 (module docstring).  Returns (the ``train:`` record, refine
+    launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import fp32_strict
+    from empanada_tpu_torch.train import loop
+    from empanada_tpu_torch.train.state import batch_to_device
+    from empanada_tpu_torch.utils import StageTimer
+
+    t_phase = time.perf_counter()
+    cfg = api.load_config("MitoNet_v1")
+    rec = {"card": card}
+
+    # ---- 1. one step on the card against the CPU, in float32 (TF32 off)
+    # and in float64.  Train-mode batch norm at random init makes the
+    # backward of a 50-layer encoder ill-conditioned: float32 rounding
+    # moves the gradients by percents (the CPU port against the JAX package
+    # on the CPU at these widths: 5.7 % relative L2).  Each limit is a few
+    # times the reading of PR 8's runs on the H100 (in brackets; PERF.md).
+    # Adam's first step moves a parameter by about lr(0) whatever the
+    # gradient's size, so a near-zero gradient whose sign differs moves
+    # the two float32 copies up to 2 lr(0) apart: float32 holds the update
+    # against AdamW's of the card's own gradients (in float64 on the host,
+    # within 16 eps of |p0| + lr(0)), float64 also against the CPU's
+    fp32_strict()
+    tol = {"float32": dict(loss=2e-5,          # [4.4e-6]
+                           grad=0.06,          # global relative L2 [0.0225]
+                           grad_tensor=0.1,    # worst tensor [0.0288]
+                           stats=3e-5),        # [6.4e-6]
+           "float64": dict(loss=1e-10,         # [0]
+                           grad=1e-6,          # [5.9e-14]
+                           grad_tensor=1e-6,   # [2.1e-13]
+                           stats=1e-9,         # [1.1e-14]
+                           moments=1e-6,       # worst tensor, relative L2
+                           param_of_lr0=1e-3)}  # [7.2e-5]: a gradient near eps
+    for dtype in (torch.float32, torch.float64):
+        r = train_step_check(cfg, dtype)
+        t = tol[r["dtype"]]
+        rec[f"{r['dtype']}_step"] = dict(r, tolerances=dict(t, own_update_in_eps=16,
+                                                            own_moments_in_eps=16))
+        print(f"{r['dtype']} train step, card vs CPU: " + json.dumps(r), flush=True)
+        name = f"{r['dtype']} train step"
+        check(r["loss_rel_err"] <= t["loss"], f"{name}: loss "
+              f"{r['loss_card']} on the card, {r['loss_cpu']} on the CPU")
+        check(r["grad_rel_l2"] <= t["grad"], f"{name}: gradients off by "
+              f"{r['grad_rel_l2']:.3g} (relative L2)")
+        worst = r["grad_worst_rel_l2"][0]
+        check(worst[1] <= t["grad_tensor"], f"{name}: gradient of {worst[0]} off by "
+              f"{worst[1]:.3g} (relative L2)")
+        check(r["stats_err_of_max"] <= t["stats"], f"{name}: batch statistics differ")
+        check(r["update_err_of_own_grads_in_eps"] <= 16, f"{name}: the card's update is "
+              f"{r['update_err_of_own_grads_in_eps']:.3g} eps from AdamW's of its gradients")
+        check(r["moments_err_of_own_grads_in_eps"] <= 16, f"{name}: the card's Adam "
+              f"moments are {r['moments_err_of_own_grads_in_eps']:.3g} eps from its gradients'")
+        if "moments" in t:
+            check(r["moments_worst_rel_l2"] <= t["moments"], f"{name}: Adam's moments "
+                  f"differ by {r['moments_worst_rel_l2']:.3g} (relative L2)")
+            check(r["param_max_abs_err_of_lr0"] <= t["param_of_lr0"], f"{name}: updated "
+                  f"parameters differ by {r['param_max_abs_err']:.3g} (lr(0) {r['lr0']:.3g})")
+
+    # ---- 2. MitoNet_v1 at full width, train_config.yaml's TRAIN defaults
+    root = tempfile.mkdtemp(prefix="train-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                             "build"))
+    try:
+        t0 = time.perf_counter()
+        n_train, n_eval = 64, 2
+        train_dataset(root, n_train, n_eval)
+        rec["dataset_s"] = time.perf_counter() - t0
+        with open(os.path.join(HERE, "empanada_tpu_torch", "training",
+                               "train_config.yaml")) as f:
+            config = yaml.safe_load(f)
+        config["model_name"] = "mitonet_blobs"
+        config["MODEL"] = {"arch": cfg["arch"], **cfg["model_kwargs"]}
+        config["DATASET"] = {"class_names": {1: "mito"}, "labels": [1], "thing_list": [1],
+                             "norms": cfg["norms"]}
+        train_cfg = config["TRAIN"]
+        train_cfg.update(train_dir=os.path.join(root, "train"),
+                         model_dir=os.path.join(root, "straight"), epochs=2, print_freq=4)
+        config["EVAL"].update(eval_dir=os.path.join(root, "eval"), epochs_per_eval=2)
+        steps_per_epoch = n_train // train_cfg["batch_size"]
+        check(train_cfg["batch_size"] == 16 and train_cfg["amp"]
+              and len(train_cfg["augmentations"]) == 7
+              and train_cfg["augmentations"][2] == {"aug": "RandomCrop", "height": 256,
+                                                    "width": 256},
+              "train_config.yaml's TRAIN defaults changed")
+
+        # each run's step losses, kept on the device and read after it
+        real_make = loop.make_train_step
+
+        def recording(losses):
+            def make_step(*args, **kwargs):
+                step = real_make(*args, **kwargs)
+
+                def recorded_step(state, batch):
+                    aux = step(state, batch)
+                    losses.append(aux["total_loss"])
+                    return aux
+                return recorded_step
+            return make_step
+
+        launches, validate_launches, kept = {}, [0], []
+        real_validate = loop.validate
+
+        def validate(*args, **kwargs):
+            n0 = prr.launches["full"]
+            out, steps = kept_steps(prr, lambda: real_validate(*args, **kwargs), 2)
+            kept.extend(steps)
+            validate_launches[0] += prr.launches["full"] - n0
+            return out
+
+        class StepTimer(StageTimer):
+            """StageTimer that also keeps each step's seconds."""
+            def __init__(self):
+                super().__init__()
+                self.each = {}
+
+            def add(self, name, seconds, count=1):
+                super().add(name, seconds, count)
+                self.each.setdefault(name, []).append(seconds)
+
+        timer, losses = StepTimer(), []
+        loop.make_train_step, loop.validate = recording(losses), validate
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prr.launches["full"] = 0
+            t0 = time.perf_counter()
+            model, state = loop.main(config, timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = prr.launches["full"]
+        finally:
+            loop.make_train_step, loop.validate = real_make, real_validate
+        peak = torch.cuda.max_memory_allocated()
+        launches["train_validate"] = validate_launches[0]
+        launches["train_eval_step"] = total - validate_launches[0]
+        loss_values = [float(v) for v in losses]
+        n_steps = len(loss_values)
+        check(n_steps == 2 * steps_per_epoch and state.step == n_steps,
+              f"train: {n_steps} steps, not {2 * steps_per_epoch}")
+        check(all(np.isfinite(loss_values)), f"train: a loss is not finite: {loss_values}")
+        check(loss_values[-1] < loss_values[0], f"train: the loss did not fall: {loss_values}")
+        check(launches["train_eval_step"] == 2 * (n_steps // train_cfg["print_freq"]),
+              f"train: {launches['train_eval_step']} refine launches in eval_step")
+        check(launches["train_validate"] == 2 * n_eval,
+              f"train: {launches['train_validate']} refine launches in validate")
+        # the plain version takes the trained head's fused weights, rounded
+        # to bf16 as the packing rounds them
+        layers, pred = model.semantic_pr.point_head.fused_weights(kept[0][2].shape[-1])
+        held = hold_steps(prr, kept, ([tuple(w.to(torch.bfloat16) for w in layer)
+                                       for layer in layers],
+                                      tuple(w.to(torch.bfloat16) for w in pred)), "validate")
+        straight = {n: p.detach().clone() for n, p in model.named_parameters()}
+        stages = timer.report()
+        data_ms = 1e3 * stages["data"]["total_s"] / n_steps
+        step_ms = 1e3 * stages["step"]["total_s"] / n_steps
+        # steps 2.. alone: without the first step's warm-up.  The timer
+        # holds no eval_step (it runs after the step's time is taken, and
+        # its results are read back before the next batch is loaded)
+        steady_data_ms = 1e3 * float(np.mean(timer.each["data"][1:]))
+        steady_step_ms = 1e3 * float(np.mean(timer.each["step"][1:]))
+
+        # the device's step alone: one augmented batch, CUDA events and the
+        # profiler over steps of it; host syncs of a step by the debug mode
+        batch = batch_to_device(next(iter(loop.WeightedBatchLoader(
+            loop._build_dataset(config, cfg["norms"]), 16, seed=7))), "cuda")
+        step = loop.make_train_step(loop.PanopticLoss(**train_cfg["criterion_params"]),
+                                    amp=True)
+        device_step_ms = cuda_ms(lambda: step(state, batch), 4, warmup=1)
+        busy_ms = 1e3 * busy_seconds(lambda: step(state, batch))
+        n_sync, sites = sync_sites(lambda: [step(state, batch) for _ in range(2)])
+
+        # ---- 3. resume.  A run crashes right after its first epoch's
+        # checkpoint and is resumed for the second.  Restoring is exact:
+        # the state loaded equals the state saved, bit for bit (parameters,
+        # statistics, optimizer state, step, the generator's, the loader's
+        # and the augmentations' draws).  The resumed parameters are then
+        # held against the straight run's beside a second straight run's:
+        # the card's backward is not bit-deterministic, and training from
+        # random weights is chaotic, so two straight runs differ already
+        def run_cfg(name, **train):
+            c = yaml.safe_load(yaml.safe_dump(config))
+            c["TRAIN"].update(model_dir=os.path.join(root, name), **train)
+            c["EVAL"] = {}
+            return c
+
+        def snapshot(st, ldr):
+            opt = st.optimizer.state_dict()["state"]
+            return {"params": {n: p.detach().clone() for n, p in st.model.named_parameters()},
+                    "buffers": {n: b.clone() for n, b in st.model.named_buffers()},
+                    "opt": {(i, k): v.clone() for i, s_ in opt.items() for k, v in s_.items()},
+                    "step": st.step, "generator": st.generator.get_state(),
+                    "loader": ldr.state_dict(),
+                    "augment": ldr.dataset.transforms.rng.bit_generator.state}
+
+        def same(a, b):
+            if isinstance(a, dict):
+                return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+            if isinstance(a, torch.Tensor):
+                return torch.equal(a.cpu(), b.cpu())
+            return a == b
+
+        class Crash(Exception):
+            pass
+
+        saved, loaded = {}, {}
+        real_save, real_load = loop.save_checkpoint, loop.load_checkpoint
+
+        def save_then_crash(path, st, config, epoch=0, loader=None):
+            real_save(path, st, config, epoch=epoch, loader=loader)
+            saved.update(snapshot(st, loader))
+            raise Crash
+
+        def load_and_keep(path, st, return_epoch=False, loader=None):
+            out = real_load(path, st, return_epoch=return_epoch, loader=loader)
+            loaded.update(snapshot(st, loader))
+            return out
+
+        run_losses = {"straight_2": [], "crashed": [], "resumed": []}
+        try:
+            loop.make_train_step = recording(run_losses["straight_2"])
+            model2, _ = loop.main(run_cfg("straight_2"))
+            loop.make_train_step = recording(run_losses["crashed"])
+            loop.save_checkpoint = save_then_crash
+            try:
+                loop.main(run_cfg("resumed"))
+                fail("train: the crashing run did not crash")
+            except Crash:
+                pass
+            loop.save_checkpoint = real_save
+            loop.make_train_step = recording(run_losses["resumed"])
+            loop.load_checkpoint = load_and_keep
+            t0 = time.perf_counter()
+            resumed_model, resumed = loop.main(run_cfg("resumed", resume=True))
+            resumed_s = time.perf_counter() - t0
+        finally:
+            loop.make_train_step, loop.save_checkpoint = real_make, real_save
+            loop.load_checkpoint = real_load
+        restored = bool(saved) and same(saved, loaded)
+
+        def param_diff(m):
+            return torch.cat([(straight[n] - p.detach()).abs().flatten()
+                              for n, p in m.named_parameters()])
+
+        d_resumed, d_straight = param_diff(resumed_model), param_diff(model2)
+        resume = {"steps": resumed.step, "resumed_s": resumed_s, "restored_exactly": restored,
+                  "max_abs_diff": float(d_resumed.max()),
+                  "median_abs_diff": float(d_resumed.median()),
+                  "straight_runs_max_abs_diff": float(d_straight.max()),
+                  "straight_runs_median_abs_diff": float(d_straight.median()),
+                  "losses": {k: [float(v) for v in vs] for k, vs in run_losses.items()}}
+        check(resumed.step == n_steps, f"resume: {resumed.step} steps, not {n_steps}")
+        check(restored, "resume: the state loaded differs from the state saved")
+        check(len(run_losses["crashed"]) == steps_per_epoch
+              and len(run_losses["resumed"]) == steps_per_epoch,
+              "resume: the crashed or the resumed run took the wrong number of steps")
+        check(resume["median_abs_diff"] <= 3 * resume["straight_runs_median_abs_diff"],
+              "resume: the resumed parameters differ from the straight run's more than a "
+              "second straight run's do")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    rec.update({
+        "model": "MitoNet_v1 (resnet50, output stride 16, decoder 256, instance decoder, "
+                 "PointRend 1024 train points), seeded LeCun-normal weights",
+        "settings": "train_config.yaml TRAIN defaults: batch 16, 256 x 256 crops, 7 "
+                    "augmentations, PanopticLoss + PointRend, AdamW/OneCycle, amp bf16",
+        "dataset": {"train_images": n_train, "eval_images": n_eval, "size": 512},
+        "epochs": 2, "steps": n_steps, "wall_s": wall,
+        "ms_per_step": data_ms + step_ms, "host_data_ms_per_step": data_ms,
+        "host_dispatch_ms_per_step": step_ms, "device_step_ms": device_step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / (data_ms + step_ms),
+        "samples_per_s": 16 * n_steps / (stages["data"]["total_s"] + stages["step"]["total_s"]),
+        "samples_per_s_device_bound": 16e3 / device_step_ms,
+        "steady": {"steps": f"2-{n_steps}", "ms_per_step": steady_data_ms + steady_step_ms,
+                   "host_data_ms_per_step": steady_data_ms,
+                   "host_dispatch_ms_per_step": steady_step_ms,
+                   "samples_per_s": 16e3 / (steady_data_ms + steady_step_ms),
+                   "device_busy_share": busy_ms / (steady_data_ms + steady_step_ms)},
+        "host_data_ms_each_step": [1e3 * v for v in timer.each["data"]],
+        "host_dispatch_ms_each_step": [1e3 * v for v in timer.each["step"]],
+        "peak_memory_allocated_gib": peak / 2 ** 30,
+        "host_syncs_per_step": n_sync / 2, "host_sync_sites": sites,
+        "loss_first": loss_values[0], "loss_last": loss_values[-1], "losses": loss_values,
+        "refine_launches": launches, "kernel_vs_plain": held, "resume": resume,
+        "phase_s": time.perf_counter() - t_phase})
+    print("train: " + json.dumps(rec), flush=True)
+    return rec, launches
+
+
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
     """Phase 6, one refine step at N = len(up): the profiler's device time of
     the select and refine passes (and of every device activity of the call:
@@ -1979,6 +2460,12 @@ def main():
     _, launches_12 = mini_bc_phase(prr, api, cfg, card, vol, per_req, engine3d_kw)
     print(f"phase 12 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 13. train: MitoNet_v1 trained at full width through train.main,
+    # validated through the plain engine (the refine kernel), resumed
+    t0 = time.perf_counter()
+    _, launches_13 = train_phase(prr, api, card)
+    print(f"phase 13 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -1987,13 +2474,14 @@ def main():
         "launches": (launches + launches_3d + launches_3d_fused
                      + sum(launches_ortho.values()) + launches_resume
                      + sum(launches_2d.values()) + sum(launches_3d_api.values())
-                     + sum(launches_12.values())),
+                     + sum(launches_12.values()) + sum(launches_13.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
                              "volume_xy_resumed": launches_resume,
-                             **launches_2d, **launches_3d_api, **launches_12},
+                             **launches_2d, **launches_3d_api, **launches_12,
+                             **launches_13},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

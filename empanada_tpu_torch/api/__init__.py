@@ -13,6 +13,7 @@ from empanada_tpu_torch.api.inference import (
 )
 from empanada_tpu_torch.api.utils import (
     Preprocessor,
+    add_new_model,
     get_configs,
     init_model_from_config,
     load_config,
@@ -24,7 +25,8 @@ from empanada_tpu_torch.api.utils import (
 )
 
 __all__ = ["Engine2d", "Engine3d", "combine_panoptic_maps", "instance_relabel",
-           "stack_postprocessing", "tracker_consensus", "Preprocessor", "get_configs",
+           "stack_postprocessing", "tracker_consensus", "Preprocessor", "add_new_model",
+           "get_configs",
            "init_model_from_config", "load_config", "load_model_bundle",
            "load_model_from_config", "merge_dicts", "normalize", "randomize_bn_stats",
            "read_yaml", "save_model_bundle"]

@@ -21,6 +21,7 @@ from glob import glob
 
 import numpy as np
 import torch
+import yaml
 from torch import nn
 
 from empanada_tpu_torch.api.config import load_config as load_config_file
@@ -33,6 +34,7 @@ __all__ = [
     "MODEL_DIR",
     "get_configs",
     "load_config",
+    "add_new_model",
     "save_model_bundle",
     "load_model_bundle",
     "load_model_from_config",
@@ -69,6 +71,23 @@ def load_config(name_or_path: str = "MitoNet_v1") -> dict:
             raise KeyError(f"unknown model {name_or_path!r}; registered: {sorted(configs)}")
         path = configs[name_or_path]
     return load_config_file(path)
+
+
+def add_new_model(model_name: str, config: dict, model_file: str | None = None) -> str:
+    """Register ``config`` as ``model_name`` in the user's registry
+    (``MODEL_DIR/configs/<model_name>.yaml``, read by ``get_configs``);
+    ``model_file``, a bundle that must exist, becomes its ``model``.
+    Returns the yaml's path."""
+    config_dir = os.path.join(MODEL_DIR, "configs")
+    os.makedirs(config_dir, exist_ok=True)
+    if model_file is not None:
+        if not os.path.isfile(model_file):
+            raise FileNotFoundError(f"{model_file} is not a file")
+        config = dict(config, model=model_file)
+    path = os.path.join(config_dir, f"{model_name}.yaml")
+    with open(path, "w") as f:
+        yaml.dump(config, f)
+    return path
 
 
 def save_model_bundle(path: str, arch: str, model_kwargs: dict, model: nn.Module) -> str:

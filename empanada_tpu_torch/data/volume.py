@@ -17,39 +17,58 @@ import numpy as np
 
 from empanada_tpu_torch.core.masks import take
 
-__all__ = ["resize_by_factor", "factor_pad_numpy", "VolumeDataset"]
+__all__ = ["linear_taps", "resize_linear_u8", "resize_by_factor", "factor_pad_numpy",
+           "VolumeDataset"]
 
 
 # cv2's fixed-point resize: weights in units of 2^-11
 _COEF_SCALE = 2048
 
 
-def _linear_taps(n_in: int, n_out: int):
+def linear_taps(n_in: int, n_out: int, clamp_fraction: bool = True,
+                float_weights: bool = False):
     """cv2 ``INTER_LINEAR`` taps of one axis: for each output index the two
     source indices and their integer weights.  The source position is
     computed in double and rounded to float32, its fraction ``f`` in
-    float32; positions before the first or past the last source pixel
-    clamp to it with ``f = 0``; the weights are ``round(2048 (1 - f))`` and
-    ``round(2048 f)`` (half to even)."""
+    float32; the weights are ``round(2048 (1 - f))`` and ``round(2048 f)``
+    (half to even) and the indices clamp into the source.  Along x
+    (``clamp_fraction``) a position before the first or past the last
+    source pixel also takes ``f = 0``; along y cv2 keeps its fraction.
+    ``float_weights`` gives the weights as cv2's float path keeps them:
+    float32 ``1 - f`` and ``f``."""
     scale = 1.0 / (n_out / n_in)
     pos = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
     i0 = np.floor(pos).astype(np.int64)
     f = pos - i0.astype(np.float32)
-    clamp = (i0 < 0) | (i0 >= n_in - 1)
-    f[clamp] = 0
-    i0 = np.clip(i0, 0, n_in - 1)
-    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE)).astype(np.int64)
-    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int64)
-    return i0, np.minimum(i0 + 1, n_in - 1), w0, w1
+    if clamp_fraction:
+        f[(i0 < 0) | (i0 >= n_in - 1)] = 0
+    w0, w1 = np.float32(1) - f, f
+    if not float_weights:
+        w0 = np.rint(w0 * np.float32(_COEF_SCALE)).astype(np.int64)
+        w1 = np.rint(w1 * np.float32(_COEF_SCALE)).astype(np.int64)
+    return np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), w0, w1
+
+
+def resize_linear_u8(image: np.ndarray, out_hw) -> np.ndarray:
+    """cv2.resize(image, (w, h), INTER_LINEAR) of a uint8 (H, W) image at
+    any output size, bit for bit: an integer horizontal pass with 11-bit
+    weights, then cv2's vertical pass ``((b0 (r0 >> 4)) >> 16) +
+    ((b1 (r1 >> 4)) >> 16) + 2 >> 2``."""
+    (h, w), (nh, nw) = image.shape, out_hw
+    x0, x1, a0, a1 = linear_taps(w, nw, clamp_fraction=True)
+    y0, y1, b0, b1 = linear_taps(h, nh, clamp_fraction=False)
+    src = image.astype(np.int64)
+    rows = src[:, x0] * a0 + src[:, x1] * a1                 # (h, nw)
+    out = (((b0[:, None] * (rows[y0] >> 4)) >> 16)
+           + ((b1[:, None] * (rows[y1] >> 4)) >> 16) + 2) >> 2
+    return out.astype(np.uint8)
 
 
 def resize_by_factor(image: np.ndarray, scale_factor: int = 1) -> np.ndarray:
     """Bilinear downsample of an (H, W) uint8 image to (ceil(H / s),
     ceil(W / s)), bit-identical to the JAX package's ``cv2.resize(...,
-    INTER_LINEAR)``: an integer horizontal pass with 11-bit weights, then
-    cv2's vertical pass ``((b0 (r0 >> 4)) >> 16) + ((b1 (r1 >> 4)) >> 16)
-    + 2 >> 2``.  Other dtypes take cv2's float path, which is not ported,
-    and raise at a scale above 1."""
+    INTER_LINEAR)`` (``resize_linear_u8``).  Other dtypes take cv2's float
+    path, which this does not reproduce, and raise at a scale above 1."""
     if scale_factor == 1:
         return image
     if image.dtype != np.uint8:
@@ -60,13 +79,7 @@ def resize_by_factor(image: np.ndarray, scale_factor: int = 1) -> np.ndarray:
     dh, dw = math.ceil(h / scale_factor), math.ceil(w / scale_factor)
     if (dh, dw) == (h, w):
         return image.copy()
-    x0, x1, a0, a1 = _linear_taps(w, dw)
-    y0, y1, b0, b1 = _linear_taps(h, dh)
-    src = image.astype(np.int64)
-    rows = src[:, x0] * a0 + src[:, x1] * a1                 # (h, dw)
-    out = (((b0[:, None] * (rows[y0] >> 4)) >> 16)
-           + ((b1[:, None] * (rows[y1] >> 4)) >> 16) + 2) >> 2
-    return out.astype(np.uint8)
+    return resize_linear_u8(image, (dh, dw))
 
 
 def factor_pad_numpy(image: np.ndarray, factor: int = 128) -> np.ndarray:

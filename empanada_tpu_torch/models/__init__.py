@@ -1,5 +1,5 @@
 """Model layer: PyTorch Panoptic-DeepLab and Panoptic-BiFPN models, eval
-only (counterpart of ``empanada_tpu/models``)."""
+and train modes (counterpart of ``empanada_tpu/models``)."""
 
 from __future__ import annotations
 

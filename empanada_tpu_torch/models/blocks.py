@@ -9,6 +9,8 @@ does to match torch geometry under stride 2.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -27,6 +29,7 @@ __all__ = [
     "SeparableConv",
     "SeparableConvBnAct",
     "SqueezeExcite",
+    "frozen_batch_stats",
     "max_pool_2d",
 ]
 
@@ -38,12 +41,37 @@ def max_pool_2d(x: torch.Tensor, window: int, stride: int, padding: int) -> torc
     return F.max_pool2d(x, window, stride, padding)
 
 
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Inside, a train-mode ``BatchNorm`` normalises with its batch
+    statistics but leaves the running statistics as they are: a forward
+    recomputed under activation checkpointing must not fold its batch in a
+    second time."""
+    prev = getattr(_STATS, "frozen", False)
+    _STATS.frozen = True
+    try:
+        yield
+    finally:
+        _STATS.frozen = prev
+
+
 class BatchNorm(nn.Module):
-    """Inference batch norm, eps 1e-5, over running statistics.
+    """Batch norm with flax's semantics, eps 1e-5, momentum 0.9.
 
     Holds exactly the flax BatchNorm's four leaves (scale, bias, mean, var)
-    as ``weight``, ``bias``, ``running_mean`` and ``running_var``.
+    as ``weight``, ``bias``, ``running_mean`` and ``running_var``.  With
+    ``train`` False it normalises with the running statistics.  With
+    ``train`` True it normalises with the batch's biased mean and variance
+    (reduced in float32, gradients through them) and updates the running
+    statistics to ``0.9 running + 0.1 batch``, the BIASED variance as flax
+    keeps it (``F.batch_norm``'s own update folds in the unbiased one).
+    The mode is the ``train`` argument, never ``nn.Module.training``.
     """
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -53,9 +81,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=self.eps)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=self.eps)
+        # momentum 1 makes F.batch_norm write the batch's own statistics
+        # (mean, unbiased variance) into these two buffers
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, training=True,
+                         momentum=1.0, eps=self.eps)
+        if not getattr(_STATS, "frozen", False):
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=(1 - m) * (n - 1) / n)
+        return y
 
 
 def conv2d(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
@@ -76,8 +118,8 @@ class ConvBnAct(nn.Module):
         self.bn = BatchNorm(nout)
         self.act = _ACTS[activation]
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, train: bool = False):
+        x = self.bn(self.conv(x), train)
         return self.act(x) if self.act is not None else x
 
 
@@ -105,8 +147,8 @@ class SeparableConvBnAct(nn.Module):
         self.bn = BatchNorm(nout)
         self.act = _ACTS[activation]
 
-    def forward(self, x):
-        x = self.bn(self.sepconv(x))
+    def forward(self, x, train: bool = False):
+        x = self.bn(self.sepconv(x), train)
         return self.act(x) if self.act is not None else x
 
 
@@ -124,8 +166,8 @@ class ConvTransposeBnAct(nn.Module):
         self.bn = BatchNorm(nout)
         self.act = _ACTS[activation]
 
-    def forward(self, x):
-        x = self.bn(self.tconv(x))
+    def forward(self, x, train: bool = False):
+        x = self.bn(self.tconv(x), train)
         return self.act(x) if self.act is not None else x
 
 
@@ -155,8 +197,8 @@ class Resample2d(nn.Module):
         if nin != nout or stride > 1:
             self.conv = ConvBnAct(nin, nout, 1, stride=stride, activation=activation)
 
-    def forward(self, x):
-        return x if self.conv is None else self.conv(x)
+    def forward(self, x, train: bool = False):
+        return x if self.conv is None else self.conv(x, train)
 
 
 class Interpolate2d(nn.Module):

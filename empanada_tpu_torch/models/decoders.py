@@ -21,13 +21,27 @@ from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
 __all__ = ["ASPP", "PanopticDeepLabDecoder", "BiFPN", "BiFPNDecoder"]
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None):
+    """flax ``Dropout``: keep each element with probability ``1 - p`` (a
+    uniform draw from ``generator`` below it) and scale it by
+    ``1 / (1 - p)``; zero elsewhere."""
+    if p <= 0:
+        return x
+    if p >= 1:
+        return torch.zeros_like(x)
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class ASPP(nn.Module):
-    """1x1 + three dilated 3x3 + global image pooling, concat, 1x1 project.
-    Eval only: the projection's dropout is the identity."""
+    """1x1 + three dilated 3x3 + global image pooling, concat, 1x1 project,
+    then dropout ``dropout_p`` in train mode (the identity in eval)."""
 
     def __init__(self, nin: int, out_channels: int,
-                 atrous_rates: Sequence[int] = (2, 4, 6)):
+                 atrous_rates: Sequence[int] = (2, 4, 6), dropout_p: float = 0.5):
         super().__init__()
+        self.dropout_p = float(dropout_p)
         self.conv1x1 = ConvBnAct(nin, out_channels, 1)
         for i, rate in enumerate(atrous_rates):
             self.add_module(f"aspp_conv{i + 1}",
@@ -37,13 +51,14 @@ class ASPP(nn.Module):
         self.project = ConvBnAct(out_channels * (2 + len(atrous_rates)),
                                  out_channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
         size = x.shape[2:]
-        res = [self.conv1x1(x)]
-        res += [getattr(self, f"aspp_conv{i + 1}")(x) for i in range(self.n_rates)]
+        res = [self.conv1x1(x, train)]
+        res += [getattr(self, f"aspp_conv{i + 1}")(x, train) for i in range(self.n_rates)]
         pooled = F.relu(self.pool_conv(x.mean(dim=(2, 3), keepdim=True)))
         res.append(bilinear_resize_nchw(pooled, size, align_corners=True))
-        return self.project(torch.cat(res, dim=1))
+        x = self.project(torch.cat(res, dim=1), train)
+        return dropout(x, self.dropout_p, generator) if train else x
 
 
 class PanopticDeepLabDecoder(nn.Module):
@@ -54,10 +69,10 @@ class PanopticDeepLabDecoder(nn.Module):
                  low_level_stages: Sequence[int],
                  low_level_channels_project: Sequence[int],
                  atrous_rates: Sequence[int] = (2, 4, 6),
-                 aspp_channels: Optional[int] = None):
+                 aspp_channels: Optional[int] = None, aspp_dropout: float = 0.5):
         super().__init__()
         aspp_channels = aspp_channels or decoder_channels
-        self.aspp = ASPP(pyramid_widths[-1], aspp_channels, atrous_rates)
+        self.aspp = ASPP(pyramid_widths[-1], aspp_channels, atrous_rates, aspp_dropout)
         self.low_level_stages = tuple(low_level_stages)
         ch = aspp_channels
         for i, stage in enumerate(low_level_stages):
@@ -66,12 +81,12 @@ class PanopticDeepLabDecoder(nn.Module):
             self.add_module(f"fuse{i}", SeparableConvBnAct(ch + proj, decoder_channels, 5))
             ch = decoder_channels
 
-    def forward(self, pyramid):
-        x = self.aspp(pyramid[-1])
+    def forward(self, pyramid, train: bool = False, generator=None):
+        x = self.aspp(pyramid[-1], train, generator)
         for i, stage in enumerate(self.low_level_stages):
-            low = getattr(self, f"project{i}")(pyramid[stage])
+            low = getattr(self, f"project{i}")(pyramid[stage], train)
             x = bilinear_resize_nchw(x, low.shape[2:], align_corners=True)
-            x = getattr(self, f"fuse{i}")(torch.cat([x, low], dim=1))
+            x = getattr(self, f"fuse{i}")(torch.cat([x, low], dim=1), train)
         return x
 
 
@@ -104,14 +119,14 @@ class _TopDownFPN(nn.Module):
             self.add_module(f"resample{i}", Resample2d(in_widths[i + 1], fpn_dim))
         self.resize_up = Resize2d(2, "up")
 
-    def forward(self, pyramid_features):
+    def forward(self, pyramid_features, train: bool = False):
         w = _fusion_weights(self.fusion_weights)
         td = [pyramid_features[0]]
         for i in range(self.n_levels):
-            high_res = getattr(self, f"resample{i}")(pyramid_features[i + 1])
+            high_res = getattr(self, f"resample{i}")(pyramid_features[i + 1], train)
             w1, w2 = w[i], w[i + 1]
             fused = (w1 * self.resize_up(td[-1]) + w2 * high_res) / (w1 + w2 + 1e-4)
-            td.append(self.after_combine(fused))
+            td.append(self.after_combine(fused, train))
         return td
 
 
@@ -129,12 +144,12 @@ class _BottomUpFPN(nn.Module):
             self.add_module(f"resample{i}", Resample2d(in_widths[i], fpn_dim))
         self.resize_down = Resize2d(2, "down")
 
-    def forward(self, pyramid_features, top_down_features):
+    def forward(self, pyramid_features, top_down_features, train: bool = False):
         w = _fusion_weights(self.fusion_weights)
         bu = [top_down_features[0]]
         for i in range(self.n_levels):
             down = self.resize_down(bu[-1])
-            pyr_low = getattr(self, f"resample{i}")(pyramid_features[i])
+            pyr_low = getattr(self, f"resample{i}")(pyramid_features[i], train)
             if i < self.n_levels - 1:
                 w1, w2, w3 = w[i], w[i + 1], w[i + 2]
                 fused = (w1 * down + w2 * pyr_low + w3 * top_down_features[i + 1]) / (
@@ -142,7 +157,7 @@ class _BottomUpFPN(nn.Module):
             else:
                 w1, w2 = w[i], w[i + 1]
                 fused = (w1 * down + w2 * pyr_low) / (w1 + w2 + 1e-4)
-            bu.append(self.after_combine(fused))
+            bu.append(self.after_combine(fused, train))
         return bu
 
 
@@ -152,9 +167,9 @@ class _BiFPNLayer(nn.Module):
         self.top_down = _TopDownFPN(list(in_widths)[::-1], fpn_dim, depthwise)
         self.bottom_up = _BottomUpFPN(list(in_widths)[1:], fpn_dim, depthwise)
 
-    def forward(self, pyramid_features):
-        td = self.top_down(pyramid_features[::-1])
-        return self.bottom_up(pyramid_features[1:], td[::-1])
+    def forward(self, pyramid_features, train: bool = False):
+        td = self.top_down(pyramid_features[::-1], train)
+        return self.bottom_up(pyramid_features[1:], td[::-1], train)
 
 
 class BiFPN(nn.Module):
@@ -174,11 +189,11 @@ class BiFPN(nn.Module):
             self.add_module(f"bifpn{i + 1}", _BiFPNLayer(widths, fpn_dim, depthwise))
             widths = [fpn_dim] * len(widths)
 
-    def forward(self, pyramid_features):
-        p6 = self.downsize(self.p6_resample(pyramid_features[-1]))
+    def forward(self, pyramid_features, train: bool = False):
+        p6 = self.downsize(self.p6_resample(pyramid_features[-1], train))
         feats = list(pyramid_features) + [p6, self.downsize(p6)]
         for i in range(self.num_layers):
-            feats = getattr(self, f"bifpn{i + 1}")(feats)
+            feats = getattr(self, f"bifpn{i + 1}")(feats, train)
         return feats
 
 
@@ -195,10 +210,10 @@ class BiFPNDecoder(nn.Module):
             self.add_module(f"up{i}", ConvTransposeBnAct(nin, fpn_dim, 2))
         self.fusion = SeparableConvBnAct(2 * fpn_dim, fpn_dim, 5)
 
-    def forward(self, fpn_features):
+    def forward(self, fpn_features, train: bool = False):
         if len(fpn_features) != self.n_fpn_scales + 1:
             raise ValueError(f"{len(fpn_features)} levels, expected {self.n_fpn_scales + 1}")
         x = fpn_features[0]
         for i, skip in enumerate(fpn_features[1:]):
-            x = torch.cat([getattr(self, f"up{i}")(x), skip], dim=1)
-        return self.fusion(x)
+            x = torch.cat([getattr(self, f"up{i}")(x, train), skip], dim=1)
+        return self.fusion(x, train)

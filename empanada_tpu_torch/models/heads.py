@@ -16,5 +16,5 @@ class PanopticDeepLabHead(nn.Module):
         self.conv = SeparableConvBnAct(nin, nin, 5)
         self.predict = nn.Conv2d(nin, n_classes, 1, bias=True)
 
-    def forward(self, x):
-        return self.predict(self.conv(x))
+    def forward(self, x, train: bool = False):
+        return self.predict(self.conv(x, train))

@@ -1,4 +1,4 @@
-"""Panoptic-DeepLab model assemblies, eval only (counterpart of
+"""Panoptic-DeepLab model assemblies (counterpart of
 ``empanada_tpu/models/panoptic_deeplab.py``).
 
 ``forward`` takes an NHWC image batch (N, H, W, 1) and returns NHWC maps,
@@ -12,6 +12,16 @@ and offset maps stay at 1/4 resolution (the coarse-boundaries contract);
 the PR variant refines ``sem_logits`` with ``render_steps`` PointRend steps.
 The BC variant returns ``sem_logits`` and ``cnt_logits`` (boundary
 contours), both refined, and no center or offset maps.
+
+``forward(x, train=True, generator=g)`` is the train mode (the JAX
+package's ``apply(..., train=True)``): batch norm on batch statistics
+(updating the running ones), ASPP dropout and PointRend's point sampling
+drawn from the ``torch.Generator`` ``g``, every map at input resolution;
+the PointRend variants add ``sem_points`` and ``point_coords`` (the BC
+variant ``sem_points``/``sem_point_coords`` and ``cnt_points``/
+``cnt_point_coords``).  ``point_coords`` (a tensor; for the BC variant a
+dict with keys "sem" and "cnt") replaces the sampled points.  The mode is
+the ``train`` argument, never ``nn.Module.training``.
 """
 
 from __future__ import annotations
@@ -64,45 +74,58 @@ class PanopticDeepLab(nn.Module):
                  atrous_rates: Sequence[int] = (2, 4, 6),
                  aspp_channels: Optional[int] = None, aspp_dropout=0.1,
                  ins_decoder: bool = False, ins_ratio: float = 0.5):
-        # aspp_dropout is a training setting: eval dropout is the identity
+        # aspp_dropout: one rate, or (semantic, instance) rates
         super().__init__()
         self.num_classes = num_classes
+        if isinstance(aspp_dropout, (tuple, list)):
+            sem_p, ins_p = aspp_dropout
+        else:
+            sem_p = ins_p = aspp_dropout
         self.encoder, widths = create_encoder(encoder, stage4_stride)
         self.semantic_decoder = PanopticDeepLabDecoder(
             widths, decoder_channels, low_level_stages, low_level_channels_project,
-            atrous_rates, aspp_channels)
+            atrous_rates, aspp_channels, sem_p)
         self.instance_decoder = None
         if ins_decoder:
             self.instance_decoder = PanopticDeepLabDecoder(
                 widths, decoder_channels, low_level_stages,
                 [int(s * ins_ratio) for s in low_level_channels_project],
-                atrous_rates, aspp_channels)
+                atrous_rates, aspp_channels, ins_p)
         self.semantic_head = PanopticDeepLabHead(decoder_channels, num_classes)
         if self.instance_heads:
             self.ins_center = PanopticDeepLabHead(decoder_channels, 1)
             self.ins_xy = PanopticDeepLabHead(decoder_channels, 2)
 
-    def _encode_decode(self, x):
+    def _encode_decode(self, x, train: bool = False, generator=None):
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        pyramid = self.encoder(x)
-        semantic_x = self.semantic_decoder(pyramid)
+        pyramid = self.encoder(x, train)
+        semantic_x = self.semantic_decoder(pyramid, train, generator)
         instance_x = semantic_x
         if self.instance_decoder is not None:
-            instance_x = self.instance_decoder(pyramid)
+            instance_x = self.instance_decoder(pyramid, train, generator)
         return semantic_x, instance_x
 
-    def _instance_maps(self, instance_x, interpolate_ins):
-        ctr_hmp = self.ins_center(instance_x)
-        offsets = self.ins_xy(instance_x)
-        if interpolate_ins:
+    def _instance_maps(self, instance_x, interpolate_ins, train: bool = False):
+        ctr_hmp = self.ins_center(instance_x, train)
+        offsets = self.ins_xy(instance_x, train)
+        if interpolate_ins or train:
             ctr_hmp, offsets = _up4(ctr_hmp), _up4(offsets)
         return _nhwc(ctr_hmp), _nhwc(offsets)
 
-    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True):
-        semantic_x, instance_x = self._encode_decode(x)
-        ctr_hmp, offsets = self._instance_maps(instance_x, interpolate_ins)
-        sem = _up4(self.semantic_head(semantic_x))
+    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True,
+                train: bool = False, generator=None, point_coords=None):
+        semantic_x, instance_x = self._encode_decode(x, train, generator)
+        ctr_hmp, offsets = self._instance_maps(instance_x, interpolate_ins, train)
+        sem = _up4(self.semantic_head(semantic_x, train))
         return {"sem_logits": _nhwc(sem), "ctr_hmp": ctr_hmp, "offsets": offsets}
+
+
+def _pr_kwargs(num_fc, subdivision_num_points, fused_render, train_num_points,
+               oversample_ratio, importance_sample_ratio):
+    return dict(num_fc=num_fc, subdivision_num_points=subdivision_num_points,
+                fused_render=fused_render, train_num_points=train_num_points,
+                oversample_ratio=oversample_ratio,
+                importance_sample_ratio=importance_sample_ratio)
 
 
 class PanopticDeepLabPR(PanopticDeepLab):
@@ -112,19 +135,25 @@ class PanopticDeepLabPR(PanopticDeepLab):
                  fused_render: str = "auto", train_num_points: int = 1024,
                  oversample_ratio: int = 3, importance_sample_ratio: float = 0.75,
                  **kwargs):
-        # the three sampling settings are training-time; kept so configs load
         super().__init__(*args, **kwargs)
         dc = self.semantic_head.predict.in_channels
-        self.semantic_pr = PointRendSemSegHead(
-            dc, self.num_classes, dc, num_fc, subdivision_num_points, fused_render)
+        self.semantic_pr = PointRendSemSegHead(dc, self.num_classes, dc, **_pr_kwargs(
+            num_fc, subdivision_num_points, fused_render, train_num_points,
+            oversample_ratio, importance_sample_ratio))
 
-    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True):
-        semantic_x, instance_x = self._encode_decode(x)
-        ctr_hmp, offsets = self._instance_maps(instance_x, interpolate_ins)
-        sem = _nhwc(self.semantic_head(semantic_x))
-        pr = self.semantic_pr(sem, _nhwc(semantic_x), subdivision_steps=render_steps)
-        return {"sem_logits": pr["sem_seg_logits"], "ctr_hmp": ctr_hmp,
-                "offsets": offsets}
+    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True,
+                train: bool = False, generator=None, point_coords=None):
+        semantic_x, instance_x = self._encode_decode(x, train, generator)
+        ctr_hmp, offsets = self._instance_maps(instance_x, interpolate_ins, train)
+        sem = _nhwc(self.semantic_head(semantic_x, train))
+        pr = self.semantic_pr(sem, _nhwc(semantic_x), subdivision_steps=render_steps,
+                              train=train, generator=generator, point_coords=point_coords)
+        if not train:
+            return {"sem_logits": pr["sem_seg_logits"], "ctr_hmp": ctr_hmp,
+                    "offsets": offsets}
+        return {"sem_logits": _nhwc(_up4(sem.permute(0, 3, 1, 2))),
+                "sem_points": pr["point_logits"], "point_coords": pr["point_coords"],
+                "ctr_hmp": ctr_hmp, "offsets": offsets}
 
 
 class PanopticDeepLabBC(PanopticDeepLab):
@@ -138,18 +167,28 @@ class PanopticDeepLabBC(PanopticDeepLab):
                  fused_render: str = "auto", train_num_points: int = 1024,
                  oversample_ratio: int = 3, importance_sample_ratio: float = 0.75,
                  **kwargs):
-        # the three sampling settings are training-time; kept so configs load
         super().__init__(*args, **kwargs)
         dc = self.semantic_head.predict.in_channels
         self.boundary_head = PanopticDeepLabHead(dc, 1)
-        pr = (dc, self.num_classes, dc, num_fc, subdivision_num_points, fused_render)
-        self.semantic_pr = PointRendSemSegHead(*pr)
-        self.boundary_pr = PointRendSemSegHead(*pr)
+        pr = _pr_kwargs(num_fc, subdivision_num_points, fused_render, train_num_points,
+                        oversample_ratio, importance_sample_ratio)
+        self.semantic_pr = PointRendSemSegHead(dc, self.num_classes, dc, **pr)
+        self.boundary_pr = PointRendSemSegHead(dc, self.num_classes, dc, **pr)
 
-    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True):
-        semantic_x, instance_x = self._encode_decode(x)
-        sem = _nhwc(self.semantic_head(semantic_x))
-        cnt = _nhwc(self.boundary_head(instance_x))
-        sem = self.semantic_pr(sem, _nhwc(semantic_x), subdivision_steps=render_steps)
-        cnt = self.boundary_pr(cnt, _nhwc(instance_x), subdivision_steps=render_steps)
-        return {"sem_logits": sem["sem_seg_logits"], "cnt_logits": cnt["sem_seg_logits"]}
+    def forward(self, x, render_steps: int = 2, interpolate_ins: bool = True,
+                train: bool = False, generator=None, point_coords=None):
+        semantic_x, instance_x = self._encode_decode(x, train, generator)
+        sem = _nhwc(self.semantic_head(semantic_x, train))
+        cnt = _nhwc(self.boundary_head(instance_x, train))
+        coords = point_coords or {}
+        kw = dict(subdivision_steps=render_steps, train=train, generator=generator)
+        sem = self.semantic_pr(sem, _nhwc(semantic_x), point_coords=coords.get("sem"), **kw)
+        cnt = self.boundary_pr(cnt, _nhwc(instance_x), point_coords=coords.get("cnt"), **kw)
+        if not train:
+            return {"sem_logits": sem["sem_seg_logits"], "cnt_logits": cnt["sem_seg_logits"]}
+        out = {}
+        for key, pr in (("sem", sem), ("cnt", cnt)):
+            out[f"{key}_logits"] = _nhwc(_up4(pr["sem_seg_logits"].permute(0, 3, 1, 2)))
+            out[f"{key}_points"] = pr["point_logits"]
+            out[f"{key}_point_coords"] = pr["point_coords"]
+        return out

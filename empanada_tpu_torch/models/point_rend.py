@@ -1,6 +1,7 @@
-"""PointRend semantic refinement, eval branch (counterpart of
-``empanada_tpu/models/point_rend.py``).  Tensors at the head's interface
-are channel-last, as in the JAX package: logits (N, H, W, C), features
+"""PointRend semantic refinement (counterpart of
+``empanada_tpu/models/point_rend.py``): the eval subdivision steps and the
+train branch's point sampling.  Tensors at the head's interface are
+channel-last, as in the JAX package: logits (N, H, W, C), features
 (N, Hc, Wc, F), points (N, P, C)."""
 
 from __future__ import annotations
@@ -10,12 +11,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from empanada_tpu_torch.ops import pointrend_refine as prr
-from empanada_tpu_torch.ops.interpolate import bilinear_resize, point_sample_packed
+from empanada_tpu_torch.ops.interpolate import (
+    bilinear_resize,
+    point_sample,
+    point_sample_packed,
+)
 from empanada_tpu_torch.ops.select import kth_largest, top_k_indices
 
 __all__ = [
     "calculate_uncertainty",
     "get_uncertain_point_coords_on_grid",
+    "get_uncertain_point_coords_with_randomness",
     "StandardPointHead",
     "PointRendSemSegHead",
 ]
@@ -39,6 +45,38 @@ def get_uncertain_point_coords_on_grid(uncertainty_map: torch.Tensor, num_points
     xs = (1.0 / w) * (0.5 + (idx % w).float())
     ys = (1.0 / h) * (0.5 + (idx // w).float())
     return idx, torch.stack([xs, ys], dim=-1)
+
+
+def get_uncertain_point_coords_with_randomness(coarse_logits, num_points: int,
+                                               oversample_ratio: int,
+                                               importance_sample_ratio: float,
+                                               generator=None, uniforms=None):
+    """Training-time point sampling: ``num_points * oversample_ratio``
+    uniform points, the ``importance_sample_ratio`` most uncertain of them,
+    then fresh uniform points to ``num_points`` -> (N, P, 2) (x, y) in
+    [0, 1), without gradient.  The draws come from ``generator`` (on the
+    logits' device), or are given as ``uniforms`` = (sampled (N, S, 2),
+    random (N, P - U, 2)) to replay another draw."""
+    if oversample_ratio < 1 or not 0 <= importance_sample_ratio <= 1:
+        raise ValueError(f"oversample_ratio {oversample_ratio} must be >= 1 and "
+                         f"importance_sample_ratio {importance_sample_ratio} in [0, 1]")
+    n, dev = coarse_logits.shape[0], coarse_logits.device
+    num_sampled = int(num_points * oversample_ratio)
+    num_uncertain = int(importance_sample_ratio * num_points)
+    num_random = num_points - num_uncertain
+    with torch.no_grad():
+        if uniforms is None:
+            sampled = torch.rand((n, num_sampled, 2), generator=generator, device=dev)
+            rand = torch.rand((n, num_random, 2), generator=generator, device=dev)
+        else:
+            sampled, rand = (u.to(dev, torch.float32) for u in uniforms)
+        logits = point_sample(coarse_logits.detach(), sampled)
+        uncertainty = calculate_uncertainty(logits)[..., 0]
+        idx = torch.topk(uncertainty, num_uncertain, dim=1).indices
+        picked = torch.gather(sampled, 1, idx[..., None].expand(-1, -1, 2))
+        if num_random > 0:
+            picked = torch.cat([picked, rand], dim=1)
+    return picked
 
 
 class StandardPointHead(nn.Module):
@@ -123,7 +161,13 @@ class StandardPointHead(nn.Module):
 
 
 class PointRendSemSegHead(nn.Module):
-    """Coarse semantic logits + iterative point refinement (eval only).
+    """Coarse semantic logits + iterative point refinement.
+
+    With ``train`` True the head samples ``train_num_points`` points
+    (``get_uncertain_point_coords_with_randomness``, or the given
+    ``point_coords``) and returns the coarse logits unchanged with the point
+    head's logits there: {"sem_seg_logits", "point_logits", "point_coords"};
+    it never reaches the refine kernel, which has no backward.
 
     ``fused_render``: "auto" sends each step that the refine kernel takes
     (``pointrend_refine.fused_step_supported``) through it and the rest down
@@ -135,8 +179,12 @@ class PointRendSemSegHead(nn.Module):
 
     def __init__(self, in_features: int, num_classes: int, fc_dim: int,
                  num_fc: int = 3, subdivision_num_points: int = 8192,
-                 fused_render: str = "auto"):
+                 fused_render: str = "auto", train_num_points: int = 1024,
+                 oversample_ratio: int = 3, importance_sample_ratio: float = 0.75):
         super().__init__()
+        self.train_num_points = train_num_points
+        self.oversample_ratio = oversample_ratio
+        self.importance_sample_ratio = importance_sample_ratio
         if fused_render not in FUSED_RENDER:
             raise ValueError(f"fused_render={fused_render!r}: expected one of "
                              f"{FUSED_RENDER}")
@@ -155,7 +203,18 @@ class PointRendSemSegHead(nn.Module):
                              "not fit the refine kernel")
         return ok
 
-    def forward(self, coarse_sem_seg_logits, features, subdivision_steps: int = 2):
+    def forward(self, coarse_sem_seg_logits, features, subdivision_steps: int = 2,
+                train: bool = False, generator=None, point_coords=None):
+        if train:
+            if point_coords is None:
+                point_coords = get_uncertain_point_coords_with_randomness(
+                    coarse_sem_seg_logits, self.train_num_points, self.oversample_ratio,
+                    self.importance_sample_ratio, generator)
+            coarse_points = point_sample(coarse_sem_seg_logits, point_coords)
+            fine_points = point_sample(features, point_coords)
+            return {"sem_seg_logits": coarse_sem_seg_logits,
+                    "point_logits": self.point_head(fine_points, coarse_points),
+                    "point_coords": point_coords}
         sem = coarse_sem_seg_logits
         for _ in range(subdivision_steps):
             sem = self.step(sem, coarse_sem_seg_logits, features)

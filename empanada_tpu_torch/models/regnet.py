@@ -70,12 +70,12 @@ class _RegNetBottleneck(nn.Module):
         self.se = SqueezeExcite(w_b) if use_se else None
         self.c = ConvBnAct(w_b, w_out, 1, activation=None)
 
-    def forward(self, x):
-        identity = self.downsample(x)
-        out = self.b(self.a(x))
+    def forward(self, x, train: bool = False):
+        identity = self.downsample(x, train)
+        out = self.b(self.a(x, train), train)
         if self.se is not None:
             out = self.se(out)
-        return F.relu(identity + self.c(out))
+        return F.relu(identity + self.c(out, train))
 
 
 class RegNet(nn.Module):
@@ -97,15 +97,15 @@ class RegNet(nn.Module):
                     w_in, w, groups=g, stride=s if j == 0 else 1, use_se=use_se))
                 w_in = w
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         if x.shape[1] != self.im_channels:
             raise ValueError(f"input has {x.shape[1]} channels, model configured for "
                              f"im_channels={self.im_channels}")
-        x = self.stem(x)
+        x = self.stem(x, train)
         pyramid = [x]
         for i, d in enumerate(self.depths):
             for j in range(d):
-                x = getattr(self, f"stage{i + 1}_block{j + 1}")(x)
+                x = getattr(self, f"stage{i + 1}_block{j + 1}")(x, train)
             pyramid.append(x)
         return pyramid
 

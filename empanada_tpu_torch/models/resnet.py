@@ -27,9 +27,9 @@ class BasicBlock(nn.Module):
             if downsample else None
         )
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.cba2(self.cba1(x)) + identity)
+    def forward(self, x, train: bool = False):
+        identity = x if self.downsample is None else self.downsample(x, train)
+        return F.relu(self.cba2(self.cba1(x, train), train) + identity)
 
 
 class Bottleneck(nn.Module):
@@ -50,9 +50,9 @@ class Bottleneck(nn.Module):
             if downsample else None
         )
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.cba3(self.cba2(self.cba1(x))) + identity)
+    def forward(self, x, train: bool = False):
+        identity = x if self.downsample is None else self.downsample(x, train)
+        return F.relu(self.cba3(self.cba2(self.cba1(x, train), train), train) + identity)
 
 
 class ResNet(nn.Module):
@@ -93,18 +93,18 @@ class ResNet(nn.Module):
         exp = 1 if self.block == "basic" else 4
         return tuple(p * exp for p in (64, 128, 256, 512))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         if x.shape[1] != self.in_channels:
             raise ValueError(
                 f"input has {x.shape[1]} channels, model configured for "
                 f"in_channels={self.in_channels}"
             )
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = F.relu(self.stem_bn(self.stem_conv(x), train))
         pyramid = [max_pool_2d(x, 3, 2, 1)]
         for s, n_blocks in enumerate(self.layers):
             x = pyramid[-1]
             for i in range(n_blocks):
-                x = getattr(self, f"layer{s + 1}_block{i + 1}")(x)
+                x = getattr(self, f"layer{s + 1}_block{i + 1}")(x, train)
             pyramid.append(x)
         return pyramid
 

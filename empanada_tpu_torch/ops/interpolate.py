@@ -128,14 +128,23 @@ def _corner_fn(features):
     return corner
 
 
-def point_sample(features: torch.Tensor, point_coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of NHWC ``features`` at normalized (x, y) coords in
-    [0, 1] (N, P, 2), zero padding, align_corners=False -> (N, P, C)."""
+def point_sample(features: torch.Tensor, point_coords: torch.Tensor,
+                 mode: str = "bilinear") -> torch.Tensor:
+    """Sample NHWC ``features`` at normalized (x, y) coords in [0, 1]
+    (N, P, 2), zero padding, align_corners=False -> (N, P, C).
+    ``mode="nearest"`` takes the pixel whose centre is nearest, rounding
+    half to even, as the JAX package's ``grid_sample`` does.  Both modes
+    carry gradients to ``features``."""
     n, h, w, c = features.shape
     gx = 2.0 * point_coords[..., 0] - 1.0
     gy = 2.0 * point_coords[..., 1] - 1.0
     px = ((gx + 1.0) * w - 1.0) / 2.0
     py = ((gy + 1.0) * h - 1.0) / 2.0
+    if mode == "nearest":
+        return _corner_fn(features)(torch.round(py).to(torch.int64),
+                                    torch.round(px).to(torch.int64))
+    if mode != "bilinear":
+        raise ValueError(f"point_sample mode {mode!r}: expected 'bilinear' or 'nearest'")
     return _bilinear_gather(features, px, py, _corner_fn(features))
 
 

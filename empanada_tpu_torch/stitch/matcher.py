@@ -1,5 +1,6 @@
 """Instance matching across slices (counterpart of
-``empanada_tpu/stitch/matcher.py``, the flat form that the 3D path runs).
+``empanada_tpu/stitch/matcher.py``, the flat form that the 3D path runs),
+and ``fast_matcher`` on dense instance maps (the training metrics').
 
 ``RLEMatcher`` is the stateful cross-slice matcher: instances of the new
 slice that match a target instance (maximum total IoU, exact assignment
@@ -14,12 +15,13 @@ import numpy as np
 from scipy.optimize import linear_sum_assignment
 
 from empanada_tpu_torch.core import native
-from empanada_tpu_torch.core.boxes import overlapping_box_pairs
-from empanada_tpu_torch.core.labeling import FlatInstances
+from empanada_tpu_torch.core.boxes import merge_boxes, overlapping_box_pairs
+from empanada_tpu_torch.core.labeling import FlatInstances, extract_runs, runs_to_regions
+from empanada_tpu_torch.core.masks import crop_and_binarize, mask_ioa, mask_iou
 from empanada_tpu_torch.core.ranges import join_ranges, ranges_to_rle
 from empanada_tpu_torch.core.rle import rle_iou
 
-__all__ = ["RLEMatcher"]
+__all__ = ["RLEMatcher", "fast_matcher"]
 
 
 def _merge_collisions(mf: FlatInstances, new_labels, uniq, first_idx,
@@ -281,6 +283,110 @@ def _col_max_arg(n2, erows, ecols, evals):
         col_max[has] = evals[last]
         col_arg[has] = erows[last]
     return col_max, col_arg
+
+
+def _empty_result(labels1, labels2, return_iou, return_ioa):
+    empty = np.array([])
+    out = ((empty, empty), (labels1, labels2), empty)
+    if return_iou:
+        out = out + (empty,)
+    if return_ioa:
+        out = out + (empty,)
+    return out
+
+
+def _regions_of_dense(instance_seg: np.ndarray) -> dict:
+    v, r, cs, ce = extract_runs(instance_seg)
+    return runs_to_regions(v, r, cs, ce, width=instance_seg.shape[-1])
+
+
+def fast_matcher(target_instance_seg: np.ndarray, match_instance_seg: np.ndarray,
+                 iou_thr: float = 0.5, return_iou: bool = False,
+                 return_ioa: bool = False):
+    """Hungarian matching of the instances of two dense (H, W) label maps:
+    ((matched target labels, matched labels), (all target labels, all
+    labels), matched IoUs[, IoU matrix][, IoA matrix]); pairs below
+    ``iou_thr`` are dropped."""
+    regions1 = _regions_of_dense(target_instance_seg)
+    regions2 = _regions_of_dense(match_instance_seg)
+    labels1 = np.array(sorted(regions1))
+    labels2 = np.array(sorted(regions2))
+    if len(labels1) == 0 or len(labels2) == 0:
+        return _empty_result(labels1, labels2, return_iou, return_ioa)
+
+    boxes1 = np.array([regions1[l]["box"] for l in labels1])
+    boxes2 = np.array([regions2[l]["box"] for l in labels2])
+    iou_matrix = np.zeros((len(labels1), len(labels2)), dtype=np.float32)
+    ioa_matrix = np.zeros_like(iou_matrix) if return_ioa else None
+    for r1, r2 in overlapping_box_pairs(boxes1, boxes2):
+        box = merge_boxes(boxes1[r1], boxes2[r2])
+        m1 = crop_and_binarize(target_instance_seg, box, labels1[r1])
+        m2 = crop_and_binarize(match_instance_seg, box, labels2[r2])
+        iou_matrix[r1, r2] = mask_iou(m1, m2)
+        if return_ioa:
+            ioa_matrix[r1, r2] = mask_ioa(m1, m2)
+    return _assign(iou_matrix, ioa_matrix, labels1, labels2, iou_thr, return_iou,
+                   return_ioa)
+
+
+def _sparse_assignment(iou_matrix):
+    """Maximum-IoU assignment solved per connected component of the nonzero
+    entries (exactly the dense solve: entries across components are zero);
+    a component with one node on a side takes its largest edge."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n1, n2 = iou_matrix.shape
+    rows, cols = np.nonzero(iou_matrix)
+    vals = iou_matrix[rows, cols]
+    adj = csr_matrix(
+        (np.ones(2 * len(rows), dtype=np.int8),
+         (np.concatenate([rows, cols + n1]), np.concatenate([cols + n1, rows]))),
+        shape=(n1 + n2, n1 + n2))
+    n_comp, comp = connected_components(adj, directed=False)
+
+    rows_per = np.bincount(comp[:n1], minlength=n_comp)
+    cols_per = np.bincount(comp[n1:], minlength=n_comp)
+    edge_comp = comp[rows]
+    order_cv = np.lexsort((vals, edge_comp))   # by component, then value ascending
+    e_bounds = np.searchsorted(edge_comp[order_cv], np.arange(n_comp + 1))
+    has_edge = e_bounds[1:] > e_bounds[:-1]
+    best_edge = np.full(n_comp, -1, dtype=np.int64)
+    best_edge[has_edge] = order_cv[e_bounds[1:][has_edge] - 1]
+    single = (np.minimum(rows_per, cols_per) == 1) & has_edge
+
+    out_rows = [rows[best_edge[single]]]
+    out_cols = [cols[best_edge[single]]]
+    multi = np.flatnonzero((rows_per > 1) & (cols_per > 1))
+    if len(multi):
+        order = np.argsort(comp, kind="stable")
+        bounds = np.searchsorted(comp[order], np.arange(n_comp + 1))
+        for c in multi:
+            members = order[bounds[c]: bounds[c + 1]]
+            r = members[members < n1]
+            k = members[members >= n1] - n1
+            sub_r, sub_c = linear_sum_assignment(iou_matrix[np.ix_(r, k)], maximize=True)
+            out_rows.append(r[sub_r])
+            out_cols.append(k[sub_c])
+    return np.concatenate(out_rows), np.concatenate(out_cols)
+
+
+def _assign(iou_matrix, ioa_matrix, labels1, labels2, iou_thr, return_iou, return_ioa):
+    if min(iou_matrix.shape) > 32 and iou_thr:
+        match_rows, match_cols = _sparse_assignment(iou_matrix)
+    else:
+        match_rows, match_cols = linear_sum_assignment(iou_matrix, maximize=True)
+    if iou_thr is not None:
+        keep = iou_matrix[match_rows, match_cols] >= iou_thr
+        match_rows = match_rows[keep]
+        match_cols = match_cols[keep]
+    output = ((labels1[match_rows], labels2[match_cols]), [labels1, labels2],
+              iou_matrix[(match_rows, match_cols)])
+    if return_iou:
+        output = output + (iou_matrix,)
+    if return_ioa:
+        output = output + (ioa_matrix,)
+    return output
 
 
 class RLEMatcher:
