@@ -141,7 +141,29 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     crashed after its first epoch's checkpoint and resumed: the state
     loaded equal to the state saved, bit for bit, and the resumed
     parameters as close to the straight run's as a second straight run's
-    (``train:`` line).
+    (``train:`` line);
+14. cli: the port's command line (``cli.main``, as ``python -m
+    empanada_tpu_torch`` runs it) with phase 5's model in a registry of
+    its own inside the checkout: ``port`` of its reference-named state dict
+    (the inverse of ``port/torch_port.py``'s map, float32) saved as a raw
+    state dict, a ``{state_dict}`` checkpoint and a TorchScript archive,
+    each bundle's parameters equal to the model's bit for bit; ``models
+    export`` / ``import`` / ``archive``; ``infer2d --tile-size 2048`` of
+    phase 10's 4096 x 4096 image written as PNG (18 launches, the kernel
+    held on the first tile's real step inputs), its TIFF equal to
+    ``api.Engine2d``'s map, a 512 x 512 ``--roi`` window and two models
+    (MitoNet_v1 + NucleoNet_base_v2) on a 1024 x 1024 crop, each equal to
+    the in-process engines; ``infer3d --multichip`` of phase 7's volume
+    written as a multipage TIFF (its class TIFF equal to
+    ``MultiChipEngine3d`` + ``stack_postprocessing``) and ``--orthoplane
+    --store`` (the store equal to ``infer_orthoplane`` +
+    ``tracker_consensus``), 2 launches a batch; ``evaluate`` of the xy
+    tracker dump against itself and against a copy without every other
+    instance, equal to the ``Evaluator``; ``labels count`` / ``small``
+    and ``tiles chop`` / ``merge`` (the original back) on the tiled map;
+    then ``python -m empanada_tpu_torch models list`` and ``infer2d``
+    without ``--device`` in subprocesses on the card.  Each command's wall
+    seconds beside the in-process engine's (``cli:`` line); at most 90 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -163,6 +185,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 K_POINTS = 8192
+# phase 14: the tiled image's side and tile, the --roi window's corner and
+# side, and the two-model crop's side
+CLI_BIG, CLI_TILE, CLI_ROI, CLI_CROP = 4096, 2048, (1024, 2048, 512), 1024
 
 
 def fail(msg):
@@ -1665,29 +1690,6 @@ def mini_bc_phase(prr, api, cfg, card, vol, kernel_steps, engine3d_kw):
 
 
 
-def write_png(path, image):
-    """A grey PNG (8-bit for uint8, 16-bit big-endian otherwise) with no row
-    filter, written with zlib: the training folder's files."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    depth = 8 if image.dtype == np.uint8 else 16
-    h, w = image.shape
-    rows = image.astype(">u2").view(np.uint8).reshape(h, -1) if depth == 16 else image
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
-
-
 def blob_example(shape, n_blobs, seed):
     """Seeded EM-like uint8 image of dark elliptic organelles on noise and
     its instance mask (uint16, 0 background)."""
@@ -1711,14 +1713,16 @@ def blob_example(shape, n_blobs, seed):
 
 def train_dataset(root, n_train, n_eval):
     """``root/{train,eval}/blobs/{images,masks}/*.png`` of seeded blob
-    examples."""
+    examples, written by the port's ``data/imwrite.py``."""
+    from empanada_tpu_torch.data.imwrite import imwrite
+
     for split, n, base in (("train", n_train, 1000), ("eval", n_eval, 2000)):
         for sub in ("images", "masks"):
             os.makedirs(os.path.join(root, split, "blobs", sub))
         for i in range(n):
             img, mask = blob_example((512, 512), 60, base + i)
-            write_png(os.path.join(root, split, "blobs", "images", f"{i:03d}.png"), img)
-            write_png(os.path.join(root, split, "blobs", "masks", f"{i:03d}.png"), mask)
+            imwrite(os.path.join(root, split, "blobs", "images", f"{i:03d}.png"), img)
+            imwrite(os.path.join(root, split, "blobs", "masks", f"{i:03d}.png"), mask)
 
 
 def adamw_expected(p0, grad, group):
@@ -2125,6 +2129,310 @@ def train_phase(prr, api, card):
     return rec, launches
 
 
+def scripted_state_dict(sd):
+    """A TorchScript module whose state dict is ``sd`` (the published
+    archives' format): a module tree with ``sd``'s tensors as buffers."""
+    import torch
+
+    class Holder(torch.nn.Module):
+        def forward(self, x):
+            return x
+
+    root = Holder()
+    for key, t in sd.items():
+        node = root
+        *mods, leaf = key.split(".")
+        for m in mods:
+            if not hasattr(node, m):
+                node.add_module(m, Holder())
+            node = getattr(node, m)
+        node.register_buffer(leaf, t.clone())
+    return torch.jit.script(root)
+
+
+def cli_phase(prr, api, cfg, model, fused, card, vol):
+    """Phase 14 (module docstring).  Returns (the ``cli:`` record, refine
+    launches per command)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.api import utils as api_utils
+    from empanada_tpu_torch.core.chunked import open_chunked
+    from empanada_tpu_torch.curation.export import _to_saveable
+    from empanada_tpu_torch.data.imread import imread
+    from empanada_tpu_torch.data.imwrite import imwrite
+    from empanada_tpu_torch.eval import default_evaluator
+    from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
+    from empanada_tpu_torch.port.torch_port import reference_state_dict
+
+    t_phase = time.perf_counter()
+    rec, launches, holds = {"card": card}, {}, {}
+    # a registry of its own inside the checkout: HOME for the packaged
+    # configs' "~/.empanada_tpu_torch/models/<name>.eptorch" and the
+    # subprocesses, MODEL_DIR for this process
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+    home = os.path.join(tmp, "home")
+    registry = os.path.join(home, ".empanada_tpu_torch")
+    old_home, old_registry = os.environ.get("HOME"), api_utils.MODEL_DIR
+    os.environ["HOME"] = home
+    api_utils.MODEL_DIR = registry
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    def run(*argv):
+        """One command in this process: (its stdout lines, wall seconds)."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            try:
+                cli.main([str(a) for a in argv])
+            except SystemExit as e:
+                fail(f"cli {argv[0]} exited with {e.code}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for line in lines[:4]:
+            print(f"  {argv[0]}: {line[:160]}", flush=True)
+        return lines, wall
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same_params(bundle):
+        got = api.load_model_bundle(bundle, device="cpu").state_dict()
+        return all(torch.equal(got[k], v.float().cpu()) for k, v in model.state_dict().items())
+
+    try:
+        # (a) port: a reference-named state dict of the seeded model (float32,
+        # as published) in the three formats; the bundles hold its weights
+        os.makedirs(os.path.join(registry, "models"))
+        ref = {k: v.float() if v.is_floating_point() else v
+               for k, v in reference_state_dict(model, cfg["arch"], cfg["model_kwargs"]).items()}
+        torch.save(ref, path("ref_raw.pth"))
+        torch.save({"state_dict": ref, "norms": cfg["norms"]}, path("ref_ckpt.pth"))
+        torch.jit.save(scripted_state_dict(ref), path("ref_ts.pth"))
+        del ref
+        ported, port_walls = {}, {}
+        for fmt, out, extra in (
+                ("raw", os.path.join(registry, "models", "MitoNet_v1"), ["--model", "MitoNet_v1"]),
+                ("ckpt", path("ported_ckpt"), ["--model", "MitoNet_v1"]),
+                ("ts", path("ported_ts"), [])):
+            lines, port_walls[fmt] = run("port", path(f"ref_{fmt}.pth"), "-o", out, *extra)
+            ported[fmt] = same_params(out + ".eptorch")
+        check(all(ported.values()), f"cli port: bundles differ from the model: {ported}")
+        rec["port"] = {"formats": list(ported), "bit_identical": ported, "wall_s": port_walls,
+                       "inferred": lines[0][:200]}
+
+        # (b) the bundle through models export / import / archive
+        (_, w_exp), (_, w_imp), (_, w_arc) = (
+            run("models", "export", "--name", "MitoNet_v1", "--path", path("exported")),
+            run("models", "import", "--path", path("exported.empanada_torch"), "--name",
+                "MitoNet_v1_imported"),
+            run("models", "archive", "--name", "MitoNet_v1_imported", "--path", path("arch")))
+        imported = os.path.expanduser(api.load_config("MitoNet_v1_imported")["model"])
+        check(same_params(imported) and os.path.isfile(
+            path(os.path.join("arch", "MitoNet_v1_imported.empanada_torch"))),
+            "cli models: the imported bundle differs, or no archive")
+        rec["models"] = {"export_s": w_exp, "import_s": w_imp, "archive_s": w_arc,
+                         "imported_bit_identical": True}
+        shutil.copy(os.path.join(registry, "models", "MitoNet_v1.eptorch"),
+                    os.path.join(registry, "models", "NucleoNet_base_v2.eptorch"))
+
+        # (c) infer2d: phase 10's 4096 x 4096 image as PNG in tiles of 2048
+        big = tile_blob_image((CLI_BIG, CLI_BIG), 2500 * CLI_BIG ** 2 // 4096 ** 2, 22)
+        imwrite(path("big.png"), big)
+        eng = api.Engine2d(cfg, model=model, label_divisor=10000, tile_size=CLI_TILE)
+        want, eng_s = timed(lambda: eng.infer(big))
+        ((lines, wall), kept), n, _ = counted(prr, lambda: kept_steps(prr, lambda: run(
+            "infer2d", path("big.png"), "-o", path("big_pan.tif"), "--tile-size", CLI_TILE), 2))
+        holds["tile_2048"] = hold_steps(prr, kept, fused, "the CLI's first 2048 x 2048 tile")
+        del kept
+        got = imread(path("big_pan.tif"))
+        n_inst = int((np.unique(want) % 10000 > 0).sum())
+        check(n == 18, f"cli infer2d tiled: {n} refine launches, not 18")
+        check(got.dtype == _to_saveable(want).dtype and np.array_equal(got, want),
+              "cli infer2d tiled: the TIFF differs from Engine2d.infer")
+        check(lines[-1] == f"wrote {path('big_pan.tif')}: {big.shape}, {n_inst} instances",
+              f"cli infer2d tiled: printed {lines[-1]!r}")
+        launches["cli_infer2d_tiled"] = n
+        rec["infer2d_tiled_4096"] = {"wall_s": wall, "engine_s": eng_s,
+                                     "overhead_s": wall - eng_s, "refine_launches": n,
+                                     "instances": n_inst, "tiff_dtype": str(got.dtype),
+                                     "equal": True}
+
+        # (d) a 512 x 512 --roi window of it, and two models on a 1024 x 1024 crop
+        y, x, side = CLI_ROI
+        window = (slice(y, y + side), slice(x, x + side))
+        (lines, wall), n, _ = counted(prr, lambda: run(
+            "infer2d", path("big.png"), "-o", path("roi.tif"), "--tile-size", CLI_TILE,
+            "--roi", f"{y}:{y + side},{x}:{x + side}"))
+        got = imread(path("roi.tif")).astype(np.int64)
+        want_roi, eng_s = timed(lambda: eng.infer(big[window]))
+        inside = got[window].copy()
+        got[window] = 0
+        check(n == 2 and np.array_equal(inside, want_roi) and not got.any(),
+              f"cli infer2d --roi: {n} launches, or the window differs")
+        launches["cli_infer2d_roi"] = n
+        rec["infer2d_roi_512"] = {"wall_s": wall, "engine_s": eng_s, "overhead_s": wall - eng_s,
+                                  "refine_launches": n, "equal": True}
+        crop = big[:CLI_CROP, :CLI_CROP]
+        imwrite(path("crop.png"), crop)
+        (lines, wall), n, _ = counted(prr, lambda: run(
+            "infer2d", path("crop.png"), "-o", path("mm.tif"), "--model", "MitoNet_v1",
+            "--model", "NucleoNet_base_v2"))
+        configs = [dict(api.load_config(m), model_name=m)
+                   for m in ("MitoNet_v1", "NucleoNet_base_v2")]
+        pans, eng_s = timed(lambda: [api.Engine2d(c, model=model, label_divisor=10000)
+                                     .infer(crop) for c in configs])
+        combined, names = api.combine_panoptic_maps(pans, configs, label_divisor=10000)
+        same = [np.array_equal(imread(path(f)), w) for f, w in (
+            ("mm.tif", combined), ("mm_MitoNet_v1.tif", pans[0]),
+            ("mm_NucleoNet_base_v2.tif", pans[1]))]
+        check(n == 4 and all(same) and f"combined class 2: {names[2]}" in lines,
+              f"cli infer2d two models: {n} launches, equal {same}")
+        launches["cli_infer2d_two_models"] = n
+        rec["infer2d_two_models_1024"] = {"wall_s": wall, "engine_s": eng_s,
+                                          "overhead_s": wall - eng_s, "refine_launches": n,
+                                          "equal": same, "classes": names}
+
+        # (e) infer3d --multichip along xy: phase 7's volume as a multipage TIFF
+        imwrite(path("vol.tif"), vol)
+        kw3 = dict(label_divisor=10000, median_kernel_size=3, min_size=500, min_extent=5)
+        fin = dict(label_divisor=10000, min_size=500, min_extent=5)
+        e3 = MultiChipEngine3d(cfg, model, **kw3)
+
+        def xy_in_process():
+            _, trackers = e3.infer_on_axis(vol, "xy")
+            return trackers, list(api.stack_postprocessing({"xy": trackers}, None, cfg, **fin))
+
+        (trackers, outs), eng_s = timed(xy_in_process)
+        (lines, wall), n, _ = counted(prr, lambda: run(
+            "infer3d", path("vol.tif"), "-o", path("seg_{class}.tif"), "--multichip"))
+        n_batches = -(-vol.shape[0] // e3._resolve_batch(vol.shape, 0))
+        got = imread(path("seg_mito.tif"))
+        check(n == 2 * n_batches and np.array_equal(got, outs[0][0])
+              and lines[0] == f"class mito: {len(outs[0][2])} instances",
+              f"cli infer3d xy: {n} launches for {n_batches} batches, or the TIFF differs")
+        launches["cli_infer3d_xy"] = n
+        rec["infer3d_xy"] = {"wall_s": wall, "engine_s": eng_s, "overhead_s": wall - eng_s,
+                             "refine_launches": n, "n_batches": n_batches,
+                             "instances": len(outs[0][2]), "equal": True}
+
+        # (f) infer3d --multichip --orthoplane --store against the in-process
+        # sweeps and consensus into another store
+        def ortho_in_process():
+            tr = e3.infer_orthoplane(vol)
+            return list(api.tracker_consensus(tr, path("inproc.zarr"), cfg, pixel_vote_thr=2,
+                                              cluster_iou_thr=0.75, **fin))
+
+        outs_o, eng_s = timed(ortho_in_process)
+        (lines, wall), n, _ = counted(prr, lambda: run(
+            "infer3d", path("vol.tif"), "--multichip", "--orthoplane", "--store",
+            path("cli.zarr")))
+        n_batches = sum(-(-vol.shape[a] // e3._resolve_batch(vol.shape, a)) for a in range(3))
+        same = np.array_equal(np.asarray(open_chunked(path("cli.zarr/mito"))[:]),
+                              np.asarray(open_chunked(path("inproc.zarr/mito"))[:]))
+        check(n == 2 * n_batches and same
+              and lines[0] == f"class mito: {len(outs_o[0][2])} instances",
+              f"cli infer3d ortho: {n} launches for {n_batches} batches, store equal {same}")
+        launches["cli_infer3d_ortho"] = n
+        rec["infer3d_ortho_store"] = {"wall_s": wall, "engine_s": eng_s,
+                                      "overhead_s": wall - eng_s, "refine_launches": n,
+                                      "n_batches": n_batches, "instances": len(outs_o[0][2]),
+                                      "equal": True}
+
+        # (g) evaluate: the xy tracker dump against itself and against a copy
+        # without every other instance, beside the Evaluator called directly
+        trackers[0].write_to_json(path("gt.json"))
+        with open(path("gt.json")) as f:
+            dump = json.load(f)
+        dump["instances"] = dict(list(dump["instances"].items())[::2])
+        with open(path("pred.json"), "w") as f:
+            json.dump(dump, f)
+        evals = {}
+        for pred in ("gt", "pred"):
+            lines, _ = run("evaluate", path("gt.json"), path(f"{pred}.json"))
+            got = json.loads("\n".join(lines))
+            direct = default_evaluator()(path("gt.json"), path(f"{pred}.json"))
+            check(got == {k: float(v) for k, v in direct.items()},
+                  f"cli evaluate: {got} differs from the Evaluator's {direct}")
+            evals[pred] = got
+        tp = len(trackers[0].instances)
+        check(all(v == 1.0 for k, v in evals["gt"].items() if k != "pq")
+              and evals["gt"]["pq"] == tp / (tp + 1e-5) and evals["pred"]["f1_50"] < 1.0,
+              f"cli evaluate: {evals}")
+        rec["evaluate"] = {"instances": tp, "self": evals["gt"], "half_deleted": evals["pred"]}
+
+        # (h) labels and tiles on the tiled image's map
+        from empanada_tpu_torch.curation import count_labels
+
+        lines, _ = run("labels", "count", path("big_pan.tif"), "-o", path("counts.csv"))
+        queue, class_ids = count_labels(want, 10000)
+        check(lines[:-1] == [f"class {c}: {len(queue[c])} labels" for c in class_ids],
+              f"cli labels count: {lines}")
+        lines, _ = run("labels", "small", path("big_pan.tif"), "-o", path("small.tif"))
+        _, areas = np.unique(want[want > 0], return_counts=True)
+        check(lines[0].startswith(f"removed {int((areas <= 100).sum())} labels"),
+              f"cli labels small: {lines[0]}")
+        run("tiles", "chop", "--image", path("big_pan.tif"), "--dir", path("tiles"),
+            "--patch-size", CLI_TILE)
+        run("tiles", "merge", "--dir", path("tiles"), "--out", path("merged"))
+        merged, pan_map = imread(path("merged/merged_image.tiff")), imread(path("big_pan.tif"))
+        n_tiles = len(os.listdir(path("tiles/im")))
+        check(n_tiles == (CLI_BIG // CLI_TILE) ** 2 and merged.dtype == pan_map.dtype
+              and np.array_equal(merged, pan_map), "cli tiles: merge does not give back the map")
+        rec["labels_tiles"] = {"labels": {int(c): len(queue[c]) for c in class_ids},
+                               "small_removed": int((areas <= 100).sum()), "tiles": n_tiles,
+                               "merge_equal": True}
+
+        # (i) the entry point itself, in subprocesses on the card: no --device
+        env = dict(os.environ, HOME=home)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "empanada_tpu_torch", "models", "list"],
+                              cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0 and "MitoNet_v1_imported" in proc.stdout,
+              f"python -m empanada_tpu_torch models list: {proc.stderr[-2000:]}")
+        list_s = time.perf_counter() - t0
+        img = blob_image((512, 512), 40, 21)
+        imwrite(path("img.png"), img)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "empanada_tpu_torch", "infer2d",
+                               path("img.png"), "-o", path("sub.tif")],
+                              cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m empanada_tpu_torch infer2d: "
+              f"{proc.stderr[-2000:]}")
+        want_sub = api.Engine2d(cfg, model=model, label_divisor=10000).infer(img)
+        check(np.array_equal(imread(path("sub.tif")), want_sub),
+              "python -m empanada_tpu_torch infer2d (no --device): differs from Engine2d")
+        rec["subprocess"] = {"models_list_s": list_s, "infer2d_512_s": sub_s,
+                             "infer2d_stdout": proc.stdout.strip()[-200:], "equal": True}
+    finally:
+        api_utils.MODEL_DIR = old_registry
+        if old_home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = old_home
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["kernel_vs_plain"] = holds
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("cli: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= 90, f"phase 14 took {rec['phase_s']:.1f} s, over its 90 s")
+    return rec, launches
+
+
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
     """Phase 6, one refine step at N = len(up): the profiler's device time of
     the select and refine passes (and of every device activity of the call:
@@ -2466,6 +2774,12 @@ def main():
     _, launches_13 = train_phase(prr, api, card)
     print(f"phase 13 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 14. cli: the port's commands as a user runs them, MitoNet_v1 at
+    # full width through a registry of its own
+    t0 = time.perf_counter()
+    _, launches_14 = cli_phase(prr, api, cfg, model, real_fused, card, vol)
+    print(f"phase 14 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -2474,14 +2788,15 @@ def main():
         "launches": (launches + launches_3d + launches_3d_fused
                      + sum(launches_ortho.values()) + launches_resume
                      + sum(launches_2d.values()) + sum(launches_3d_api.values())
-                     + sum(launches_12.values()) + sum(launches_13.values())),
+                     + sum(launches_12.values()) + sum(launches_13.values())
+                     + sum(launches_14.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
-                             **launches_13},
+                             **launches_13, **launches_14},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

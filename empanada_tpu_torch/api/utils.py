@@ -35,6 +35,7 @@ __all__ = [
     "get_configs",
     "load_config",
     "add_new_model",
+    "model_info_text",
     "save_model_bundle",
     "load_model_bundle",
     "load_model_from_config",
@@ -73,6 +74,35 @@ def load_config(name_or_path: str = "MitoNet_v1") -> dict:
     return load_config_file(path)
 
 
+def model_info_text(model_name: str) -> str:
+    """A registered model's description and its finetuning instructions:
+    the patch size rule, the label divisor and each class's first label
+    (the text of the napari plugin's "Get model info")."""
+    config = load_config(model_name)
+    thing_list = config.get("thing_list", [])
+    pf = config.get("padding_factor", 128)
+    finetune = config.get("FINETUNE", {})
+    label_divisor = (finetune.get("dataset_params", {}).get("label_divisor")
+                     if finetune.get("dataset_class") == "PanopticDataset" else None)
+    lines = [
+        "MODEL INFORMATION",
+        "-----------------",
+        f"Model name: {model_name}",
+        f"Description:\n {str(config.get('description', '')).strip()}",
+        "",
+        "Finetuning instructions:",
+        f"  The size of annotated patches should be divisible by {pf}",
+        f"  Use a label divisor of {label_divisor}.",
+        "  Classes to annotate:",
+    ]
+    for cl, cn in config.get("class_names", {}).items():
+        kind = "instance" if cl in thing_list else "semantic"
+        start_label = cl * label_divisor + 1 if label_divisor is not None else 1
+        lines.append(f"    Class {cl} ({cn}) requires {kind} segmentation, "
+                     f"start annotation at label {start_label}")
+    return "\n".join(lines)
+
+
 def add_new_model(model_name: str, config: dict, model_file: str | None = None) -> str:
     """Register ``config`` as ``model_name`` in the user's registry
     (``MODEL_DIR/configs/<model_name>.yaml``, read by ``get_configs``);
@@ -99,7 +129,9 @@ def save_model_bundle(path: str, arch: str, model_kwargs: dict, model: nn.Module
     buf = io.BytesIO()
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, buf)
     meta = {"arch": arch, "model_kwargs": model_kwargs, "format": BUNDLE_FORMAT}
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
+    # stored, not deflated: float weights barely compress, and deflating a
+    # resnet50 bundle took seconds
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED) as zf:
         zf.writestr("config.json", json.dumps(meta))
         zf.writestr("state_dict.pt", buf.getvalue())
     return path

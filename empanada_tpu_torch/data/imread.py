@@ -1,5 +1,9 @@
 """Image reading without cv2 or PIL: the PNG and TIFF files that training
-folders hold, decoded with numpy and zlib.
+folders and the command line hold, decoded with numpy and zlib.
+
+``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
+pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
+(Z, H, W).
 
 ``imread_gray(path)`` returns what the JAX package's ``_imread_gray``
 returns (``cv2.imread(path, IMREAD_UNCHANGED)``, then channel 0 of a
@@ -22,7 +26,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["imread_gray", "read_png", "read_tiff"]
+__all__ = ["imread", "imread_gray", "png_frames", "read_png", "read_tiff", "tiff_pages"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -63,29 +67,19 @@ def _unfilter_slow(kind: int, cur: bytearray, prior: bytes, bpp: int) -> None:
         cur[i] = (cur[i] + pred) & 0xFF
 
 
-def read_png(data: bytes, name: str = "<png>") -> np.ndarray:
-    pos, idat, header = 8, [], None
+def _png_chunks(data: bytes):
+    pos = 8
     while pos < len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
+        yield kind, data[pos + 8:pos + 8 + length]
         pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{name}: PNG without IHDR")
-    w, h, depth, color, _, _, interlace = header
-    channels = {0: 1, 2: 3, 6: 4}.get(color)
-    if channels is None or depth not in (8, 16) or (channels > 1 and depth != 8) or interlace:
-        raise ValueError(
-            f"{name}: PNG colour type {color}, bit depth {depth}, interlace {interlace} "
-            "is not read; the port reads 8/16-bit grey and 8-bit RGB/RGBA, not interlaced")
+        if kind == b"IEND":
+            return
+
+
+def _png_unfilter(raw: bytes, w: int, h: int, depth: int, channels: int, name: str):
     bpp = channels * depth // 8
     stride = w * bpp
-    raw = zlib.decompress(b"".join(idat))
     if len(raw) != h * (stride + 1):
         raise ValueError(f"{name}: PNG data holds {len(raw)} bytes, not {h * (stride + 1)}")
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
@@ -106,18 +100,66 @@ def read_png(data: bytes, name: str = "<png>") -> np.ndarray:
             raise ValueError(f"{name}: PNG row filter {kind}")
         prior = cur
     if depth == 16:
-        img = out.view(">u2").astype(np.uint16).reshape(h, w)
-    else:
-        img = out.reshape(h, w, channels) if channels > 1 else out.reshape(h, w)
-    return img
+        return out.view(">u2").astype(np.uint16).reshape(h, w)
+    return out.reshape(h, w, channels) if channels > 1 else out.reshape(h, w)
+
+
+def png_frames(data: bytes, name: str = "<png>") -> list:
+    """The images of a PNG: its one image, or each frame of an animated
+    PNG (APNG) composed onto the canvas as its ``fcTL`` says (offsets,
+    dispose ops; blend op OVER only without an alpha channel, where it
+    equals SOURCE)."""
+    header, idat, frames, control = None, [], [], None
+    for kind, body in _png_chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"fcTL":
+            control = struct.unpack(">IIIIIHHBB", body)[1:]
+            frames.append([control, []])
+        elif kind == b"IDAT":
+            idat.append(body)
+            if frames:  # the default image is the first frame
+                frames[-1][1].append(body)
+        elif kind == b"fdAT":
+            frames[-1][1].append(body[4:])
+    if header is None:
+        raise ValueError(f"{name}: PNG without IHDR")
+    w, h, depth, color, _, _, interlace = header
+    channels = {0: 1, 2: 3, 6: 4}.get(color)
+    if channels is None or depth not in (8, 16) or (channels > 1 and depth != 8) or interlace:
+        raise ValueError(
+            f"{name}: PNG colour type {color}, bit depth {depth}, interlace {interlace} "
+            "is not read; the port reads 8/16-bit grey and 8-bit RGB/RGBA, not interlaced")
+    if not frames:
+        return [_png_unfilter(zlib.decompress(b"".join(idat)), w, h, depth, channels, name)]
+    canvas, out = None, []
+    for (fw, fh, x0, y0, _, _, dispose, blend), parts in frames:
+        img = _png_unfilter(zlib.decompress(b"".join(parts)), fw, fh, depth, channels, name)
+        if canvas is None:
+            canvas = np.zeros((h, w) + img.shape[2:], img.dtype)
+        if blend == 1 and channels == 4:
+            raise ValueError(f"{name}: APNG frame blended OVER with alpha is not read")
+        region = (slice(y0, y0 + fh), slice(x0, x0 + fw))
+        before = canvas.copy() if dispose == 2 else None
+        canvas[region] = img
+        out.append(canvas.copy())
+        if dispose == 1:
+            canvas[region] = 0
+        elif dispose == 2:
+            canvas = before
+    return out
+
+
+def read_png(data: bytes, name: str = "<png>") -> np.ndarray:
+    """The first image of a PNG (module docstring)."""
+    return png_frames(data, name)[0]
 
 
 _TIFF_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}  # BYTE, SHORT, LONG, LONG8
 
 
-def read_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
-    end = "<" if data[:2] == b"II" else ">"
-    (ifd,) = struct.unpack(end + "I", data[4:8])
+def _tiff_page(data: bytes, end: str, ifd: int, name: str):
+    """(image, offset of the next IFD) of the IFD at ``ifd``."""
     (n,) = struct.unpack(end + "H", data[ifd:ifd + 2])
     tags = {}
     for i in range(n):
@@ -129,6 +171,7 @@ def read_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
         size = struct.calcsize(code) * count
         raw = value if size <= 4 else data[struct.unpack(end + "I", value)[0]:][:size]
         tags[tag] = struct.unpack(end + code * count, raw[:size])
+    (next_ifd,) = struct.unpack(end + "I", data[ifd + 2 + 12 * n:ifd + 6 + 12 * n])
     w, h = tags[256][0], tags[257][0]
     bits = tags.get(258, (1,))
     compression = tags.get(259, (1,))[0]
@@ -145,4 +188,46 @@ def read_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
     offsets, counts = tags[273], tags[279]
     buf = b"".join(data[o:o + c] for o, c in zip(offsets, counts))
     img = np.frombuffer(buf, end + dtype, count=w * h * spp).astype(dtype)
-    return img.reshape(h, w, spp) if spp > 1 else img.reshape(h, w)
+    return (img.reshape(h, w, spp) if spp > 1 else img.reshape(h, w)), next_ifd
+
+
+def tiff_pages(data: bytes, name: str = "<tiff>") -> list:
+    """Every page of a TIFF, following the chain of IFDs (one a page, as
+    PIL's multipage writer and ``imwrite`` lay them out)."""
+    end = "<" if data[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(end + "I", data[4:8])
+    pages, seen = [], set()
+    while ifd:
+        if ifd in seen or ifd + 2 > len(data):
+            raise ValueError(f"{name}: TIFF IFD chain loops or leaves the file at {ifd}")
+        seen.add(ifd)
+        page, ifd = _tiff_page(data, end, ifd, name)
+        pages.append(page)
+    return pages
+
+
+def read_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
+    """The first page of a TIFF (module docstring)."""
+    end = "<" if data[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(end + "I", data[4:8])
+    return _tiff_page(data, end, ifd, name)[0]
+
+
+def imread(path: str) -> np.ndarray:
+    """The whole image file at ``path`` as PIL's ``Image.open`` gives it:
+    (H, W) or (H, W, C) for one image, and the pages (frames) stacked as
+    (Z, H, W) for a multipage TIFF or an animated PNG."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _PNG_SIGNATURE:
+        pages = png_frames(data, path)
+    elif data[:4] in (b"II*\x00", b"MM\x00*"):
+        pages = tiff_pages(data, path)
+    else:
+        raise ValueError(f"{path}: not a PNG or TIFF file (starts {data[:8]!r}); the "
+                         "port reads PNG and uncompressed TIFF")
+    if len(pages) == 1:
+        return pages[0]
+    if len({p.shape for p in pages}) != 1:
+        raise ValueError(f"{path}: its {len(pages)} pages differ in shape")
+    return np.stack(pages)  # pages of other dtypes promote, as numpy stacks PIL's

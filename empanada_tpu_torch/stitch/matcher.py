@@ -1,6 +1,7 @@
 """Instance matching across slices (counterpart of
 ``empanada_tpu/stitch/matcher.py``, the flat form that the 3D path runs),
-and ``fast_matcher`` on dense instance maps (the training metrics').
+``fast_matcher`` on dense instance maps (the training metrics') and
+``rle_matcher`` on RLE instance dicts (the evaluator's).
 
 ``RLEMatcher`` is the stateful cross-slice matcher: instances of the new
 slice that match a target instance (maximum total IoU, exact assignment
@@ -21,7 +22,7 @@ from empanada_tpu_torch.core.masks import crop_and_binarize, mask_ioa, mask_iou
 from empanada_tpu_torch.core.ranges import join_ranges, ranges_to_rle
 from empanada_tpu_torch.core.rle import rle_iou
 
-__all__ = ["RLEMatcher", "fast_matcher"]
+__all__ = ["RLEMatcher", "fast_matcher", "rle_matcher", "rle_matcher_flat"]
 
 
 def _merge_collisions(mf: FlatInstances, new_labels, uniq, first_idx,
@@ -326,6 +327,36 @@ def fast_matcher(target_instance_seg: np.ndarray, match_instance_seg: np.ndarray
         if return_ioa:
             ioa_matrix[r1, r2] = mask_ioa(m1, m2)
     return _assign(iou_matrix, ioa_matrix, labels1, labels2, iou_thr, return_iou,
+                   return_ioa)
+
+
+def rle_matcher(target_instance_rles: dict, match_instance_rles: dict,
+                iou_thr: float = 0.5, return_iou: bool = False, return_ioa: bool = False):
+    """``fast_matcher`` on instances given as ``{label: {"box", "starts",
+    "runs"}}`` RLE dicts (the evaluator's tracker dumps)."""
+    return rle_matcher_flat(FlatInstances.from_dict(target_instance_rles),
+                            FlatInstances.from_dict(match_instance_rles),
+                            iou_thr, return_iou, return_ioa)
+
+
+def rle_matcher_flat(tf: FlatInstances, mf: FlatInstances, iou_thr: float = 0.5,
+                     return_iou: bool = False, return_ioa: bool = False):
+    """``rle_matcher`` on ``FlatInstances``: IoUs of the box-overlapping
+    pairs from their run intersections, then the same assignment."""
+    if len(tf) == 0 or len(mf) == 0:
+        return _empty_result(tf.labels, mf.labels, return_iou, return_ioa)
+    iou_matrix = np.zeros((len(tf), len(mf)), dtype=float)
+    ioa_matrix = np.zeros_like(iou_matrix) if return_ioa else None
+    box_matches = overlapping_box_pairs(tf.boxes, mf.boxes)
+    if len(box_matches):
+        inters = _batch_intersections_flat(tf, mf, box_matches)
+        r1, r2 = box_matches[:, 0], box_matches[:, 1]
+        union = tf.areas[r1] + mf.areas[r2] - inters
+        iou_matrix[r1, r2] = np.where(union > 0, inters / np.maximum(union, 1), 0.0)
+        if return_ioa:
+            a2 = mf.areas[r2]
+            ioa_matrix[r1, r2] = np.where(a2 > 0, inters / np.maximum(a2, 1), 0.0)
+    return _assign(iou_matrix, ioa_matrix, tf.labels, mf.labels, iou_thr, return_iou,
                    return_ioa)
 
 

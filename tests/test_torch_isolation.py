@@ -1,10 +1,12 @@
 """Isolation of the PyTorch port: every module of empanada_tpu_torch, and
 chip_smoke.py, imports with jax, flax, empanada_tpu, cv2, networkx, PIL
 and zarr blocked (the card's machine has none of the last four), and the
-port's native host library builds and loads there too; the port's modules
+port's native host library builds and loads there too, as the command
+line's file and curation commands run; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
 the entry points default to CUDA and raise, naming device="cpu", when there
-is no GPU; chip_smoke.py fails without a GPU and without the package beside
+is no GPU, and so does ``python -m empanada_tpu_torch``, naming ``--device
+cpu``; chip_smoke.py fails without a GPU and without the package beside
 it."""
 
 import ast
@@ -62,10 +64,32 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     for new in ("api.config", "core.chunked", "stitch.tile", "stitch.filters",
-                "models.regnet", "models.panoptic_bifpn", "stitch.watershed"):
+                "models.regnet", "models.panoptic_bifpn", "stitch.watershed", "cli",
+                "__main__", "eval.evaluator", "eval.metrics", "curation.ops",
+                "curation.tiles", "curation.patches", "curation.export", "api.export",
+                "port.torch_port", "data.imwrite"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
+    # the command line and the curation layer run with PIL and the rest blocked
+    import contextlib, io, os, tempfile
+    import numpy as np
+    from empanada_tpu_torch.cli import main
+    from empanada_tpu_torch.data.imread import imread
+    d = tempfile.mkdtemp()
+    seg = np.zeros((40, 40), np.int64)
+    seg[0:9, 2:9], seg[20:30, 5:15] = 10001, 10002
+    np.save(os.path.join(d, "seg.npy"), seg)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        main(["labels", "boundary", os.path.join(d, "seg.npy"), "-o", os.path.join(d, "nb.tif")])
+        main(["tiles", "chop", "--image", os.path.join(d, "nb.tif"), "--dir",
+              os.path.join(d, "t"), "--patch-size", "16"])
+        main(["tiles", "merge", "--dir", os.path.join(d, "t"), "--out", os.path.join(d, "m")])
+        main(["models", "list"])
+    assert (imread(os.path.join(d, "m", "merged_image.tiff")) == np.where(
+        seg == 10002, seg, 0)).all(), out.getvalue()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
     print("imported", len(names), "modules")
 """)
 
@@ -82,7 +106,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 46  # every module of the port, not an empty walk
+    assert n >= 71  # every module of the port, not an empty walk
 
 
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
@@ -149,6 +173,24 @@ def test_entry_points_raise_without_a_gpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             engine(load_config("MitoNet_v1"), model=model)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_without_a_gpu_names_the_device_flag(tmp_path):
+    """``python -m empanada_tpu_torch infer2d`` without ``--device`` runs on
+    the card; without one it exits non-zero and names ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the command runs on it")
+    import numpy as np
+
+    np.save(tmp_path / "img.npy", np.zeros((64, 64), np.uint8))
+    env = dict(os.environ, HOME=str(tmp_path),
+               PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "empanada_tpu_torch", "infer2d",
+                           str(tmp_path / "img.npy"), "-o", str(tmp_path / "pan.npy")],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr
+    assert not (tmp_path / "pan.npy").exists()
 
 
 @pytest.mark.parametrize("alone", [False, True])
