@@ -163,7 +163,31 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     and ``tiles chop`` / ``merge`` (the original back) on the tiled map;
     then ``python -m empanada_tpu_torch models list`` and ``infer2d``
     without ``--device`` in subprocesses on the card.  Each command's wall
-    seconds beside the in-process engine's (``cli:`` line); at most 90 s.
+    seconds beside the in-process engine's (``cli:`` line); at most 90 s;
+15. parallel: worlds of processes started by the script (each runs
+    ``chip_smoke.py --world-rank ...``), phase 5's model as a bundle:
+    (a) a world of one over NCCL through the command line's
+    ``--coordinator``/``--num-processes``/``--process-id``: ``infer3d
+    --multichip`` of phase 7's volume and ``infer2d --spatial-shard`` of
+    phase 10's 4096 x 4096 image, each equal to the same command in this
+    process, and ``train --multichip`` for 2 steps (a checkpoint);
+    (b) a world of two over gloo, both ranks on this card:
+    ``MultiChipEngine3d`` of phase 7's volume at 32 slices a batch (16 a
+    rank) equal to a world of one's at 16, bit for bit, on both ranks;
+    ``SpatialEngine2d`` of the 4096 x 4096 image at halo 128, the kernel
+    held on each rank's block (2304 x 4096) steps, both ranks' maps equal,
+    its sem logits closer to the unsharded forward than two independent
+    halves', and by JAX's seam rule (under half their mean error) on the
+    512 rows around the seam; one
+    data-parallel train step of a MitoNet_v1-width model against a world of
+    one's on the concatenated batch, float32 without TF32 within phase 13's
+    card limits and float64 within 1e-10, each world's updated parameters
+    within 16 eps of AdamW's update of its own gradients (Adam's first
+    step moves a parameter by about lr(0) whatever its gradient's size, as
+    phase 13 found).  Seconds, slices/s beside a world
+    of one's, seconds in collectives, host syncs per batch and refine
+    launches per rank (``parallel:`` line); every rank's collectives time
+    out after 90 s, each world after 110 s, the phase after 120 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -178,6 +202,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s,
 # float32 FLOP/s outside the tensor cores
@@ -2046,13 +2071,13 @@ def train_phase(prr, api, card):
         saved, loaded = {}, {}
         real_save, real_load = loop.save_checkpoint, loop.load_checkpoint
 
-        def save_then_crash(path, st, config, epoch=0, loader=None):
-            real_save(path, st, config, epoch=epoch, loader=loader)
+        def save_then_crash(path, st, config, epoch=0, loader=None, **kw):
+            real_save(path, st, config, epoch=epoch, loader=loader, **kw)
             saved.update(snapshot(st, loader))
             raise Crash
 
-        def load_and_keep(path, st, return_epoch=False, loader=None):
-            out = real_load(path, st, return_epoch=return_epoch, loader=loader)
+        def load_and_keep(path, st, return_epoch=False, loader=None, **kw):
+            out = real_load(path, st, return_epoch=return_epoch, loader=loader, **kw)
             loaded.update(snapshot(st, loader))
             return out
 
@@ -2433,6 +2458,472 @@ def cli_phase(prr, api, cfg, model, fused, card, vol):
     return rec, launches
 
 
+# phase 15: a rank's collectives wait at most WORLD_PG_TIMEOUT_S for the
+# others, each world's processes get WORLD_TIMEOUT_S, the phase
+# PARALLEL_LIMIT_S; the world of two's volume batch (16 slices a rank, the
+# batch of the world of one it is held to)
+WORLD_PG_TIMEOUT_S, WORLD_TIMEOUT_S, PARALLEL_LIMIT_S = 90, 110, 120
+WORLD2_BATCH = 32
+
+
+def sha(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(a.tobytes() + str((a.shape, a.dtype)).encode()).hexdigest()[:16]
+
+
+def ddp_step_check(model0, dev, mesh, dtype, n, size):
+    """One ``make_train_step`` of ``model0`` (a copy of it in ``dtype``; a
+    MitoNet_v1-width model, ASPP dropout and
+    PointRend's points from the seeded generator) on this rank's rows of a
+    seeded global batch of ``n`` ``size`` x ``size`` crops, in ``dtype``;
+    rank 0 then takes the world of one's step on the whole batch from the
+    same weights and compares: the global loss, the gradients (relative L2
+    over all and the worst tensor), the new batch statistics and Adam's
+    moments (largest error over each tensor's largest magnitude).  Adam's
+    first step moves a parameter by about lr(0) whatever its gradient's
+    size, so the world of two's updated parameters are held, as phase 13
+    holds the card's, against AdamW's update of the world's own gradients
+    in float64 (in eps of |p0| + lr(0)), and their distance to the world of
+    one's is reported.  Everything is compared on the card: 25 M values a
+    kind, whose float64 arithmetic on the host took tens of seconds.
+    Returns the record."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from empanada_tpu_torch.parallel.mesh import data_sharding
+    from empanada_tpu_torch.train import (PanopticLoss, create_train_state, make_train_step,
+                                          onecycle_schedule)
+
+    rng = np.random.default_rng(7)
+    batch = {"image": rng.normal(0, 1, (n, size, size, 1)),
+             "sem": rng.integers(0, 2, (n, size, size)).astype(np.int32),
+             "ctr_hmp": rng.random((n, size, size, 1)),
+             "offsets": rng.normal(0, 4, (n, size, size, 2))}
+
+    def run(rows, m):
+        model = copy.deepcopy(model0).to(dev, dtype)
+        st = create_train_state(model, onecycle_schedule(3e-3, 8), 0.1, seed=5)
+        step = make_train_step(PanopticLoss(), amp=False, mesh=m)
+        b = {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
+        b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+        p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = step(st, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        names = {id(p): name for name, p in model.named_parameters()}
+        moments = {names[id(p)]: torch.cat([s["exp_avg"].flatten(), s["exp_avg_sq"].flatten()])
+                   for p, s in st.optimizer.state.items()}
+        lr0 = st.optimizer.param_groups[0]["lr"]
+        update_err = torch.stack([((p.detach().double() - adamw_expected(
+            p0[names[id(p)]], p.grad.detach(), group)).abs()
+            / (p0[names[id(p)]].double().abs() + lr0)).max()
+            for group in st.optimizer.param_groups for p in group["params"]]).max()
+        rec["update_err_of_own_grads_in_eps"] = float(update_err) / torch.finfo(dtype).eps
+        rec["lr0"] = lr0
+        return (float(aux["total_loss"]), wall,
+                {k: p.grad.detach() for k, p in model.named_parameters()},
+                {k: b_.detach() for k, b_ in model.named_buffers()}, moments,
+                {k: p.detach() for k, p in model.named_parameters()})
+
+    rec = {"dtype": str(dtype).replace("torch.", ""), "global_batch": [n, size, size]}
+    loss, wall, grads, stats, moments, params = run(data_sharding(mesh, n), mesh)
+    rec.update(step_s=wall, loss=loss)
+    if mesh.rank != 0:
+        return rec
+    own = rec["update_err_of_own_grads_in_eps"]
+    loss1, wall1, grads1, stats1, moments1, params1 = run(slice(None), None)
+    rec["update_err_of_own_grads_in_eps"] = own  # the world of two's, not one's
+
+    def of_max(got, want):
+        return float(torch.stack([(got[k] - want[k]).abs().max()
+                                  / want[k].abs().max().clamp(min=1e-300) for k in want]).max())
+
+    names = list(grads1)
+    per_l2 = torch.stack([(grads[k] - grads1[k]).norm() / grads1[k].norm().clamp(min=1e-30)
+                          for k in names]).tolist()
+    per = sorted(zip(per_l2, names), reverse=True)
+    diff = torch.cat([(grads[k] - grads1[k]).flatten() for k in grads1])
+    ref = torch.cat([grads1[k].flatten() for k in grads1])
+    rec.update(world1_loss=loss1, world1_step_s=wall1,
+               loss_rel_err=abs(loss - loss1) / abs(loss1),
+               grad_rel_l2=float(diff.norm() / ref.norm()),
+               grad_worst_rel_l2=[per[0][1], per[0][0]],
+               grad_err_of_max=of_max(grads, grads1), stats_err_of_max=of_max(stats, stats1),
+               moments_err_of_max=of_max(moments, moments1),
+               params_err_of_max=of_max(params, params1),
+               param_max_abs_err_of_lr0=float(torch.stack(
+                   [(params[k] - params1[k]).abs().max() for k in params1]).max()) / rec["lr0"])
+    return rec
+
+
+def world_rank(task, rank, world, port, wd):
+    """One rank of phase 15's worlds, run as ``chip_smoke.py --world-rank
+    TASK RANK WORLD PORT DIR`` (``DIR/spec.json`` says what to run):
+    ``cli1`` drives the command line in a world of one over NCCL, ``gloo2``
+    is a rank of the world of two over gloo with both ranks on cuda:0.  Its
+    record goes to ``DIR/TASK_RANK.json``."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from empanada_tpu_torch import api, fp32_strict
+    from empanada_tpu_torch.ops import pointrend_refine as prr
+    from empanada_tpu_torch.parallel import (MultiChipEngine3d, SpatialEngine2d, create_mesh,
+                                             initialize_multihost)
+
+    with open(os.path.join(wd, "spec.json")) as f:
+        spec = json.load(f)
+    coord = f"127.0.0.1:{port}"
+    rec = {"rank": rank, "imports_s": time.perf_counter() - T_START}
+    t_part = time.perf_counter()
+
+    def part(name):
+        """Seconds since the last part ended, into ``rec["parts_s"]``."""
+        nonlocal t_part
+        now = time.perf_counter()
+        rec.setdefault("parts_s", {})[name] = now - t_part
+        t_part = now
+
+    if task == "cli1":
+        from empanada_tpu_torch import cli
+
+        flags = ["--coordinator", coord, "--num-processes", str(world),
+                 "--process-id", str(rank)]
+        for name, argv in spec["cli"]:
+            prr.launches["full"] = 0
+            t0 = time.perf_counter()
+            cli.main(argv + flags)
+            torch.cuda.synchronize()
+            rec[name] = {"wall_s": time.perf_counter() - t0,
+                         "refine_launches": prr.launches["full"]}
+        rec.update(backend=dist.get_backend(), world=dist.get_world_size())
+    else:
+        # imported beside the world of one (also what the first optimizer
+        # imports lazily, seconds of torch's modules); the card once it is
+        # done
+        torch.optim.AdamW([torch.nn.Parameter(torch.zeros(1))])
+        go = os.path.join(wd, "go_gloo2")
+        while not os.path.exists(go):
+            check(time.perf_counter() - t_part < WORLD_TIMEOUT_S,
+                  "parallel: the world of two was not started")
+            time.sleep(0.05)
+        part("waited")
+        dev = torch.device("cuda", 0)
+        initialize_multihost(coord, world, rank, device=dev, backend="gloo",
+                             timeout_s=WORLD_PG_TIMEOUT_S)
+        mesh = create_mesh(device=dev)
+        cfg = api.load_config(spec["config"])
+        model = api.load_model_from_config(cfg, device=dev, dtype=torch.bfloat16)
+        rec.update(backend=mesh.backend, world=mesh.size)
+        part("setup")
+
+        # (b1) the batched xy sweep, 16 slices a rank: the first run counts
+        # the host syncs, the second is timed and its launches counted
+        vol = np.load(spec["volume"])
+        eng = MultiChipEngine3d(cfg, model, batch_size=WORLD2_BATCH, device=dev,
+                                **spec["engine3d"])
+        n_sync, sites = sync_sites(lambda: eng.infer_on_axis(vol, "xy"))
+        n_batches = -(-vol.shape[0] // WORLD2_BATCH)
+        (stack, trackers), n, wall = counted(prr, lambda: eng.infer_on_axis(vol, "xy"))
+        timing = eng.last_timing
+        rec["volume"] = {
+            "seconds": wall, "slices_per_s": vol.shape[0] / wall, "batch": eng.last_batch_size,
+            "slices_per_rank": WORLD2_BATCH // world, "refine_launches": n,
+            "collectives_s": timing.get("collectives", {}).get("total_s", 0.0),
+            "host_syncs_per_batch": n_sync / n_batches, "sync_sites": dict(list(sites.items())[:4]),
+            "stack_sha": sha(stack), "instances": sum(len(t.instances) for t in trackers)}
+        part("volume")
+
+        # (b2) the 4096 x 4096 slice in two blocks of 2048 + 2 x 128 rows: the
+        # kernel held on this rank's block's steps, then the timed forward
+        img = np.load(spec["image"])
+        prep = api.Preprocessor(**cfg["norms"])(img)["image"][0]
+        sp = SpatialEngine2d(model, cfg["thing_list"], halo=128, device=dev, **spec["spatial"])
+        _, kept = kept_steps(prr, lambda: sp.forward(prep), 2)
+        fused = model.semantic_pr.point_head.fused_weights(kept[0][2].shape[-1])
+        part("spatial_first")
+        holds = hold_steps(prr, kept, fused, f"rank {rank}'s spatial block")
+        part("spatial_hold")
+        del kept
+        out, n, wall = counted(prr, lambda: sp.forward(prep))
+        pan = sp.postprocess(out, prep.shape)
+        part("spatial")
+        rec["spatial"] = {"forward_s": wall, "postprocess_s": rec["parts_s"]["spatial"] - wall,
+                          "refine_launches": n, "map_sha": sha(pan),
+                          "instances": int(len(np.unique(pan[pan > 0]))),
+                          "kernel_vs_plain": holds}
+        if rank == 0:
+            # the seam rule: the sharded logits against the unsharded
+            # forward's, beside two independent halves'
+            x = torch.from_numpy(prep)[None, ..., None].to(dev, torch.bfloat16)
+            h = x.shape[1] // 2
+            with torch.no_grad():
+                full = model(x)["sem_logits"].float()
+                halves = torch.cat([model(x[:, :h])["sem_logits"],
+                                    model(x[:, h:])["sem_logits"]], dim=1).float()
+            sem = out["sem_logits"].float()
+            seam = slice(h - 2 * 128, h + 2 * 128)  # the rows the halo exchange serves
+            rec["spatial"].update(err_shard=float((sem - full).abs().mean()),
+                                  err_halves=float((halves - full).abs().mean()),
+                                  err_shard_seam=float((sem - full)[:, seam].abs().mean()),
+                                  err_halves_seam=float((halves - full)[:, seam].abs().mean()),
+                                  finite=bool(torch.isfinite(sem).all()))
+            del full, halves, x
+        del out
+        part("seam_reference")
+
+        # (b3) one data-parallel step against the world of one's on the
+        # concatenated batch: float32 without TF32, and float64 small
+        fp32_strict()
+        model0 = api.init_model_from_config(cfg, seed=3, device=dev, dtype=torch.float32)
+        part("step_model")
+        rec["f32_step"] = ddp_step_check(model0, dev, mesh, torch.float32, 4, 128)
+        part("f32_step")
+        rec["f64_step"] = ddp_step_check(model0, dev, mesh, torch.float64, 2, 64)
+        part("f64_step")
+    rec["rank_s"] = time.perf_counter() - T_START
+    with open(os.path.join(wd, f"{task}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_world(task, world, wd):
+    """Start ``world`` ranks of ``task`` (``world_rank``): (their
+    processes, their log files, the task)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(os.path.join(wd, f"{task}_{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--world-rank", task,
+                               str(r), str(world), str(port), wd], cwd=HERE, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    return procs, logs, task
+
+
+def wait_world(started, wd, timeout):
+    """Wait for the ranks of ``start_world``; any rank that fails or
+    outlasts ``timeout`` seconds from now fails the phase (the others are
+    killed).  Returns their records."""
+    procs, logs, task = started
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_world(started)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(wd, f"{task}_{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            fail(f"parallel: rank {r} of {task} exited with {p.returncode} after "
+                 f"{time.perf_counter() - t0:.1f} s")
+    recs = []
+    for r in range(len(procs)):
+        with open(os.path.join(wd, f"{task}_{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def stop_world(started):
+    """Kill the ranks of ``start_world`` still running; close their logs."""
+    procs, logs, _ = started
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in logs:
+        f.close()
+
+
+def parallel_phase(prr, api, cfg, model, card, vol):
+    """Phase 15 (module docstring).  Returns (the ``parallel:`` record,
+    refine launches per path)."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
+
+    t_phase = time.perf_counter()
+    rec, launches, worlds = {"card": card}, {}, []
+    wd = tempfile.mkdtemp(prefix="parallel-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                               "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    try:
+        # phase 5's model as a bundle with its registry config, phase 7's
+        # volume, phase 10's image, a training set of 4 images
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+        np.save(path("vol.npy"), vol)
+        big = tile_blob_image((4096, 4096), 2500, 22)
+        np.save(path("big.npy"), big)
+        train_dataset(path("data"), 4, 0)
+        with open(os.path.join(HERE, "empanada_tpu_torch", "training",
+                               "train_config.yaml")) as f:
+            tcfg = yaml.safe_load(f)
+        tcfg.update(model_name="mitonet_world", MODEL={"arch": cfg["arch"], **cfg["model_kwargs"]},
+                    DATASET={"class_names": {1: "mito"}, "labels": [1], "thing_list": [1],
+                             "norms": cfg["norms"]})
+        tcfg["TRAIN"].update(train_dir=path("data/train"), model_dir=path("train"), epochs=1,
+                             batch_size=2, print_freq=1, metrics=[])
+        tcfg["EVAL"] = {}
+        with open(path("train.yaml"), "w") as f:
+            yaml.safe_dump(tcfg, f)
+        # the command line's defaults; the streamed path, which a world of
+        # two takes
+        engine3d = dict(label_divisor=10000, median_kernel_size=3, nms_kernel=3,
+                        confidence_thr=0.3, min_size=500, min_extent=5, save_panoptic=True,
+                        sweep_fused=False)
+        spatial = dict(label_divisor=10000, nms_kernel=3, confidence_thr=0.3, max_centers=256,
+                       padding_factor=cfg["padding_factor"])
+        infer3d = ["infer3d", path("vol.npy"), "--model", path("MitoNet_v1.yaml"),
+                   "--multichip", "--no-progress"]
+        infer2d = ["infer2d", path("big.npy"), "--model", path("MitoNet_v1.yaml"),
+                   "--spatial-shard"]
+        spec = {"config": path("MitoNet_v1.yaml"), "volume": path("vol.npy"),
+                "image": path("big.npy"), "engine3d": engine3d, "spatial": spatial,
+                "cli": [["infer3d", infer3d + ["-o", path("w1_seg_{class}.npy")]],
+                        ["infer2d", infer2d + ["-o", path("w1_pan.npy")]],
+                        ["train", ["train", path("train.yaml"), "--multichip"]]]}
+        with open(path("spec.json"), "w") as f:
+            json.dump(spec, f)
+
+        # the world of one's results in this process: the commands without
+        # a world, the sweep at 16 and at 32 slices a batch
+        out = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, out["infer3d_s"] = timed(lambda: cli.main(
+                infer3d + ["-o", path("ref_seg_{class}.npy")]))
+            _, out["infer2d_s"] = timed(lambda: cli.main(infer2d + ["-o", path("ref_pan.npy")]))
+        sweeps = {}
+        for b in (WORLD2_BATCH // 2, WORLD2_BATCH):
+            eng = MultiChipEngine3d(cfg, model, batch_size=b, **engine3d)
+            eng.infer_on_axis(vol, "xy")  # warm-up
+            (stack, _), n, wall = counted(prr, lambda: eng.infer_on_axis(vol, "xy"))
+            sweeps[b] = {"seconds": wall, "slices_per_s": vol.shape[0] / wall,
+                         "refine_launches": n, "stack_sha": sha(stack)}
+        del eng, stack
+        rec["world1_in_process"] = dict(out, sweeps=sweeps)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) a world of one over NCCL through the command line's flags;
+        # the world of two's ranks start beside it, import, and wait for it
+        # to end before they touch the card
+        t0 = time.perf_counter()
+        worlds.append(start_world("cli1", 1, wd))
+        worlds.append(start_world("gloo2", 2, wd))
+        (w1,) = wait_world(worlds[0], wd, WORLD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(w1["backend"] == "nccl" and w1["world"] == 1, f"parallel: world of one {w1}")
+        same3d = np.array_equal(np.load(path("w1_seg_mito.npy")),
+                                np.load(path("ref_seg_mito.npy")))
+        same2d = np.array_equal(np.load(path("w1_pan.npy")), np.load(path("ref_pan.npy")))
+        ckpt = os.path.isfile(path("train/mitonet_world_checkpoint.pt"))
+        check(same3d, "parallel: infer3d --multichip in a world of one differs from one process")
+        check(same2d, "parallel: infer2d --spatial-shard in a world of one differs from one "
+              "process")
+        check(ckpt, "parallel: train --multichip in a world of one wrote no checkpoint")
+        check(w1["infer3d"]["refine_launches"] == 4 and w1["infer2d"]["refine_launches"] == 2,
+              f"parallel: world of one's refine launches {w1}")
+        rec["nccl_world1"] = dict(w1, process_wall_s=wall, infer3d_equal=same3d,
+                                  infer2d_equal=same2d, train_checkpoint=ckpt)
+        launches["parallel_cli_world1"] = sum(w1[k]["refine_launches"]
+                                              for k in ("infer3d", "infer2d", "train"))
+
+        # (b) a world of two over gloo, both ranks on cuda:0
+        t0 = time.perf_counter()
+        with open(path("go_gloo2"), "w"):
+            pass
+        ranks = wait_world(worlds[1], wd, WORLD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        vols = [r["volume"] for r in ranks]
+        check(all(v["stack_sha"] == sweeps[WORLD2_BATCH // 2]["stack_sha"] for v in vols),
+              "parallel: the world of two's volume differs from the world of one's "
+              f"({[v['stack_sha'] for v in vols]} vs {sweeps[WORLD2_BATCH // 2]['stack_sha']})")
+        check(all(v["refine_launches"] == 4 for v in vols),
+              f"parallel: volume refine launches per rank {[v['refine_launches'] for v in vols]}")
+        sps = [r["spatial"] for r in ranks]
+        check(sps[0]["map_sha"] == sps[1]["map_sha"], "parallel: the ranks' spatial maps differ")
+        check(all(s["refine_launches"] == 2 for s in sps),
+              f"parallel: spatial refine launches per rank {[s['refine_launches'] for s in sps]}")
+        # JAX's seam rule (tests/test_spatial.py: under half the tiles'
+        # mean error) on the rows around the seam; over the whole slice the
+        # sharded logits must be the closer too, but the factor is not
+        # JAX's there: at two 2048-row blocks both means are mostly the
+        # align-corners grid shift they share, and the blocks at the ends
+        # see zero halo rows (PERF.md)
+        sp0 = sps[0]
+        check(sp0["finite"] and sp0["err_shard"] < sp0["err_halves"]
+              and sp0["err_shard_seam"] < 0.5 * sp0["err_halves_seam"],
+              f"parallel: the sharded logits are off the unsharded forward by "
+              f"{sp0['err_shard']:.4g} ({sp0['err_shard_seam']:.4g} at the seam), two halves "
+              f"by {sp0['err_halves']:.4g} ({sp0['err_halves_seam']:.4g})")
+        f32, f64 = r0["f32_step"], r0["f64_step"]
+        # float32: phase 13's card limits for a step against another
+        # device's; float64: 1e-10
+        check(f32["loss_rel_err"] <= 2e-5 and f32["grad_rel_l2"] <= 0.06
+              and f32["grad_worst_rel_l2"][1] <= 0.1 and f32["stats_err_of_max"] <= 3e-5,
+              f"parallel: float32 step of the world of two: {f32}")
+        check(max(f64[k] for k in ("loss_rel_err", "grad_err_of_max", "stats_err_of_max",
+                                   "moments_err_of_max")) <= 1e-10
+              and max(r["update_err_of_own_grads_in_eps"] for r in (f32, f64)) <= 16,
+              f"parallel: float64 step of the world of two: {f64}")
+        max_err = max(h["max_abs_err"] for s in sps for h in s["kernel_vs_plain"])
+        rec["gloo_world2"] = {"process_wall_s": wall, "ranks": ranks,
+                              "slices_per_s": [v["slices_per_s"] for v in vols],
+                              "world1_slices_per_s": {
+                                  b: s["slices_per_s"] for b, s in sweeps.items()},
+                              "collectives_s": [v["collectives_s"] for v in vols],
+                              "host_syncs_per_batch": [v["host_syncs_per_batch"] for v in vols]}
+        rec["batch_invariant_world1"] = (sweeps[WORLD2_BATCH // 2]["stack_sha"]
+                                         == sweeps[WORLD2_BATCH]["stack_sha"])
+        launches["parallel_volume_world2"] = sum(v["refine_launches"] for v in vols)
+        launches["parallel_spatial_world2"] = sum(s["refine_launches"] for s in sps)
+    finally:
+        for started in worlds:
+            stop_world(started)
+        shutil.rmtree(wd, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("parallel: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= PARALLEL_LIMIT_S,
+          f"phase 15 took {rec['phase_s']:.1f} s, over its {PARALLEL_LIMIT_S} s")
+    return rec, launches, max_err
+
+
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
     """Phase 6, one refine step at N = len(up): the profiler's device time of
     the select and refine passes (and of every device activity of the call:
@@ -2469,7 +2960,12 @@ def main():
     parser.add_argument("--earlier", metavar="DIR",
                         help="a checkout of the parent commit: its refine kernel and tile "
                              "copy are timed beside this one's (earlier_ms)")
+    parser.add_argument("--world-rank", nargs=5, metavar=("TASK", "RANK", "WORLD", "PORT", "DIR"),
+                        help="run one rank of phase 15's worlds (the phase starts them)")
     args = parser.parse_args()
+    if args.world_rank:
+        task, rank, world, port, wd = args.world_rank
+        return world_rank(task, int(rank), int(world), int(port), wd)
 
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -2780,6 +3276,13 @@ def main():
     _, launches_14 = cli_phase(prr, api, cfg, model, real_fused, card, vol)
     print(f"phase 14 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 15. parallel: a world of one over NCCL through the command line,
+    # a world of two over gloo on this card
+    t0 = time.perf_counter()
+    _, launches_15, err_15 = parallel_phase(prr, api, cfg, model, card, vol)
+    max_err = max(max_err, err_15)
+    print(f"phase 15 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -2789,14 +3292,14 @@ def main():
                      + sum(launches_ortho.values()) + launches_resume
                      + sum(launches_2d.values()) + sum(launches_3d_api.values())
                      + sum(launches_12.values()) + sum(launches_13.values())
-                     + sum(launches_14.values())),
+                     + sum(launches_14.values()) + sum(launches_15.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
-                             **launches_13, **launches_14},
+                             **launches_13, **launches_14, **launches_15},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -37,6 +37,7 @@ from empanada_tpu_torch.engine import (
     PanopticDeepLabRenderEngine,
     PanopticDeepLabRenderEngine3d,
 )
+from empanada_tpu_torch.parallel.spatial import SpatialEngine2d
 from empanada_tpu_torch.stitch import checkpoint as ckpt
 from empanada_tpu_torch.stitch import filters
 from empanada_tpu_torch.stitch.consensus import (
@@ -187,10 +188,13 @@ class Engine2d:
     components (``force_connected``).  ``inference_scale`` s downsamples the
     image (uint8) by s and renders ``2 + log2(s)`` PointRend steps back to
     full resolution.  ``shape_buckets`` is accepted and does nothing: eager
-    PyTorch compiles no program per shape.  ``spatial_shard`` (the JAX
-    package's halo-sharded slice over a device mesh) is ROADMAP item 11 and
-    raises.  ``last_overflow`` holds the NMS centres dropped on the worst
-    slice of the last call, which a warning also reports.
+    PyTorch compiles no program per shape.  ``spatial_shard`` runs every
+    image as one halo-sharded slice over the world's ranks
+    (``parallel.spatial.SpatialEngine2d``; ``spatial_halo`` rows, the
+    world ``spatial_mesh`` or ``parallel.mesh.create_mesh()``), then
+    ``force_connected``; every rank returns the same map.
+    ``last_overflow`` holds the NMS centres dropped on the worst slice of
+    the last call, which a warning also reports.
     """
 
     def __init__(self, model_config: dict, inference_scale: int = 1,
@@ -200,9 +204,6 @@ class Engine2d:
                  shape_buckets: bool = False, spatial_shard: bool = False,
                  spatial_halo: int = 128, spatial_mesh=None, model=None, device=None,
                  **kwargs):
-        if spatial_shard:
-            raise NotImplementedError("spatial_shard: the halo-sharded slice across "
-                                      "devices is ROADMAP item 11")
         dev = resolve_device(device)
         if model is None:
             model = load_model_from_config(model_config, device=dev)
@@ -220,6 +221,14 @@ class Engine2d:
             label_divisor=label_divisor, nms_threshold=nms_threshold, nms_kernel=nms_kernel,
             confidence_thr=confidence_thr, padding_factor=self.padding_factor,
             coarse_boundaries=not fine_boundaries, max_centers=max_centers, device=dev)
+        self.spatial_engine = None
+        if spatial_shard:
+            self.spatial_engine = SpatialEngine2d(
+                model, thing_list=[] if semantic_only else self.thing_list,
+                mesh=spatial_mesh, halo=spatial_halo, label_divisor=label_divisor,
+                nms_threshold=nms_threshold, nms_kernel=nms_kernel,
+                confidence_thr=confidence_thr, padding_factor=self.padding_factor,
+                coarse_boundaries=not fine_boundaries, max_centers=max_centers, device=dev)
         self.last_overflow = 0
         self.preprocessor = Preprocessor(**model_config["norms"])
 
@@ -235,6 +244,11 @@ class Engine2d:
                                   nms_kernel=nms_kernel, confidence_thr=confidence_thr,
                                   coarse_boundaries=not fine_boundaries)
         self.engine.thing_list = () if semantic_only else tuple(self.thing_list)
+        if self.spatial_engine is not None:
+            self.spatial_engine.update_params(
+                label_divisor=label_divisor, nms_threshold=nms_threshold,
+                nms_kernel=nms_kernel, confidence_thr=confidence_thr,
+                coarse_boundaries=not fine_boundaries)
 
     def force_connected(self, pan_seg: np.ndarray) -> np.ndarray:
         """Relabel each thing class's instances as their 8-connected
@@ -268,6 +282,12 @@ class Engine2d:
         return self.engine.dispatch(image, size, upsampling=self.inference_scale)
 
     def infer(self, image: np.ndarray) -> np.ndarray:
+        if self.spatial_engine is not None:
+            size = image.shape
+            prep = self.preprocessor(resize_by_factor(image, self.inference_scale))["image"]
+            pan_seg = self.spatial_engine(prep[0],
+                                          upsampling=self.inference_scale)
+            return self.force_connected(pan_seg[:size[0], :size[1]].astype(np.int64))
         if self.tile_size > 0 and any(s > self.tile_size for s in image.shape):
             return self._infer_tiled(image)
         pan_seg = self._dispatch(image).cpu().numpy().astype(np.int64)

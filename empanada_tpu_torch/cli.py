@@ -20,10 +20,18 @@ dtype the PointRend refine kernel takes; on the CPU in float32, as the JAX
 package's command line runs.  Images are read and written as ``.npy``,
 PNG or uncompressed TIFF (``data/imread.py``, ``data/imwrite.py``), and
 volumes also from chunked stores.  The flags of what the port does not
-have yet exit non-zero and name their ROADMAP item: ``--spatial-shard``,
-``--coordinator``/``--num-processes``/``--process-id`` and ``train
---multichip`` (item 11); ``models deploy``, ``serve``, ``--quantize`` and
-``bench`` (item 13).
+have yet exit non-zero and name their ROADMAP item: ``models deploy``,
+``serve``, ``--quantize`` and ``bench`` (item 13).
+
+Several cards, one process each: ``--coordinator host:port
+--num-processes N --process-id R`` (or ``EMPANADA_COORDINATOR``,
+``EMPANADA_NUM_PROCESSES``, ``EMPANADA_PROCESS_ID``) on ``infer2d``,
+``infer3d`` and ``train`` join the processes into one world before any
+model touches a card (NCCL on the cards, gloo with ``--device cpu``).
+Then ``infer3d --multichip`` splits each batch over the world,
+``infer2d --spatial-shard`` splits the image's rows and ``train
+--multichip`` trains data-parallel; every rank computes the result and
+rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -35,7 +43,6 @@ import sys
 
 import numpy as np
 
-ITEM_11 = "multi-GPU work (data-parallel and halo-sharded, multihost) is ROADMAP item 11"
 ITEM_13 = "ROADMAP item 13"
 
 
@@ -116,13 +123,35 @@ def _parse_roi(spec: str):
     return (y1, y2), (x1, x2)
 
 
-def _no_multihost(args):
-    """The JAX package's multihost launch has no counterpart yet."""
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag, None) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')}: {ITEM_11}")
-    if os.environ.get("EMPANADA_COORDINATOR"):
-        raise SystemExit(f"EMPANADA_COORDINATOR: {ITEM_11}")
+def _init_multihost(args) -> int:
+    """Join the world of ``--coordinator``/``--num-processes``/
+    ``--process-id`` (or their ``EMPANADA_*`` variables) before any engine
+    touches the card; returns this process's rank (0 without a world).  A
+    world's size or rank without a coordinator exits, as does a coordinator
+    without them."""
+    from empanada_tpu_torch.parallel.multihost import initialize_multihost
+
+    coord = args.coordinator or os.environ.get("EMPANADA_COORDINATOR")
+    if coord is None:
+        for flag in ("num_processes", "process_id"):
+            if getattr(args, flag) is not None:
+                raise SystemExit(f"--{flag.replace('_', '-')} needs --coordinator "
+                                 "(or EMPANADA_COORDINATOR)")
+        return 0
+
+    def arg_or_env(attr, env):
+        val = getattr(args, attr)
+        return int(os.environ[env]) if val is None and os.environ.get(env) else val
+
+    n = arg_or_env("num_processes", "EMPANADA_NUM_PROCESSES")
+    pid = arg_or_env("process_id", "EMPANADA_PROCESS_ID")
+    if n is None or pid is None:
+        raise SystemExit(f"--coordinator {coord} needs --num-processes and --process-id "
+                         "(or EMPANADA_NUM_PROCESSES and EMPANADA_PROCESS_ID)")
+    dev, _ = _device(args)
+    rank, world = initialize_multihost(coord, n, pid, device=dev)
+    print(f"multihost: process {rank}/{world}, {dev.type}", file=sys.stderr)
+    return rank
 
 
 def cmd_infer2d(args):
@@ -133,8 +162,9 @@ def cmd_infer2d(args):
     first model wins an overlap)."""
     from empanada_tpu_torch.api import Engine2d, combine_panoptic_maps, load_model_from_config
 
-    if args.spatial_shard:
-        raise SystemExit(f"--spatial-shard: {ITEM_11}")
+    if args.spatial_shard and args.spatial_halo % 4:
+        raise SystemExit(f"--spatial-halo {args.spatial_halo} must be a multiple of 4")
+    lead = _init_multihost(args) == 0
     dev, dtype = _device(args)
     models = _model_list(args)
     image = np.asarray(_load_array(args.image))
@@ -166,7 +196,8 @@ def cmd_infer2d(args):
             nms_threshold=args.center_confidence, nms_kernel=args.nms_kernel,
             confidence_thr=args.segment_confidence, semantic_only=args.semantic_only,
             fine_boundaries=args.fine_boundaries, tile_size=args.tile_size,
-            shape_buckets=args.shape_buckets,
+            shape_buckets=args.shape_buckets, spatial_shard=args.spatial_shard,
+            spatial_halo=args.spatial_halo,
             model=load_model_from_config(config, device=dev, dtype=dtype), device=dev)
         pan_window = engine.infer(window)
         if roi_mask is not None:
@@ -179,6 +210,8 @@ def cmd_infer2d(args):
 
     configs = [_model_config(m) for m in models]
     pans = [run_one(c) for c in configs]
+    if not lead:
+        return  # rank 0 writes
 
     if len(models) == 1:
         pan = pans[0]
@@ -202,14 +235,14 @@ def cmd_infer2d(args):
 def cmd_infer3d(args):
     """Each ``--model`` in turn over the volume; with several, each model's
     class volumes are written or stored under its own name."""
-    _no_multihost(args)
+    lead = _init_multihost(args) == 0
     dev, dtype = _device(args)
     models = _model_list(args)
     for name in models:
-        _infer3d_one(args, name, dev, dtype, multi=len(models) > 1)
+        _infer3d_one(args, name, dev, dtype, multi=len(models) > 1, lead=lead)
 
 
-def _infer3d_one(args, model_name, dev, dtype, multi=False):
+def _infer3d_one(args, model_name, dev, dtype, multi=False, lead=True):
     from empanada_tpu_torch.api import (
         Engine3d,
         load_model_from_config,
@@ -220,7 +253,11 @@ def _infer3d_one(args, model_name, dev, dtype, multi=False):
 
     config = _model_config(model_name)
     model_name = config["model_name"]  # registry key or config basename
-    store = args.store
+    # the batched engine splits the work over a world and writes from rank
+    # 0; the per-slice one does all of it on every rank, so only rank 0's
+    # writes
+    own_files = lead or args.multichip
+    store = args.store if own_files else None
     if multi and store is not None:
         root, ext = os.path.splitext(store)
         store = f"{root}_{model_name}{ext}"
@@ -233,12 +270,12 @@ def _infer3d_one(args, model_name, dev, dtype, multi=False):
         save_panoptic=args.save_panoptic, device=dev)
     model = load_model_from_config(config, device=dev, dtype=dtype)
     if args.multichip:
-        # one card; shape_buckets does nothing in eager PyTorch
+        # over the world's cards; shape_buckets does nothing in eager PyTorch
         engine = MultiChipEngine3d(config, model, batch_size=args.batch_size, **common)
     else:
         engine = Engine3d(config, model=model, shape_buckets=args.shape_buckets, **common)
 
-    ckpt_dir = args.checkpoint_dir
+    ckpt_dir = args.checkpoint_dir if own_files else None
     if multi and ckpt_dir is not None:
         ckpt_dir = os.path.join(ckpt_dir, model_name)
     ckpt_kw = {} if ckpt_dir is None else dict(
@@ -248,13 +285,17 @@ def _infer3d_one(args, model_name, dev, dtype, multi=False):
     volume = _load_array(args.volume)
     if args.orthoplane:
         trackers = engine.infer_orthoplane(volume, **ckpt_kw)
+    else:
+        _, axis_trackers = engine.infer_on_axis(volume, args.axis, **ckpt_kw)
+    if not lead:
+        return  # every rank holds the trackers; rank 0 writes
+    if args.orthoplane:
         worker = tracker_consensus(
             trackers, store, config, label_divisor=args.label_divisor,
             pixel_vote_thr=args.pixel_vote_thr, cluster_iou_thr=args.cluster_iou_thr,
             allow_one_view=args.allow_one_view, min_size=args.min_size,
             min_extent=args.min_extent, device=dev)
     else:
-        _, axis_trackers = engine.infer_on_axis(volume, args.axis, **ckpt_kw)
         worker = stack_postprocessing(
             {args.axis: axis_trackers}, store, config, label_divisor=args.label_divisor,
             min_size=args.min_size, min_extent=args.min_extent, device=dev)
@@ -272,13 +313,13 @@ def cmd_train(args):
     from empanada_tpu_torch.api.config import load_config
     from empanada_tpu_torch.train import main as train_main
 
-    _no_multihost(args)
-    if args.multichip:
-        raise SystemExit(f"train --multichip: {ITEM_11}")
+    _init_multihost(args)
     dev, _ = _device(args)
     config = load_config(args.config)
     if args.resume:
         config.setdefault("TRAIN", {})["resume"] = True
+    if args.multichip:
+        config.setdefault("TRAIN", {})["multichip"] = True
     train_main(config, device=dev)
 
 
@@ -441,23 +482,26 @@ def build_parser():
 
     def multihost_args(sp):
         sp.add_argument("--coordinator", default=None,
-                        help="multihost launch (ROADMAP item 11; exits)")
+                        help="host:port of rank 0's rendezvous: joins one process per "
+                             "card into a world (env: EMPANADA_COORDINATOR)")
         sp.add_argument("--num-processes", type=int, default=None, dest="num_processes",
-                        help="multihost launch (ROADMAP item 11; exits)")
+                        help="processes in the world (env: EMPANADA_NUM_PROCESSES)")
         sp.add_argument("--process-id", type=int, default=None, dest="process_id",
-                        help="multihost launch (ROADMAP item 11; exits)")
+                        help="this process's rank (env: EMPANADA_PROCESS_ID)")
 
     sp = sub.add_parser("infer2d", help="2D panoptic inference (tiled for big images)")
     sp.add_argument("image")
     sp.add_argument("-o", "--output", default="pan_seg.npy")
     sp.add_argument("--tile-size", type=int, default=0, dest="tile_size")
     sp.add_argument("--spatial-shard", action="store_true", dest="spatial_shard",
-                    help="halo-sharded slice across cards (ROADMAP item 11; exits)")
+                    help="split the slice's rows over the world's cards with halo rows "
+                         "exchanged (seam-free, no tiles)")
     sp.add_argument("--spatial-halo", type=int, default=128, dest="spatial_halo")
     sp.add_argument("--roi", default=None, help="confine inference to a window: y1:y2,x1:x2")
     sp.add_argument("--roi-mask", default=None, dest="roi_mask",
                     help="mask file (.npy/image); infer inside its bbox, zero outside")
     common_infer(sp)
+    multihost_args(sp)
     sp.set_defaults(func=cmd_infer2d)
 
     sp = sub.add_parser("infer3d", help="3D stack / ortho-plane inference")
@@ -466,7 +510,7 @@ def build_parser():
     sp.add_argument("--axis", default="xy", choices=["xy", "xz", "yz"])
     sp.add_argument("--orthoplane", action="store_true")
     sp.add_argument("--multichip", action="store_true",
-                    help="the batched MultiChipEngine3d (on one card)")
+                    help="the batched MultiChipEngine3d, its batches split over the world")
     sp.add_argument("--batch-size", type=int, default=None, dest="batch_size")
     sp.add_argument("--median-slices", type=int, default=3, dest="median_slices")
     sp.add_argument("--min-size", type=int, default=500, dest="min_size")
@@ -495,7 +539,7 @@ def build_parser():
     sp = sub.add_parser("train", help="train from a yaml config")
     sp.add_argument("config")
     sp.add_argument("--multichip", action="store_true",
-                    help="data-parallel training (ROADMAP item 11; exits)")
+                    help="data-parallel training over the world (TRAIN.multichip)")
     sp.add_argument("--resume", action="store_true",
                     help="continue from <model_dir>/model_checkpoint.pt")
     device_arg(sp)

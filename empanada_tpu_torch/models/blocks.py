@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
+from empanada_tpu_torch.parallel.mesh import all_reduce_grad, current_data_mesh
 
 __all__ = [
     "BatchNorm",
@@ -69,6 +70,8 @@ class BatchNorm(nn.Module):
     statistics to ``0.9 running + 0.1 batch``, the BIASED variance as flax
     keeps it (``F.batch_norm``'s own update folds in the unbiased one).
     The mode is the ``train`` argument, never ``nn.Module.training``.
+    Under ``parallel.mesh.data_parallel`` the batch statistics are those
+    of the global batch, all ranks' rows together.
     """
 
     momentum = 0.9
@@ -85,6 +88,9 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
+        mesh = current_data_mesh()
+        if mesh is not None:
+            return self._global_train(x, mesh)
         # momentum 1 makes F.batch_norm write the batch's own statistics
         # (mean, unbiased variance) into these two buffers
         mean = torch.zeros_like(self.running_mean)
@@ -98,6 +104,27 @@ class BatchNorm(nn.Module):
                 self.running_mean.mul_(m).add_(mean, alpha=1 - m)
                 self.running_var.mul_(m).add_(var, alpha=(1 - m) * (n - 1) / n)
         return y
+
+    def _global_train(self, x, mesh):
+        """Train mode under ``parallel.mesh.data_parallel``: the mean and
+        biased variance of the global batch (each a differentiable sum over
+        the ranks, in float32 or wider), the same running update."""
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dtype)
+        count = (x.numel() // x.shape[1]) * mesh.size
+        mean = all_reduce_grad(xf.sum(dim=(0, 2, 3)), mesh) / count
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce_grad((centred * centred).sum(dim=(0, 2, 3)), mesh) / count
+        scale = self.weight.to(dtype) * torch.rsqrt(var + self.eps)
+        y = centred * scale[None, :, None, None] + self.bias.to(dtype)[None, :, None, None]
+        if not getattr(_STATS, "frozen", False):
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean.detach().to(self.running_mean.dtype),
+                                               alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach().to(self.running_var.dtype),
+                                              alpha=1 - m)
+        return y.to(x.dtype)
 
 
 def conv2d(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,

@@ -17,6 +17,8 @@ from empanada_tpu_torch.models.blocks import (
     SeparableConvBnAct,
 )
 from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
+from empanada_tpu_torch.parallel.mesh import global_rand
+from empanada_tpu_torch.parallel.spatial import spatial_global_mean
 
 __all__ = ["ASPP", "PanopticDeepLabDecoder", "BiFPN", "BiFPNDecoder"]
 
@@ -30,7 +32,8 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = No
     if p >= 1:
         return torch.zeros_like(x)
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    # at the global batch's shape under data parallelism (parallel.mesh)
+    mask = global_rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -55,7 +58,9 @@ class ASPP(nn.Module):
         size = x.shape[2:]
         res = [self.conv1x1(x, train)]
         res += [getattr(self, f"aspp_conv{i + 1}")(x, train) for i in range(self.n_rates)]
-        pooled = F.relu(self.pool_conv(x.mean(dim=(2, 3), keepdim=True)))
+        # the whole slice's mean when row blocks are spread over ranks
+        # (parallel.spatial)
+        pooled = F.relu(self.pool_conv(spatial_global_mean(x)))
         res.append(bilinear_resize_nchw(pooled, size, align_corners=True))
         x = self.project(torch.cat(res, dim=1), train)
         return dropout(x, self.dropout_p, generator) if train else x

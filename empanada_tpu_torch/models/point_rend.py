@@ -17,6 +17,7 @@ from empanada_tpu_torch.ops.interpolate import (
     point_sample_packed,
 )
 from empanada_tpu_torch.ops.select import kth_largest, top_k_indices
+from empanada_tpu_torch.parallel.mesh import global_rand
 
 __all__ = [
     "calculate_uncertainty",
@@ -66,8 +67,10 @@ def get_uncertain_point_coords_with_randomness(coarse_logits, num_points: int,
     num_random = num_points - num_uncertain
     with torch.no_grad():
         if uniforms is None:
-            sampled = torch.rand((n, num_sampled, 2), generator=generator, device=dev)
-            rand = torch.rand((n, num_random, 2), generator=generator, device=dev)
+            # at the global batch's shape under data parallelism
+            # (parallel.mesh)
+            sampled = global_rand((n, num_sampled, 2), generator=generator, device=dev)
+            rand = global_rand((n, num_random, 2), generator=generator, device=dev)
         else:
             sampled, rand = (u.to(dev, torch.float32) for u in uniforms)
         logits = point_sample(coarse_logits.detach(), sampled)

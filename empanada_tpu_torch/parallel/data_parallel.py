@@ -1,5 +1,5 @@
-"""Batched 3D inference on one card (counterpart of
-``empanada_tpu/parallel/data_parallel.py`` with a mesh of one device).
+"""Batched 3D inference on one card or over a world of cards (counterpart
+of ``empanada_tpu/parallel/data_parallel.py``).
 
 Each sweep (``infer_on_axis`` along xy, xz or yz; ``infer_orthoplane`` runs
 the three) takes the volume's slices along one axis and puts them through
@@ -45,6 +45,19 @@ a sweep streams from the host, as the JAX engine's does.  The input may be a
 numpy volume or a ``core.chunked.ChunkedArray`` (streamed, slice by slice);
 with ``store_url`` the panoptic stack (``save_panoptic``) is written into a
 chunked store ``<store_url>/panoptic_<axis>`` instead of a numpy array.
+
+**Data-parallel** (``mesh`` a world of n > 1 ranks, ``parallel.mesh``; by
+default the world of ``parallel.multihost``): each batch of ``b`` slices
+(a multiple of n) is split into n runs of ``b / n`` slices, rank r
+forwarding and postprocessing the r-th.  A median window that crosses a
+rank's run reads its neighbours' edge slices: after each forward, every
+rank's first and last ``min(mid, b / n)`` sem slices are all-gathered.
+The packed rows of a batch (equal shapes: the run capacity is fixed) are
+all-gathered, so every rank matches, tracks and returns the whole axis,
+the same instances a world of one gives.  As the JAX engine does across
+processes, such a world takes the streamed path (no fused sweeps, no
+pipelined ortho); a resident volume is held by every rank.  Rank 0 writes
+the checkpoints and stores; the other ranks wait, then read the stores.
 """
 
 from __future__ import annotations
@@ -56,16 +69,18 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from empanada_tpu_torch.core import native
-from empanada_tpu_torch.core.chunked import create_chunked
+from empanada_tpu_torch.core.chunked import create_chunked, open_chunked
 from empanada_tpu_torch.core.labeling import FlatInstances
 from empanada_tpu_torch.data.volume import VolumeDataset, factor_pad_numpy
 from empanada_tpu_torch.ops import postprocess as pp
+from empanada_tpu_torch.parallel.mesh import all_gather, all_reduce, barrier, create_mesh
 from empanada_tpu_torch.stitch import checkpoint as ckpt
 from empanada_tpu_torch.stitch import filters
 from empanada_tpu_torch.stitch.patterns import (
@@ -94,12 +109,15 @@ SWEEP_FUSED_MAX_BYTES = 1 << 30
 
 
 class MultiChipEngine3d:
-    """Batched 3D inference engine (the JAX package's class of this name,
-    on one card): ``infer_on_axis(volume, "xy")`` -> ``(stack, trackers)``.
+    """Batched 3D inference engine (the JAX package's class of this name):
+    ``infer_on_axis(volume, "xy")`` -> ``(stack, trackers)``.
 
     ``model`` is a port model (``empanada_tpu_torch.models``); it is moved
-    to ``device`` (default "cuda", which raises without a GPU unless
-    ``device="cpu"``) and computes in its own parameter dtype.
+    to ``device`` (default "cuda", this rank's card in a world; raises
+    without a GPU unless ``device="cpu"``) and computes in its own
+    parameter dtype.  ``mesh``: the world the batches are split over
+    (module docstring; default ``parallel.mesh.create_mesh()``);
+    ``batch_size`` must divide over it.
 
     ``inference_scale``: a power of 2 (module docstring).  ``store_url``:
     with ``save_panoptic``, the stack goes into the chunked store
@@ -140,6 +158,7 @@ class MultiChipEngine3d:
         chunk_size=(256, 256, 256),
         sweep_fused="auto",
         volume_resident="auto",
+        mesh=None,
         device=None,
     ):
         if median_kernel_size % 2 != 1:
@@ -150,6 +169,10 @@ class MultiChipEngine3d:
             if not (value == "auto" or value is False):
                 raise ValueError(f"{name}={value!r}: expected 'auto' or False")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else create_mesh(device=self.device)
+        if batch_size is not None and batch_size % self.mesh.size:
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"{self.mesh.size} ranks of the mesh")
         self.model = model.to(self.device).eval()
         self.dtype = next(model.parameters()).dtype
         self.model_config = model_config
@@ -203,16 +226,18 @@ class MultiChipEngine3d:
         carries ~AUTO_BATCH_TARGET_PX padded model-input pixels (after the
         ``inference_scale`` downsample), capped by the axis length and
         AUTO_BATCH_MAX, then snapped down to the smallest batch with the
-        same number of batches."""
+        same number of batches; each step keeps a multiple of the world's
+        size n, as the JAX engine keeps one of its mesh's."""
         if self.batch_size is not None:
             return self.batch_size
+        n = self.mesh.size
         dims = [-(-s // self.inference_scale) for i, s in enumerate(volume_shape) if i != axis]
         area = max(1, math.prod(d + (-d) % self.padding_factor for d in dims))
         n_slices = volume_shape[axis]
-        b = max(1, round(AUTO_BATCH_TARGET_PX / area))
-        b = min(b, max(1, n_slices), AUTO_BATCH_MAX)
-        n_batches = -(-n_slices // b)
-        return max(1, -(-n_slices // n_batches))
+        b = max(n, round(AUTO_BATCH_TARGET_PX / area) // n * n)
+        b = min(b, max(n, -(-n_slices // n) * n), max(n, AUTO_BATCH_MAX // n * n))
+        per = -(-n_slices // -(-n_slices // b))
+        return max(n, -(-per // n) * n)
 
     def _batches(self, dataset: VolumeDataset, b: int):
         """Yield (images (B, H, W) padded + stacked, size); the tail batch is
@@ -333,7 +358,7 @@ class MultiChipEngine3d:
         mode.  Unlike JAX's standalone rule, a sweep of fewer than 3
         batches is fused too: on the H100 the fused xy sweep of two batches
         was no slower than the streamed one (PERF.md)."""
-        if self.sweep_fused is False or not self._resident_ok(volume):
+        if self.sweep_fused is False or self.mesh.distributed or not self._resident_ok(volume):
             return False
         dims = [s for i, s in enumerate(volume.shape) if i != axis]
         if self._max_runs(dims[1]) <= 0:
@@ -450,8 +475,9 @@ class MultiChipEngine3d:
 
     # ------------------------------------------------------------------
     def _checkpoint_meta(self, volume, axis_name: str) -> dict:
-        """The run's configuration as the JAX engine records it (one
-        device, the resolved batch): a resume under another one raises."""
+        """The run's configuration as the JAX engine records it (the
+        world's size, the resolved batch): a resume under another one
+        raises."""
         return {
             "axis_name": axis_name,
             "volume_shape": list(volume.shape),
@@ -466,7 +492,7 @@ class MultiChipEngine3d:
             "merge_ioa_thr": self.merge_ioa_thr,
             "batch_size": self.batch_size,
             "resolved_batch": self._resolve_batch(volume.shape, self.axes[axis_name]),
-            "n_dev": 1,
+            "n_dev": self.mesh.size,
             "auto_batch_target_px": AUTO_BATCH_TARGET_PX,
             "auto_batch_max": AUTO_BATCH_MAX,
             "model_name": self.model_config.get("model_name", ""),
@@ -513,78 +539,94 @@ class MultiChipEngine3d:
             stack, trackers, info = self._sweep_host(volume, handles, timer, progress)
             self.fallbacks += info["fallback"]
         else:
-            stack, trackers, info = self._infer_streamed(
-                volume, axis_name, timer, fc, loaded, checkpoint_every, progress)
+            streamed = self._infer_sharded if self.mesh.distributed else self._infer_streamed
+            stack, trackers, info = streamed(volume, axis_name, timer, fc, loaded,
+                                             checkpoint_every, progress)
         self.last_batch_size = self._resolve_batch(volume.shape, axis)
         self.last_overflow = info["dropped_centers"]
         self._warn_overflow(axis_name, self.last_overflow)
         self.last_timing = timer.report()
         return stack, trackers
 
-    def _infer_streamed(self, volume, axis_name, timer, fc, loaded_stack,
-                        checkpoint_every, progress):
-        """The streamed sweep (module docstring); ``loaded_stack`` holds the
-        slices a resumed sweep already has.  Returns (stack, trackers,
-        info)."""
+    def _stream_setup(self, volume, axis_name, timer, fc, loaded_stack, checkpoint_every,
+                      progress) -> SimpleNamespace:
+        """What the streamed sweeps start from: the batch ``b``, the ``K``
+        context batches each side that cover every window [i - mid, i +
+        mid], ``n_batches``, the batch ``j0`` a resumed sweep restarts at
+        (its last whole batch boundary; it feeds from ``feed_batch``, K
+        batches earlier, and drops the slices it has), the slice source
+        (``vol_axis`` of the resident volume, or ``batch_gen`` from the
+        host, and ``size`` when known), the trackers, matchers, matcher
+        worker and progress counter, and ``put``: feed the matcher,
+        skipping the slices a resumed sweep has, and (rank 0) save the
+        forward state every ``checkpoint_every`` slices."""
         axis = self.axes[axis_name]
         n_slices = volume.shape[axis]
         b = self._resolve_batch(volume.shape, axis)
-        mid = self.mid
-        # context batches needed on each side so every window [i-mid, i+mid]
-        # is covered
-        K = -(-mid // b)
+        K = -(-self.mid // b)
         n_batches = -(-n_slices // b)
-        max_value = float(np.iinfo(volume.dtype).max)
-        # a resumed sweep restarts at the last whole batch boundary, K
-        # context batches earlier, and drops the slices it already has
         z_done = len(loaded_stack)
         j0 = z_done // b
         feed_batch = max(0, j0 - K)
         drop = z_done - j0 * b
-
+        st = SimpleNamespace(n_slices=n_slices, b=b, K=K, n_batches=n_batches, j0=j0,
+                             feed_batch=feed_batch,
+                             max_value=float(np.iinfo(volume.dtype).max),
+                             vol_axis=None, batch_gen=None, size=None)
         vol_dev = self._resident_volume(volume)
         if vol_dev is not None:
             with timer.stage("upload"):
-                vol_axis = self._axis_volume(vol_dev, axis, n_batches * b)
-            size = tuple(s for i, s in enumerate(volume.shape) if i != axis)
-            batch_gen = None
+                st.vol_axis = self._axis_volume(vol_dev, axis, n_batches * b)
+            st.size = tuple(s for i, s in enumerate(volume.shape) if i != axis)
         else:
-            batch_gen = self._batches(VolumeDataset(volume, axis, None,
-                                                    scale=self.inference_scale,
-                                                    start=feed_batch * b), b)
-            size = None
-
-        trackers = [InstanceTracker(label, self.label_divisor, volume.shape, axis_name)
-                    for label in self.labels]
-        matchers = create_matchers(self.thing_list, self.label_divisor,
-                                   self.merge_iou_thr, self.merge_ioa_thr)
-        ckpt.prime_matchers(matchers, loaded_stack)
-        worker = MatcherWorker(matchers, self.labels, self.label_divisor, self.thing_list,
-                               force_connected=self.force_connected)
-        bar = Progress(total=n_slices, desc=f"axis {axis_name}", enabled=progress)
+            st.batch_gen = self._batches(VolumeDataset(volume, axis, None,
+                                                       scale=self.inference_scale,
+                                                       start=feed_batch * b), b)
+        st.trackers = [InstanceTracker(label, self.label_divisor, volume.shape, axis_name)
+                       for label in self.labels]
+        st.matchers = create_matchers(self.thing_list, self.label_divisor,
+                                      self.merge_iou_thr, self.merge_ioa_thr)
+        ckpt.prime_matchers(st.matchers, loaded_stack)
+        worker = st.worker = MatcherWorker(st.matchers, self.labels, self.label_divisor,
+                                           self.thing_list, force_connected=self.force_connected)
+        bar = st.bar = Progress(total=n_slices, desc=f"axis {axis_name}", enabled=progress)
         bar.n = z_done
         emitted = last_saved = 0
 
         def put(item):
-            """Feed the matcher, skipping the slices a resumed sweep has,
-            and save the forward state every ``checkpoint_every`` slices."""
             nonlocal emitted, last_saved
             emitted += 1
             if emitted <= drop:
                 return
             worker.put(item)
             bar.update()
-            if fc is not None:
+            if fc is not None and self.mesh.rank == 0:
                 done = len(worker.rle_stack)  # append-only: its prefix is final
                 if done - last_saved >= checkpoint_every:
                     fc.append(worker.rle_stack[last_saved:done])
                     last_saved = done
 
+        st.put = put
+        return st
+
+    def _infer_streamed(self, volume, axis_name, timer, fc, loaded_stack,
+                        checkpoint_every, progress):
+        """The streamed sweep (module docstring) in a world of one;
+        ``loaded_stack`` holds the slices a resumed sweep already has.
+        Returns (stack, trackers, info)."""
+        st = self._stream_setup(volume, axis_name, timer, fc, loaded_stack, checkpoint_every,
+                                progress)
+        n_slices, b, K, n_batches, j0 = st.n_slices, st.b, st.K, st.n_batches, st.j0
+        mid, max_value, vol_axis, batch_gen, size = (self.mid, st.max_value, st.vol_axis,
+                                                     st.batch_gen, st.size)
+        trackers, matchers, worker, bar, put = (st.trackers, st.matchers, st.worker, st.bar,
+                                                st.put)
+
         # only a median-kernel-deep rolling window of sem batches (plus the
         # current batch's ctr/off) lives on the device
         sem_buf: dict = {}   # batch index -> sem (B, H, W, C)
         io_buf: dict = {}    # batch index -> (ctr, off)
-        fwd_done = feed_batch - 1
+        fwd_done = st.feed_batch - 1
 
         def ensure_forwarded(upto: int):
             nonlocal fwd_done, size
@@ -707,6 +749,134 @@ class MultiChipEngine3d:
             fc.remove()  # the axis is complete; its partial state is stale
         return stack, trackers, {"dropped_centers": n_over, "fallback": False}
 
+    def _infer_sharded(self, volume, axis_name, timer, fc, loaded_stack,
+                       checkpoint_every, progress):
+        """The streamed sweep in a world of n > 1 ranks (module docstring),
+        with ``_infer_streamed``'s arguments and result.  The collectives
+        (the edge slices after each forward, the packed rows and, for a
+        slice whose rows overflowed, the dense maps) are issued from this
+        thread in the same order on every rank; each batch's rows are read
+        on the host one batch late, while the next batch computes."""
+        mesh = self.mesh
+        st = self._stream_setup(volume, axis_name, timer, fc, loaded_stack, checkpoint_every,
+                                progress)
+        n_slices, b, K, n_batches, j0 = st.n_slices, st.b, st.K, st.n_batches, st.j0
+        max_value, vol_axis, batch_gen, size = st.max_value, st.vol_axis, st.batch_gen, st.size
+        trackers, matchers, worker, bar, put = (st.trackers, st.matchers, st.worker, st.bar,
+                                                st.put)
+        c, mid = b // mesh.size, self.mid
+        lo = mesh.rank * c                  # this rank's rows of every batch
+        edge = min(mid, c)                  # edge slices each rank shares
+
+        local: dict = {}   # batch -> (sem, ctr, off) of this rank's rows
+        edges: dict = {}   # global slice -> sem slice of another rank's rows
+        fwd_done = st.feed_batch - 1
+
+        def ensure_forwarded(upto: int):
+            nonlocal fwd_done, size
+            while fwd_done < min(upto, n_batches - 1):
+                j = fwd_done + 1
+                if batch_gen is None:
+                    with timer.stage("forward_dispatch"):
+                        sem, ctr, off = self._forward_device(
+                            vol_axis[j * b + lo:j * b + lo + c], max_value)
+                else:
+                    with timer.stage("host_prep"):
+                        images, size = next(batch_gen)
+                    with timer.stage("forward_dispatch"):
+                        sem, ctr, off = self._forward(images[lo:lo + c], max_value)
+                if edge:
+                    with timer.stage("collectives"):
+                        shared = all_gather(torch.cat([sem[:edge], sem[c - edge:]]), mesh)
+                    for q, t in enumerate(shared):
+                        if q != mesh.rank:
+                            for i in range(edge):
+                                edges[j * b + q * c + i] = t[i]
+                                edges[j * b + q * c + c - edge + i] = t[edge + i]
+                # a resumed sweep's context batches only feed windows
+                local[j] = (sem, ctr, off) if j >= j0 else (sem, None, None)
+                fwd_done = j
+
+        def sem_slice(g: int):
+            j, pos = divmod(g, b)
+            if pos // c == mesh.rank:
+                return local[j][0][pos % c]
+            return edges[g]
+
+        def drain(pending):
+            """Feed one batch's slices to the matcher; a slice whose rows
+            overflowed their run capacity sends its dense map, gathered
+            (every rank sees the same rows, so all of them gather)."""
+            handle, pans, n_keep = pending
+            with timer.stage("fetch"):
+                rows = _fetch_host(handle)[:n_keep]
+            if pans is None:                  # the gathered dense maps
+                for pan in rows:
+                    put(pan.astype(np.int64))
+                return
+            over = rows[..., -1].max(axis=-1) > (rows.shape[-1] - 1) // 2
+            dense = None
+            if over.any():
+                with timer.stage("collectives"):
+                    dense = torch.cat(all_gather(pans, mesh)).cpu().numpy()
+            for i, row_buf in enumerate(rows):
+                put(dense[i].astype(np.int64) if over[i] else ("packed", row_buf, pans.shape[-1]))
+
+        overflow_dev = None
+        max_runs = None
+        taps = np.arange(-mid, mid + 1)
+        pending = None
+        try:
+            with timer.stage("device_stream+forward_matching"):
+                for j in range(j0, n_batches):
+                    ensure_forwarded(j + K)
+                    start, stop = j * b, min((j + 1) * b, n_slices)
+                    # the batch's windows (padded positions read the last
+                    # slice, unmedianed), this rank's rows of them
+                    idxs = np.arange(start, start + b)[lo:lo + c]
+                    win = np.clip(idxs[:, None] + taps[None, :], 0, n_slices - 1)
+                    use = (idxs >= mid) & (idxs < n_slices - mid)
+                    sem, ctr, off = local[j]
+                    h, w = size
+                    if max_runs is None:
+                        max_runs = self._max_runs(w)
+                    with timer.stage("post_dispatch"):
+                        windows = torch.stack([sem_slice(int(g)) for g in win.reshape(-1)])
+                        windows = windows.reshape(c, self.ks, *sem.shape[1:])
+                        pans, packed, n_over = self._post_windows(
+                            windows, torch.as_tensor(use, device=sem.device), ctr, off,
+                            (h, w), max_runs)
+                        overflow_dev = (n_over if overflow_dev is None
+                                        else torch.maximum(overflow_dev, n_over))
+                    with timer.stage("collectives"):
+                        gathered = torch.cat(all_gather(
+                            packed if packed is not None else pans.contiguous(), mesh))
+                    item = (to_host_async(gathered), pans if packed is not None else None,
+                            stop - start)
+                    if pending is not None:
+                        drain(pending)
+                    pending = item
+                    for k in [k for k in local if k < j + 1 - K]:
+                        del local[k]
+                    for g in [g for g in edges if g < (j + 1 - K) * b]:
+                        del edges[g]
+                if pending is not None:
+                    drain(pending)
+        finally:
+            matched = worker.finish()
+        rle_stack = loaded_stack + matched
+        timer.add("matcher_busy", worker.stats["busy_s"])
+        bar.close()
+        n_over = 0
+        if overflow_dev is not None:
+            with timer.stage("collectives"):
+                n_over = int(all_reduce(overflow_dev, mesh, "max"))
+        stack = self._finish_axis(rle_stack, matchers, trackers, volume, axis_name, timer)
+        if fc is not None and mesh.rank == 0:
+            fc.remove()  # the axis is complete; its partial state is stale
+        barrier(mesh)
+        return stack, trackers, {"dropped_centers": n_over, "fallback": False}
+
     def _finish_axis(self, rle_stack, matchers, trackers, volume, axis_name, timer):
         """Backward matching with the tracker updates, then
         ``_finalize_trackers``."""
@@ -725,14 +895,20 @@ class MultiChipEngine3d:
             filters.remove_pancakes(tracker, min_span=self.min_extent)
         if not self.save_panoptic:
             return None
-        if self.store_url is not None:
-            stack = create_chunked(f"{self.store_url.rstrip('/')}/panoptic_{axis_name}",
-                                   volume.shape, self.chunk_size, np.int32)
-        else:
+        if self.store_url is None:
             stack = np.zeros(volume.shape, dtype=np.int32)
-        with timer.stage("fill_volume"):
-            fill_panoptic_volume(stack, trackers)
-        return stack
+            with timer.stage("fill_volume"):
+                fill_panoptic_volume(stack, trackers)
+            return stack
+        # every rank holds the same trackers: rank 0 fills the store, the
+        # others open it once it is written
+        path = f"{self.store_url.rstrip('/')}/panoptic_{axis_name}"
+        if self.mesh.rank == 0:
+            stack = create_chunked(path, volume.shape, self.chunk_size, np.int32)
+            with timer.stage("fill_volume"):
+                fill_panoptic_volume(stack, trackers)
+        barrier(self.mesh)
+        return stack if self.mesh.rank == 0 else open_chunked(path)
 
     # ------------------------------------------------------------------
     def infer_orthoplane(self, volume: np.ndarray, timer: Optional[StageTimer] = None,
@@ -785,7 +961,7 @@ class MultiChipEngine3d:
                                 "dropped_centers": self.last_overflow,
                                 "path": "fused" if self.last_fused else "streamed",
                                 "timing": self.last_timing}
-            if checkpoint_dir is not None:
+            if checkpoint_dir is not None and self.mesh.rank == 0:
                 ckpt.save_axis_trackers(checkpoint_dir, axis_name, trackers[axis_name], meta)
         self.last_overflow = max(s["dropped_centers"] for s in stats.values())
         self.last_axis_stats = stats
@@ -827,6 +1003,14 @@ class MultiChipEngine3d:
         self.last_timing = stats["yz"]["timing"]
         self.last_axis_stats = stats
         return trackers
+
+
+def _fetch_host(handle) -> np.ndarray:
+    """The host array of a ``to_host_async`` handle, once its copy is done."""
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
 
 
 def _merge_timing(timer: Optional[StageTimer], report: dict):

@@ -18,8 +18,16 @@ draws (loadable with ``weights_only=True``), written atomically with the
 run's config beside it as ``<path>.yaml``.  Resuming restores all of them,
 so a resumed run continues the uninterrupted one's draws.
 
-Entry points run on the card: ``device=None`` means "cuda" and raises
-without a GPU; the tests pass ``device="cpu"``.
+``TRAIN.multichip`` trains data-parallel over the world of processes
+(``parallel.multihost``; a world of one without one): ``batch_size`` is
+the global batch, each rank loads its ``batch_size // world`` rows with
+its shard of the loader's sample stream, and every step is the JAX
+package's sharded step (``train/state.py``).  Rank 0 prints, evaluates
+the metrics, writes the checkpoints (every rank's draws in them) and
+validates while the others wait; a resume restores every rank.
+
+Entry points run on the card: ``device=None`` means "cuda" (this rank's
+card in a world) and raises without a GPU; the tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from empanada_tpu_torch.data.volume import factor_pad_numpy
 from empanada_tpu_torch.engine.engines import PanopticDeepLabEngine
 from empanada_tpu_torch.models import create_model
 from empanada_tpu_torch.ops import postprocess as pp
+from empanada_tpu_torch.parallel.mesh import barrier, create_mesh, replicated
 from empanada_tpu_torch.train.losses import BCLoss, PanopticLoss
 from empanada_tpu_torch.train.metrics import AverageMeter, ComposeMetrics, EMAMeter, create_metric
 from empanada_tpu_torch.train.state import (
@@ -106,9 +115,18 @@ def _rng_states(loader) -> dict:
 
 
 def save_checkpoint(path: str, state: TrainState, config: dict, epoch: int = 0,
-                    loader=None) -> None:
+                    loader=None, mesh=None) -> None:
     """Write the run's state at ``path`` (module docstring), atomically: a
-    crash mid-write leaves the previous checkpoint whole."""
+    crash mid-write leaves the previous checkpoint whole.  In a world
+    (``mesh``) every rank calls it: rank 0 writes, with each rank's
+    loader and augmentation draws, while the others wait."""
+    rank_rng = None
+    if mesh is not None and mesh.distributed:
+        rank_rng = [None] * mesh.size
+        torch.distributed.all_gather_object(rank_rng, _rng_states(loader), group=mesh.group)
+        if mesh.rank != 0:
+            barrier(mesh)
+            return
     model = state.model
     params = {n: p.detach().cpu() for n, p in model.named_parameters()}
     stats = {n: b.detach().cpu() for n, b in model.named_buffers()}
@@ -116,17 +134,22 @@ def save_checkpoint(path: str, state: TrainState, config: dict, epoch: int = 0,
             "opt_state": state.optimizer.state_dict(), "step": int(state.step),
             "epoch": int(epoch), "generator": state.generator.get_state(),
             **_rng_states(loader)}
+    if rank_rng is not None:
+        blob["rank_rng"] = rank_rng
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
     with open(path + ".yaml", "w") as f:
         yaml.safe_dump({"config": _yaml_safe(config)}, f)
+    if rank_rng is not None:
+        barrier(mesh)
 
 
 def load_checkpoint(path: str, state: TrainState, return_epoch: bool = False,
-                    loader=None):
+                    loader=None, rank: int = 0):
     """Restore ``state`` (and ``loader``'s and its augmentations' draws,
-    when given) from a checkpoint of ``save_checkpoint``."""
+    when given: those of ``rank`` where the checkpoint holds every rank's)
+    from a checkpoint of ``save_checkpoint``."""
     with open(path, "rb") as f:
         magic = f.read(2)
     if magic != b"PK":
@@ -139,10 +162,11 @@ def load_checkpoint(path: str, state: TrainState, return_epoch: bool = False,
     state.optimizer.load_state_dict(blob["opt_state"])
     state.step = int(blob["step"])
     state.generator.set_state(blob["generator"])
-    if loader is not None and "loader_rng" in blob:
-        loader.load_state_dict(blob["loader_rng"])
-        if "augment_rng" in blob:
-            loader.dataset.transforms.rng.bit_generator.state = blob["augment_rng"]
+    draws = blob["rank_rng"][rank] if "rank_rng" in blob else blob
+    if loader is not None and "loader_rng" in draws:
+        loader.load_state_dict(draws["loader_rng"])
+        if "augment_rng" in draws:
+            loader.dataset.transforms.rng.bit_generator.state = draws["augment_rng"]
     if return_epoch:
         return state, int(blob["epoch"])
     return state
@@ -219,10 +243,8 @@ def main(config: dict, model_and_state=None, device=None, timer=None):
     dev = resolve_device(device)
     train_cfg = config["TRAIN"]
     dataset_cfg = config["DATASET"]
-    if train_cfg.get("multichip"):
-        raise NotImplementedError(
-            "TRAIN.multichip: data-parallel training over several cards "
-            "(torch.distributed over NCCL) is ROADMAP item 11; train on one card")
+    mesh = create_mesh(device=dev) if train_cfg.get("multichip") else None
+    lead = mesh is None or mesh.rank == 0
     model_dir = train_cfg.get("model_dir") or "."
     os.makedirs(model_dir, exist_ok=True)
     norms = dataset_cfg["norms"]
@@ -236,7 +258,14 @@ def main(config: dict, model_and_state=None, device=None, timer=None):
 
     dataset = _build_dataset(config, norms)
     batch_size = train_cfg.get("batch_size", 16)
-    loader = WeightedBatchLoader(dataset, batch_size, seed=seed)
+    if mesh is None:
+        loader = WeightedBatchLoader(dataset, batch_size, seed=seed)
+    else:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the "
+                             f"{mesh.size} ranks of the world")
+        loader = WeightedBatchLoader(dataset, batch_size // mesh.size, seed=seed,
+                                     shard=mesh.rank, num_shards=mesh.size)
     epochs = train_cfg.get("epochs", train_cfg.get("schedule_params", {}).get("epochs", 1))
 
     if model_and_state is None:
@@ -258,11 +287,14 @@ def main(config: dict, model_and_state=None, device=None, timer=None):
     else:
         model, state = model_and_state
     model.train()
+    if mesh is not None:
+        # every rank starts from rank 0's weights and statistics
+        replicated(mesh, [*model.parameters(), *model.buffers()])
 
     criterion = LOSS_REGISTRY[train_cfg.get("criterion", "PanopticLoss")](
         **train_cfg.get("criterion_params", {}))
     train_step = make_train_step(criterion, remat=bool(train_cfg.get("remat", False)),
-                                 amp=amp)
+                                 amp=amp, mesh=mesh)
     metric_specs = train_cfg.get("metrics", [])
     metrics = _metrics(metric_specs, EMAMeter, dataset_cfg)
     eval_step = make_eval_step(amp) if metric_specs else None
@@ -281,9 +313,11 @@ def main(config: dict, model_and_state=None, device=None, timer=None):
             path = jax_ckpt  # load_checkpoint refuses it by name
         if os.path.exists(path):
             state, start_epoch = load_checkpoint(path, state, return_epoch=True,
-                                                 loader=loader)
-            print(f"resumed from {path}: epoch {start_epoch}, step {state.step}")
-        else:
+                                                 loader=loader,
+                                                 rank=0 if mesh is None else mesh.rank)
+            if lead:
+                print(f"resumed from {path}: epoch {start_epoch}, step {state.step}")
+        elif lead:
             print(f"resume requested but no checkpoint at {path}; starting fresh")
 
     step_count = 0
@@ -302,7 +336,7 @@ def main(config: dict, model_and_state=None, device=None, timer=None):
                 timer.add("data", t1 - t0)
                 timer.add("step", time.perf_counter() - t1)
             step_count += 1
-            if step_count % print_freq == 0:
+            if lead and step_count % print_freq == 0:
                 print(f"epoch {epoch + 1} step {step_count}: loss "
                       f"{float(aux['total_loss']):.4f}")
                 if eval_step is not None:
@@ -310,13 +344,17 @@ def main(config: dict, model_and_state=None, device=None, timer=None):
                     metrics.evaluate(_to_numpy(eval_step(state, batch["image"])),
                                      _to_numpy(batch))
                     metrics.display()
-        print(f"epoch {epoch + 1}/{epochs} done in {time.time() - t_epoch:.1f}s")
+        if lead:
+            print(f"epoch {epoch + 1}/{epochs} done in {time.time() - t_epoch:.1f}s")
 
         if (epoch + 1) % save_freq == 0 or (epoch + 1) == epochs:
-            save_checkpoint(ckpt, state, config, epoch=epoch + 1, loader=loader)
+            save_checkpoint(ckpt, state, config, epoch=epoch + 1, loader=loader, mesh=mesh)
         eval_cfg = config.get("EVAL") or {}
         if eval_cfg.get("eval_dir") and (epoch + 1) % eval_cfg.get("epochs_per_eval", 1) == 0:
-            validate(config, model, state, device=dev)
+            if lead:
+                validate(config, model, state, device=dev)
+            if mesh is not None:
+                barrier(mesh)
     return model, state
 
 

@@ -5,6 +5,14 @@ integer, ``ctr_hmp`` (N, H, W, 1), ``offsets`` (N, H, W, 2); ``cnt``
 (N, H, W) for the boundary-contour model.  Every loss is a 0-d tensor on
 the outputs' device, in float32 under bf16 compute (float64 for float64
 outputs): nothing is read back to the host.
+
+Under ``parallel.mesh.data_parallel`` each rank holds its rows of the
+global batch, and every loss returns this rank's share of the global
+batch's loss (the shares sum to it over the ranks, so the gradients do
+too): ``bootstrap_ce`` the rank's pixels among the global batch's hardest
+``top_k_percent`` over the global k, ``offset_l1`` the rank's weighted sum
+over the global weights' sum, and the means their local mean over the
+world's size (equal shards).
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from empanada_tpu_torch.ops.interpolate import point_sample
+from empanada_tpu_torch.parallel.mesh import all_gather, all_reduce, current_data_mesh
 
 __all__ = [
     "at_least_f32",
@@ -47,14 +56,32 @@ def bootstrap_ce(logits, labels, top_k_percent: float = 0.2):
     whole batch, in float32 (the JAX package reduces in f32 under bf16
     compute too)."""
     pixel = _pixel_ce(logits, labels).reshape(-1)
+    mesh = current_data_mesh()
+    if mesh is None:
+        if top_k_percent == 1.0:
+            return pixel.mean()
+        k = int(top_k_percent * pixel.numel())
+        return torch.topk(pixel, k, sorted=False).values.mean()
+    n = pixel.numel() * mesh.size
     if top_k_percent == 1.0:
-        return pixel.mean()
-    k = int(top_k_percent * pixel.numel())
-    return torch.topk(pixel, k, sorted=False).values.mean()
+        return pixel.sum() / n
+    k = int(top_k_percent * n)
+    # the global k-th largest from every rank's pixels; the pixels tied
+    # with it share what is left of k
+    everything = torch.cat(all_gather(pixel.detach(), mesh))
+    thr = torch.topk(everything, k, sorted=False).values.min()
+    n_above = (everything > thr).sum()
+    n_tied = (everything == thr).sum()
+    zero = torch.zeros_like(pixel)
+    above = torch.where(pixel > thr, pixel, zero).sum()
+    tied = torch.where(pixel == thr, pixel, zero).sum()
+    return (above + tied * ((k - n_above) / n_tied)) / k
 
 
 def heatmap_mse(output, target):
-    return torch.mean((at_least_f32(output) - at_least_f32(target)) ** 2)
+    mse = torch.mean((at_least_f32(output) - at_least_f32(target)) ** 2)
+    mesh = current_data_mesh()
+    return mse if mesh is None else mse / mesh.size
 
 
 def offset_l1(output, target, offset_weights):
@@ -62,6 +89,9 @@ def offset_l1(output, target, offset_weights):
     channels over the weights' sum; 0 when the weights are all 0."""
     l1 = (at_least_f32(output) - at_least_f32(target)).abs() * offset_weights
     wsum = offset_weights.sum()
+    mesh = current_data_mesh()
+    if mesh is not None:
+        wsum = all_reduce(wsum, mesh)
     return torch.where(wsum == 0, torch.zeros_like(wsum),
                        l1.sum() / torch.clamp(wsum, min=1e-8))
 
@@ -71,7 +101,9 @@ def point_rend_loss(point_logits, point_coords, labels):
     sampled at ``point_coords`` (N, P, 2) by the nearest pixel."""
     point_labels = point_sample(labels[..., None].to(point_coords.dtype), point_coords,
                                 mode="nearest")
-    return _pixel_ce(point_logits, point_labels[..., 0]).mean()
+    ce = _pixel_ce(point_logits, point_labels[..., 0]).mean()
+    mesh = current_data_mesh()
+    return ce if mesh is None else ce / mesh.size
 
 
 class PanopticLoss:

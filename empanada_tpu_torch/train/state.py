@@ -14,6 +14,14 @@ needs none), takes the gradients and the optimizer step, and reads nothing
 back to the host.  ``remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint``) with the same random draws and without
 folding the batch statistics in twice: the gradients are identical.
+
+With a ``mesh`` of more than one rank (``parallel.mesh``) a step is the
+JAX package's sharded step: each rank's batch is its rows of the global
+batch, the forward and the loss run under ``data_parallel`` (global batch
+statistics, each rank's share of the global loss, draws at the global
+shape), and after the backward the gradients are summed over the ranks, so
+every rank takes the step a world of one takes on the concatenated batch
+and the optimizer's state stays the same on all of them.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from empanada_tpu_torch.models.blocks import BatchNorm, frozen_batch_stats
+from empanada_tpu_torch.parallel.mesh import Mesh, all_reduce, data_parallel
 
 __all__ = ["TrainState", "onecycle_schedule", "decay_mask", "adamw_with_decay_mask",
            "create_train_state", "make_train_step", "make_eval_step", "batch_to_device"]
@@ -117,10 +126,29 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
-def make_train_step(loss_fn, remat: bool = False, amp: bool = True):
+def _sum_over_ranks(tensors: list, mesh: Mesh) -> None:
+    """Sum ``tensors`` (one dtype) over the ranks in place, in one
+    collective."""
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+@contextlib.contextmanager
+def _recompute(mesh: Optional[Mesh]):
+    with frozen_batch_stats(), data_parallel(mesh):
+        yield
+
+
+def make_train_step(loss_fn, remat: bool = False, amp: bool = True,
+                    mesh: Optional[Mesh] = None):
     """``step(state, batch) -> aux``: one optimizer step on a batch of
     device tensors {"image": (B, H, W, 1), targets...}; ``aux`` is the
-    loss's dict of 0-d device tensors (``total_loss`` among them)."""
+    loss's dict of 0-d device tensors (``total_loss`` among them), of the
+    global batch with a ``mesh`` (module docstring)."""
+    dp = mesh if mesh is not None and mesh.distributed else None
 
     def step(state: TrainState, batch: dict) -> dict:
         model, gen = state.model, state.generator
@@ -139,20 +167,27 @@ def make_train_step(loss_fn, remat: bool = False, amp: bool = True):
                 return model(image, train=True, generator=gen)
 
             def contexts():
-                return contextlib.nullcontext(), frozen_batch_stats()
+                return contextlib.nullcontext(), _recompute(dp)
 
-            with autocast:
+            with autocast, data_parallel(dp):
                 out = checkpoint(forward, batch["image"], use_reentrant=False,
                                  context_fn=contexts)
         else:
-            with autocast:
+            with autocast, data_parallel(dp):
                 out = model(batch["image"], train=True, generator=gen)
-        with autocast:
+        with autocast, data_parallel(dp):
             loss, aux = loss_fn(out, batch)
         loss.backward()
+        aux = {k: v.detach() for k, v in aux.items()}
+        if dp is not None:
+            # each rank's backward is its share of the global loss's
+            _sum_over_ranks([p.grad for p in model.parameters() if p.grad is not None], dp)
+            keys = sorted(aux)
+            total = all_reduce(torch.stack([aux[k].to(loss.dtype) for k in keys]), dp)
+            aux = dict(zip(keys, total.unbind()))
         state.optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        return aux
 
     return step
 

@@ -4,23 +4,42 @@ counter shared by the port's entry points."""
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import threading
 import time
 from collections import defaultdict
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["resolve_device", "fp32_strict", "to_host_async", "StageTimer", "Progress"]
+__all__ = ["resolve_device", "local_rank", "fp32_strict", "to_host_async", "StageTimer", "Progress"]
+
+
+def local_rank() -> int:
+    """This process's card on its host: ``LOCAL_RANK`` where a launcher
+    sets it (torchrun), else the rank of the ``torch.distributed`` world
+    modulo the host's card count (0 outside a world)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    n = torch.cuda.device_count()
+    return dist.get_rank() % n if n else 0
 
 
 def resolve_device(device=None) -> torch.device:
-    """Entry-point device rule: ``None`` means ``"cuda"``.
+    """Entry-point device rule: ``None`` means ``"cuda"``, and in a world of
+    processes (``parallel.multihost``) ``cuda:<local_rank>``, this rank's
+    card; a device the caller names wins.
 
     A CUDA request without a usable GPU raises instead of carrying on
     silently on the CPU; the CPU is used only when the caller asks for it.
     """
-    dev = torch.device("cuda" if device is None else device)
+    if device is None:
+        in_world = dist.is_available() and dist.is_initialized()
+        device = f"cuda:{local_rank()}" if in_world else "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"

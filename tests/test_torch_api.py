@@ -248,8 +248,21 @@ def test_force_connected_matches_jax(engines2d):
 
 
 def test_engine2d_spatial_shard_and_device(models):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.Engine2d(CFG, model=models[2], device="cpu", spatial_shard=True)
+    """``spatial_shard`` in a world of one (no process group): one block
+    with zero halo rows above and below, as JAX's one-device mesh runs it;
+    ``update_params`` reaches the spatial engine."""
+    from empanada_tpu.parallel.mesh import create_mesh as jax_mesh
+
+    model, variables, tmodel = models
+    img = make_blob_image((70, 90), n_blobs=4, seed=5)
+    kw = dict(KW2D, spatial_shard=True, spatial_halo=16)
+    got = api.Engine2d(CFG, model=tmodel, device="cpu", **kw)
+    want = jax_api.Engine2d(CFG, model_and_variables=(model, variables),
+                            spatial_mesh=jax_mesh(1, axis_name="spatial"), **kw)
+    for thr in (0.5, 0.3):
+        _set((got, want), confidence_thr=thr)
+        _same_map(got.infer(img), want.infer(img))
+    assert got.spatial_engine.confidence_thr == 0.3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             api.Engine2d(CFG, model=models[2])

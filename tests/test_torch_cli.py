@@ -6,7 +6,8 @@ temporary directory.  Every command must write the same output files
 (equal arrays of equal dtypes, as PIL reads them back) and print the same
 lines, apart from paths and the packages' own file extensions; metrics are
 held to 1e-12.  The commands the port does not have yet exit non-zero and
-name their ROADMAP item.  Training and finetuning are in
+name their ROADMAP item; a half-given world (a coordinator without its
+size and rank, or the reverse) exits too.  Training and finetuning are in
 ``test_torch_cli_train.py``."""
 
 import json
@@ -273,11 +274,16 @@ def test_docs(root, capsys):
     assert out["port"] == out["jax"] and len(out["port"]) > 10
 
 
+# the world flags (tests/test_torch_parallel.py drives them) exit on a
+# half-given world before any file is read
 UNPORTED = {
-    "spatial_shard": (["infer2d", "x.npy", "--spatial-shard"], "item 11"),
-    "coordinator": (["infer3d", "x.npy", "--coordinator", "localhost:1234"], "item 11"),
-    "num_processes": (["infer3d", "x.npy", "--num-processes", "2"], "item 11"),
-    "train_multichip": (["train", "x.yaml", "--multichip"], "item 11"),
+    "spatial_shard": (["infer2d", "x.npy", "--spatial-shard", "--spatial-halo", "6"],
+                      "multiple of 4"),
+    "coordinator": (["infer3d", "x.npy", "--coordinator", "localhost:1234"],
+                    "needs --num-processes"),
+    "num_processes": (["infer3d", "x.npy", "--num-processes", "2"], "needs --coordinator"),
+    "train_multichip": (["train", "x.yaml", "--multichip", "--process-id", "1"],
+                        "needs --coordinator"),
     "deploy": (["models", "deploy", "--name", "MitoNet_v1", "--path", "x"], "item 13"),
     "serve": (["serve", "a.bin", "x.npy"], "item 13"),
     "export_quantize": (["models", "export", "--name", "MitoNet_v1", "--path", "x",

@@ -31,6 +31,7 @@ from empanada_tpu_torch.engine import (
     PanopticDeepLabRenderEngine3d,
 )
 from empanada_tpu_torch.models import create_model
+from empanada_tpu_torch.parallel import SpatialEngine2d, create_mesh, initialize_multihost
 from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 
 from _torch_port import SMALL_PR
@@ -67,7 +68,8 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "models.regnet", "models.panoptic_bifpn", "stitch.watershed", "cli",
                 "__main__", "eval.evaluator", "eval.metrics", "curation.ops",
                 "curation.tiles", "curation.patches", "curation.export", "api.export",
-                "port.torch_port", "data.imwrite"):
+                "port.torch_port", "data.imwrite", "parallel", "parallel.mesh",
+                "parallel.multihost", "parallel.spatial", "parallel.data_parallel"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -106,7 +108,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 71  # every module of the port, not an empty walk
+    assert n >= 76  # every module of the port, not an empty walk
 
 
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
@@ -169,6 +171,12 @@ def test_entry_points_raise_without_a_gpu():
         create_model("PanopticBiFPNPR", encoder="regnety_200mf", fpn_dim=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiChipEngine3d(load_config("MitoNet_v1"), model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialEngine2d(model, thing_list=[1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("127.0.0.1:1234", 2, 0)
     for engine in (Engine2d, Engine3d):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             engine(load_config("MitoNet_v1"), model=model)

@@ -1,6 +1,6 @@
 """The port's training loop against the JAX package's, in float32 on the
-CPU: a bit-identical resume after a crash, ``multichip`` and JAX
-checkpoints refused,
+CPU: a bit-identical resume after a crash, ``multichip`` in a world of
+one, JAX checkpoints refused,
 ``validate`` against JAX's on the same weights (PQ and F1 within 1e-6),
 and ``finetune_main`` round-tripping a port bundle through the registry.
 The learning run is in ``test_torch_learn.py``.
@@ -112,8 +112,14 @@ def test_resume_is_bit_identical(blob_dir, tmp_path, monkeypatch):
 
 
 def test_multichip_and_jax_checkpoints_raise(blob_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.main(_config(blob_dir, tmp_path, 1, multichip=True), device="cpu")
+    """``TRAIN.multichip`` in a world of one (no process group) trains as
+    the plain run does, bit for bit (worlds of two are in
+    test_torch_ddp.py); a JAX checkpoint is refused, and so is the card
+    without a GPU."""
+    _, plain = T.main(_config(blob_dir, tmp_path / "plain", 1), device="cpu")
+    _, multi = T.main(_config(blob_dir, tmp_path / "multi", 1, multichip=True), device="cpu")
+    a, b = plain.model.state_dict(), multi.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
     jax_ckpt = tmp_path / "blobs_checkpoint.msgpack"
     jax_ckpt.write_bytes(b"\x85\xa6params")
     with pytest.raises(ValueError, match="from_flax"):
