@@ -28,7 +28,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    kernel's shared memory reserved, the refine step cut after the gather
    and after the interpolation) against their plain versions, then their
    CUDA-event and profiler device times beside their bounds: the whole step
-   at all-skip and all-refine (select and refine passes apart), the MLP's
+   at all-skip and all-refine (select and refine passes apart; its plain
+   version's times, ``full_skip_plain`` and ``full_refine_plain``), the MLP's
    TFLOP/s at all-refine, and the tile copy against ``copy_`` (medians of 60
    calls' device times);
 5. main path: MitoNet_v1 at full width (seeded random weights, random BN
@@ -187,7 +188,24 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     phase 13 found).  Seconds, slices/s beside a world
     of one's, seconds in collectives, host syncs per batch and refine
     launches per rank (``parallel:`` line); every rank's collectives time
-    out after 90 s, each world after 110 s, the phase after 120 s.
+    out after 90 s, each world after 110 s, the phase after 120 s;
+16. surface: phase 5's model (a) as an int8 bundle of the same seed's
+    float32 weights, loaded in bf16 (the dequantized weights on the card
+    bit-equal to the CPU's; the size ratio against the float32 bundle; the
+    share of a 512 x 512 request's pixels whose map differs from the float
+    bundle's), (b) fetched from a ``file://`` URL into a download cache of
+    its own (``Engine2d`` of the URL config equal to the local path's),
+    (c) as a 512 x 512 serving artifact exported on ``cuda``, saved, loaded
+    and run (the refine kernel launched ``render_steps`` times a request
+    through the registered op; the map equal to ``Engine2d``'s device map,
+    and after ``force_connected`` to ``Engine2d.infer``; a wrong shape and
+    uint16 refused; export seconds, bytes, CUDA-event ms a request beside
+    phase 6's ``engine_ms``), (d) ``device_time`` of a request's first
+    refine step beside its CUDA-event time, the host ms of a call through
+    the op against a direct launch, a ``trace()`` whose Chrome trace names
+    the refine kernel, ``StageTimer(sync=True)`` over a request, and (e)
+    ``python -m empanada_tpu_torch bench --skip-3d`` in this process (its
+    JSON line on a ``bench:`` line); ``surface:`` line; at most 120 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -647,6 +665,10 @@ def refine_profile(prr, rp, gen, head, dev, earlier):
                                     kname)
         items[f"{phase}_plain"] = (lambda phase=phase: rp.refine_phase_reference(
             phase, up, refine, feats, coarse), 2, "")
+    # the whole step's plain version at all-skip and all-refine (rows 2b, 3)
+    for name, thr, iters in (("full_skip_plain", skip, 3), ("full_refine_plain", refine, 2)):
+        items[name] = (lambda thr=thr: prr.refine_reference(up, thr, feats, coarse, packed),
+                       iters, "")
     t = {}
     for name, (fn, iters, match) in items.items():
         t[name] = {"event_ms": cuda_ms(fn, iters, warmup=1),
@@ -2924,6 +2946,184 @@ def parallel_phase(prr, api, cfg, model, card, vol):
     return rec, launches, max_err
 
 
+# phase 16: the surface of ROADMAP item 13 (int8 bundles, the URL cache,
+# the serving artifact, profiling, bench), within a limit of its own
+SURFACE_LIMIT_S = 120
+
+
+def surface_phase(prr, api, cfg, model, card, engine_ms, step1, refine_args):
+    """Phase 16 on MitoNet_v1 at full width (phase 5's model, bf16).
+    ``step1``: phase 6's record of a request's first refine step (its
+    CUDA-event ``kernel_ms``); ``refine_args``: that step's real inputs
+    (up, thr, features, coarse, packed weights).  Returns (record,
+    {path: refine launches}); each path's count is set to 0 just before it
+    and read just after."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.api import utils as api_utils
+    from empanada_tpu_torch.api.deploy import export_serving_artifact, load_serving_artifact
+    from empanada_tpu_torch.utils import StageTimer, device_time, trace
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    rec, launches = {"card": card}, {}
+    tmp = tempfile.mkdtemp(prefix="surface-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                                "build"))
+    old_cache = os.environ.get(api_utils.CACHE_ENV)
+    pre = api.Preprocessor(**cfg["norms"])
+    img = blob_image((512, 512), 40, 0)  # phase 5's first request
+    try:
+        # (a) int8 bundle of phase 5's weights (float32 from the same seed)
+        f32 = api.init_model_from_config(cfg, seed=0, device="cpu", dtype=torch.float32)
+        plain = api.save_model_bundle(os.path.join(tmp, "f32"), cfg["arch"],
+                                      cfg["model_kwargs"], f32)
+        q = api.save_model_bundle(os.path.join(tmp, "int8"), cfg["arch"], cfg["model_kwargs"],
+                                  f32, quantize=True)
+        q_card = api_utils.load_model_bundle(q, device="cuda", dtype=bf16)
+        q_cpu = api_utils.load_model_bundle(q, device="cpu", dtype=bf16).state_dict()
+        unequal = [k for k, v in q_card.state_dict().items() if not torch.equal(v.cpu(), q_cpu[k])]
+        check(not unequal, f"int8 bundle: {len(unequal)} tensors differ card vs CPU: "
+              f"{unequal[:3]}")
+        f_card = api_utils.load_model_bundle(plain, device="cuda", dtype=bf16)
+        x = pre(img)["image"]
+        engines = {name: api.Engine2d(cfg, model=m).engine for name, m in
+                   (("float", f_card), ("int8", q_card))}
+        maps = {}
+        for name, eng in engines.items():
+            maps[name], n, _ = counted(prr, lambda eng=eng: eng(x, img.shape))
+            launches[f"surface_int8_{name}"] = n
+            check(n == 2, f"int8 bundle: {n} refine launches for the {name} request")
+        rec["int8"] = {"bytes_float32": os.path.getsize(plain), "bytes_int8": os.path.getsize(q),
+                       "size_ratio": os.path.getsize(plain) / os.path.getsize(q),
+                       "dequantized_card_equals_cpu": True,
+                       "pixels_differing_from_float": float((maps["float"] != maps["int8"]).mean())}
+        del q_card, f_card, engines, q_cpu
+
+        # (b) the URL cache: a file:// bundle fetched into a cache of its own
+        sha = hashlib.sha256(open(plain, "rb").read()).hexdigest()
+        os.environ[api_utils.CACHE_ENV] = os.path.join(tmp, "cache")
+        url_cfg = dict(cfg, model=f"file://{plain}", model_sha256=sha)
+        local = api.Engine2d(dict(cfg, model=plain)).infer(img)
+        fetched = api.Engine2d(url_cfg).infer(img)
+        check(np.array_equal(local, fetched), "URL cache: the fetched bundle's map differs")
+        cached = os.listdir(os.path.join(tmp, "cache"))
+        check(len(cached) == 1, f"URL cache: {cached}")
+        rec["url_cache"] = {"cached": cached, "equal": True, "sha256_checked": True}
+
+        # (c) the serving artifact: exported on the card, saved, loaded, run
+        art = os.path.join(tmp, "mitonet.serve")
+        e2 = api.Engine2d(cfg, model=model)
+        t0 = time.perf_counter()
+        _, n_export, _ = counted(prr, lambda: export_serving_artifact(
+            cfg, art, img.shape, platforms="cuda", model=model))
+        export_s = time.perf_counter() - t0
+        launches["surface_export"] = n_export
+        served = load_serving_artifact(art)
+        steps = served.meta["engine_params"]["render_steps"]
+        check(served.meta["refine_op_calls"] == steps,
+              f"artifact: {served.meta['refine_op_calls']} op calls for {steps} steps")
+        got, n, _ = counted(prr, lambda: served(img))
+        launches["surface_artifact"] = n
+        check(n == steps, f"artifact: {n} refine launches for one request, not {steps}")
+        want, _, _ = counted(prr, lambda: e2._dispatch(img).cpu().numpy())
+        check(np.array_equal(got, want), "artifact: its map differs from Engine2d's device map")
+        check(np.array_equal(e2.force_connected(got.astype(np.int64)), e2.infer(img)),
+              "artifact: force_connected of its map differs from Engine2d.infer")
+        for bad, match in ((np.zeros((256, 256), np.uint8), "specialized"),
+                           (img.astype(np.uint16), "uint8")):
+            try:
+                served(bad)
+            except ValueError as e:
+                check(match in str(e), f"artifact refused with {e}")
+            else:
+                fail(f"artifact accepted a {bad.dtype} {bad.shape} input")
+        x_u8 = torch.from_numpy(img).cuda()
+        served_ms, n_timed, _ = counted(prr, lambda: cuda_ms(lambda: served.dispatch(x_u8), 10))
+        launches["surface_artifact_timed"] = n_timed
+        rec["artifact"] = {"export_s": export_s, "bytes": os.path.getsize(art),
+                           "ms_per_request": served_ms, "engine_ms": engine_ms,
+                           "launches_per_request": n, "equal_to_engine2d": True,
+                           "refused": ["shape", "uint16"]}
+
+        # (d) profiling: device_time of one refine step, a trace, a stage timer
+        up, thr, feats, coarse, packed = refine_args
+        dt, n, _ = counted(prr, lambda: device_time(
+            lambda u: prr.refine(u, thr, feats, coarse, packed), up, iters=20, trials=3,
+            stats=True))
+        launches["surface_device_time"] = n
+
+        # the op's dispatch: host ms a call through the registered op against
+        # a direct launch, 200 calls each, in turns (launch, op, op, launch);
+        # at ~0.03 ms of device time a step the loop waits on the host
+        def host_ms(fn, calls=200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / calls
+
+        paths = {"launch": lambda: prr.launch(up, thr, feats, coarse, packed),
+                 "op": lambda: prr.refine(up, thr, feats, coarse, packed)}
+        turns, n, _ = counted(prr, lambda: [(k, host_ms(paths[k]))
+                                            for k in ("launch", "op", "op", "launch")])
+        launches["surface_op_dispatch"] = n
+        host = {k: sum(v for name, v in turns if name == k) / 2 for k in paths}
+        (prof_ev, n_trace, _) = counted(prr, lambda: _traced(trace, tmp, served, img))
+        launches["surface_trace"] = n_trace
+        timer = StageTimer(sync=True)
+        with timer.stage("dispatch"):
+            pan = served.dispatch(x_u8)
+        with timer.stage("fetch"):
+            pan.cpu()
+        rec["profiling"] = {"op_dispatch_ms": host["op"] - host["launch"],
+                            "host_ms_per_call": host,
+                            "device_time_step1_ms": dt["s"] * 1e3,
+                            "device_time_stats": dt, "event_step1_ms": step1["kernel_ms"],
+                            "trace_refine_events": prof_ev, "stage_timer": timer.report()}
+        check(prof_ev > 0, "trace: no refine_kernel event in the Chrome trace")
+
+        # (e) bench --skip-3d through the command line
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, n, bench_s = counted(prr, lambda: cli.main(["bench", "--skip-3d"]))
+        launches["surface_bench"] = n
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        check(line["value"] and line["value"] > 0, f"bench: {line}")
+        rec["bench_s"] = bench_s
+        print("bench: " + json.dumps(line), flush=True)
+    finally:
+        if old_cache is None:
+            os.environ.pop(api_utils.CACHE_ENV, None)
+        else:
+            os.environ[api_utils.CACHE_ENV] = old_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("surface: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= SURFACE_LIMIT_S,
+          f"phase 16 took {rec['phase_s']:.1f} s, over its {SURFACE_LIMIT_S} s")
+    return rec, launches
+
+
+def _traced(trace, tmp, served, img) -> int:
+    """Events of the refine kernel in the Chrome trace of one request."""
+    import torch
+
+    with trace(os.path.join(tmp, "trace")):
+        served(img)
+        torch.cuda.synchronize()
+    events = json.load(open(os.path.join(tmp, "trace", "trace.json")))["traceEvents"]
+    return sum(1 for e in events if "refine_kernel" in str(e.get("name", "")))
+
+
 def step_record(prr, up, thr, feats, coarse, packed, fused, n_weights, earlier):
     """Phase 6, one refine step at N = len(up): the profiler's device time of
     the select and refine passes (and of every device activity of the call:
@@ -3119,6 +3319,7 @@ def main():
                   f"max |err| {err:.4g}", flush=True)
             sem = prr.launch(up, thr, feats, coarse, real_wts)
         check(bool(torch.isfinite(sem.float()).all()), "rendered logits not finite")
+        step1_args = (steps[0][1], steps[0][2], feats, coarse, real_wts)  # for phase 16
         # one whole step (both passes) makes the host wait for nothing
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -3283,6 +3484,13 @@ def main():
     max_err = max(max_err, err_15)
     print(f"phase 15 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 16. surface: int8 bundles, the URL cache, the serving artifact
+    # (the refine kernel as a registered op), profiling, bench
+    t0 = time.perf_counter()
+    _, launches_16 = surface_phase(prr, api, cfg, model, card, engine_ms, per_req[0],
+                                   step1_args)
+    print(f"phase 16 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -3292,14 +3500,15 @@ def main():
                      + sum(launches_ortho.values()) + launches_resume
                      + sum(launches_2d.values()) + sum(launches_3d_api.values())
                      + sum(launches_12.values()) + sum(launches_13.values())
-                     + sum(launches_14.values()) + sum(launches_15.values())),
+                     + sum(launches_14.values()) + sum(launches_15.values())
+                     + sum(launches_16.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
-                             **launches_13, **launches_14, **launches_15},
+                             **launches_13, **launches_14, **launches_15, **launches_16},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

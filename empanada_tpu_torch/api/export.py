@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import tempfile
 import zipfile
 
 import yaml
@@ -29,11 +30,8 @@ ARCHIVE_EXT = ".empanada_torch"
 def export_model(model_name: str, export_path: str, quantize: bool = False) -> str:
     """Zip a registered model's yaml (as ``<model_name>.yaml``) and its
     bundle into ``export_path`` (``ARCHIVE_EXT`` appended when missing);
-    returns the archive's path.  ``quantize`` (int8 bundles) is ROADMAP
-    item 13 and raises."""
-    if quantize:
-        raise NotImplementedError("int8 model bundles are ROADMAP item 13; export without "
-                                  "--quantize")
+    returns the archive's path.  ``quantize`` archives an int8 copy of the
+    bundle (``utils.requantize_bundle``) under the bundle's name."""
     configs = utils.get_configs()
     if model_name not in configs:
         raise KeyError(f"{model_name} is not a registered model")
@@ -42,9 +40,13 @@ def export_model(model_name: str, export_path: str, quantize: bool = False) -> s
     if not os.path.isfile(model_file):
         raise FileNotFoundError(f"model file {model_file} not found")
     out = export_path if export_path.endswith(ARCHIVE_EXT) else export_path + ARCHIVE_EXT
-    with zipfile.ZipFile(out, "w", compression=zipfile.ZIP_STORED) as zf:  # a zip already
-        zf.write(config_path, arcname=f"{model_name}.yaml")
-        zf.write(model_file, arcname=os.path.basename(model_file))
+    with tempfile.TemporaryDirectory() as td:
+        if quantize:
+            model_file = utils.requantize_bundle(
+                model_file, os.path.join(td, os.path.basename(model_file)))
+        with zipfile.ZipFile(out, "w", compression=zipfile.ZIP_STORED) as zf:  # a zip already
+            zf.write(config_path, arcname=f"{model_name}.yaml")
+            zf.write(model_file, arcname=os.path.basename(model_file))
     return out
 
 

@@ -187,8 +187,10 @@ class Engine2d:
     across tiles; otherwise thing instances are split into their connected
     components (``force_connected``).  ``inference_scale`` s downsamples the
     image (uint8) by s and renders ``2 + log2(s)`` PointRend steps back to
-    full resolution.  ``shape_buckets`` is accepted and does nothing: eager
-    PyTorch compiles no program per shape.  ``spatial_shard`` runs every
+    full resolution.  ``shape_buckets`` pads each image (or tile) to the
+    next size of the ladder (``ops.postprocess.bucket_dim``) instead of
+    the next multiple of the padding factor, as JAX's engine does to bound
+    its recompiles; the padding changes the map.  ``spatial_shard`` runs every
     image as one halo-sharded slice over the world's ranks
     (``parallel.spatial.SpatialEngine2d``; ``spatial_halo`` rows, the
     world ``spatial_mesh`` or ``parallel.mesh.create_mesh()``), then
@@ -220,7 +222,8 @@ class Engine2d:
             model, thing_list=[] if semantic_only else self.thing_list,
             label_divisor=label_divisor, nms_threshold=nms_threshold, nms_kernel=nms_kernel,
             confidence_thr=confidence_thr, padding_factor=self.padding_factor,
-            coarse_boundaries=not fine_boundaries, max_centers=max_centers, device=dev)
+            coarse_boundaries=not fine_boundaries, max_centers=max_centers,
+            shape_buckets=shape_buckets, device=dev)
         self.spatial_engine = None
         if spatial_shard:
             self.spatial_engine = SpatialEngine2d(
@@ -368,7 +371,8 @@ class Engine3d:
             label_divisor=label_divisor, stuff_area=stuff_area, void_label=void_label,
             nms_threshold=nms_threshold, nms_kernel=nms_kernel,
             confidence_thr=confidence_thr, padding_factor=self.padding_factor,
-            coarse_boundaries=not fine_boundaries, max_centers=max_centers, device=dev)
+            coarse_boundaries=not fine_boundaries, max_centers=max_centers,
+            shape_buckets=shape_buckets, device=dev)
         self.last_overflow = 0
         self.preprocessor = Preprocessor(**model_config["norms"])
         self.axes = {"xy": 0, "xz": 1, "yz": 2}

@@ -8,14 +8,32 @@ the port's own format (``save_model_bundle``): a zip of ``config.json``
 ``torch.save`` state dict, loaded with ``weights_only=True``).  The JAX
 package's ``.eptpu`` bundles hold flax msgpack, which the port does not
 read; its variables reach the port through ``port.weights.from_flax``.
+
+An int8 bundle (``save_model_bundle(..., quantize=True)``, ``"quantized":
+true`` in its ``config.json``) stores each float tensor of ndim >= 2 and
+>= ``QUANT_MIN_SIZE`` elements as symmetric int8 per output channel: the
+int8 tensor under its own name and its float32 scales under ``<name>``
++ ``SCALE_SUFFIX``, shaped to broadcast over it.  The output channel is
+axis 0 of a ``Conv2d`` (OIHW) or ``Linear`` (out, in) weight and axis 1 of
+a ``ConvTranspose2d`` weight (in, out, kh, kw): the JAX package's flax
+last axis, through ``port.weights``.  Loading multiplies in float32, then
+casts to the compute dtype, as the JAX package's loader does.
+
+A config's ``model`` may also be an ``http(s)://`` or ``file://`` URL:
+``cached_model_path`` fetches it once into ``MODEL_DIR/downloads``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import math
 import os
+import shutil
+import tempfile
+import urllib.parse
+import urllib.request
 import zipfile
 from glob import glob
 
@@ -37,7 +55,9 @@ __all__ = [
     "add_new_model",
     "model_info_text",
     "save_model_bundle",
+    "requantize_bundle",
     "load_model_bundle",
+    "cached_model_path",
     "load_model_from_config",
     "init_model_from_config",
     "randomize_bn_stats",
@@ -50,6 +70,9 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file
 MODEL_DIR = os.path.join(os.path.expanduser("~"), ".empanada_tpu_torch")
 BUNDLE_EXT = ".eptorch"
 BUNDLE_FORMAT = 1
+QUANT_MIN_SIZE = 4096
+SCALE_SUFFIX = "@scale"
+CACHE_ENV = "EMPANADA_TPU_TORCH_CACHE"
 
 
 def get_configs() -> dict:
@@ -120,15 +143,60 @@ def add_new_model(model_name: str, config: dict, model_file: str | None = None) 
     return path
 
 
-def save_model_bundle(path: str, arch: str, model_kwargs: dict, model: nn.Module) -> str:
+def _output_axes(model: nn.Module) -> dict:
+    """``{state-dict key: output-channel axis}`` of the weights whose
+    output channel is not axis 0 (the transposed convolutions')."""
+    return {f"{name}.weight": 1 for name, m in model.named_modules()
+            if isinstance(m, nn.ConvTranspose2d)}
+
+
+def quantize_state_dict(state: dict, output_axes: dict) -> dict:
+    """Symmetric int8 per output channel of every float tensor of ndim >= 2
+    and >= ``QUANT_MIN_SIZE`` elements, in float32: ``scale = max(max|w|,
+    1e-12) / 127`` and ``q = clip(rint(w / scale), -127, 127)``
+    (``torch.round`` rounds half to even, as ``np.rint``).  Returns the
+    state with ``q`` under the name and the scale, shaped to broadcast,
+    under the name + ``SCALE_SUFFIX``; other tensors unchanged."""
+    out = {}
+    for name, t in state.items():
+        if t.dim() < 2 or t.numel() < QUANT_MIN_SIZE or not t.is_floating_point():
+            out[name] = t
+            continue
+        w = t.detach().to(torch.float32)
+        axis = output_axes.get(name, 0)
+        dims = tuple(d for d in range(w.dim()) if d != axis)
+        scale = w.abs().amax(dim=dims, keepdim=True).clamp(min=1e-12) / 127.0
+        out[name] = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+        out[name + SCALE_SUFFIX] = scale
+    return out
+
+
+def dequantize_state_dict(state: dict) -> dict:
+    """Inverse of ``quantize_state_dict``: ``q * scale`` in float32."""
+    out = {}
+    for name, t in state.items():
+        if name.endswith(SCALE_SUFFIX):
+            continue
+        scale = state.get(name + SCALE_SUFFIX)
+        out[name] = t if scale is None else t.to(torch.float32) * scale
+    return out
+
+
+def save_model_bundle(path: str, arch: str, model_kwargs: dict, model: nn.Module,
+                      quantize: bool = False) -> str:
     """Write ``model``'s weights as a bundle (the module docstring's
-    format) at ``path`` (``BUNDLE_EXT`` appended when missing); returns
+    format) at ``path`` (``BUNDLE_EXT`` appended when missing); with
+    ``quantize`` the large weights go int8 (about 4x smaller).  Returns
     the path."""
     if not path.endswith(BUNDLE_EXT):
         path = path + BUNDLE_EXT
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if quantize:
+        state = quantize_state_dict(state, _output_axes(model))
     buf = io.BytesIO()
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, buf)
-    meta = {"arch": arch, "model_kwargs": model_kwargs, "format": BUNDLE_FORMAT}
+    torch.save(state, buf)
+    meta = {"arch": arch, "model_kwargs": model_kwargs, "format": BUNDLE_FORMAT,
+            "quantized": bool(quantize)}
     # stored, not deflated: float weights barely compress, and deflating a
     # resnet50 bundle took seconds
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED) as zf:
@@ -137,9 +205,8 @@ def save_model_bundle(path: str, arch: str, model_kwargs: dict, model: nn.Module
     return path
 
 
-def load_model_bundle(path: str, device=None, dtype=torch.float32) -> nn.Module:
-    """The model of a bundle written by ``save_model_bundle``, on ``device``
-    (default "cuda"; raises without a GPU unless ``device="cpu"``)."""
+def _read_bundle(path: str):
+    """(meta, state dict as stored) of a port bundle."""
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
         if "state_dict.pt" not in names:
@@ -153,19 +220,90 @@ def load_model_bundle(path: str, device=None, dtype=torch.float32) -> nn.Module:
     if meta.get("format") != BUNDLE_FORMAT:
         raise ValueError(f"model bundle {path} has format {meta.get('format')}, this "
                          f"build reads {BUNDLE_FORMAT}")
+    return meta, state
+
+
+def requantize_bundle(src_path: str, dst_path: str) -> str:
+    """An int8 copy of the bundle at ``src_path`` at ``dst_path`` (a
+    bundle already int8 is copied as it is); returns the written path."""
+    meta, _ = _read_bundle(src_path)
+    if meta.get("quantized"):
+        if os.path.abspath(src_path) != os.path.abspath(dst_path):
+            shutil.copyfile(src_path, dst_path)
+        return dst_path
+    model = load_model_bundle(src_path, device="cpu")
+    return save_model_bundle(dst_path, meta["arch"], meta["model_kwargs"], model,
+                             quantize=True)
+
+
+def load_model_bundle(path: str, device=None, dtype=torch.float32) -> nn.Module:
+    """The model of a bundle written by ``save_model_bundle``, on ``device``
+    (default "cuda"; raises without a GPU unless ``device="cpu"``); an int8
+    bundle is dequantized in float32, then cast to ``dtype``."""
+    dev = resolve_device(device)
+    meta, state = _read_bundle(path)
+    if meta.get("quantized"):
+        state = dequantize_state_dict(state)
     model = create_model(meta["arch"], device="cpu", **meta["model_kwargs"])
     model.load_state_dict(state)
-    return model.to(device=resolve_device(device), dtype=dtype)
+    return model.to(device=dev, dtype=dtype)
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def cached_model_path(url: str, cache_dir: str | None = None, sha256: str | None = None,
+                      progress: bool = False) -> str:
+    """The local copy of the bundle at ``url`` (``http(s)://`` or
+    ``file://``), fetched once into the download cache: ``cache_dir``, else
+    ``$EMPANADA_TPU_TORCH_CACHE``, else ``MODEL_DIR/downloads``.  The
+    transfer goes to a temp file in the cache and is renamed into place, so
+    an interrupted one leaves nothing behind.  ``sha256`` is checked before
+    the rename and again on every cache hit: a mismatched download raises
+    and leaves no file; a cached copy that no longer matches is fetched
+    again, never served."""
+    cache_dir = os.path.expanduser(cache_dir or os.environ.get(
+        CACHE_ENV, os.path.join(MODEL_DIR, "downloads")))
+    base = os.path.basename(urllib.parse.urlparse(url).path) or "model.bin"
+    key = hashlib.sha1(url.encode()).hexdigest()[:16]
+    dest = os.path.join(cache_dir, f"{key}-{base}")
+    if os.path.isfile(dest):
+        if sha256 is None or _sha256(dest) == sha256.lower():
+            return dest
+        os.remove(dest)
+    os.makedirs(cache_dir, exist_ok=True)
+    if progress:
+        print(f"downloading {url} -> {dest}")
+    fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".part")
+    try:
+        hasher = hashlib.sha256()
+        with os.fdopen(fd, "wb") as out, urllib.request.urlopen(url) as resp:
+            for chunk in iter(lambda: resp.read(1 << 20), b""):
+                hasher.update(chunk)
+                out.write(chunk)
+        if sha256 is not None and hasher.hexdigest() != sha256.lower():
+            raise RuntimeError(f"download {url}: sha256 mismatch (got "
+                               f"{hasher.hexdigest()}, expected {sha256})")
+        os.replace(tmp, dest)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return dest
 
 
 def load_model_from_config(model_config: dict, device=None, dtype=torch.float32) -> nn.Module:
-    """The model of the bundle that the config's ``model`` names (a local
-    path; the URL download cache is ROADMAP item 13)."""
+    """The model of the bundle that the config's ``model`` names: a local
+    path, or an ``http(s)://`` / ``file://`` URL resolved through
+    ``cached_model_path`` with the config's optional ``model_sha256``."""
     model_path = model_config["model"]
-    if isinstance(model_path, str) and "://" in model_path:
-        raise NotImplementedError(
-            f"model {model_path!r}: downloading bundles is ROADMAP item 13; pass a "
-            "local path")
+    if isinstance(model_path, str) and model_path.startswith(("http://", "https://",
+                                                              "file://")):
+        model_path = cached_model_path(model_path, sha256=model_config.get("model_sha256"))
     model_path = os.path.expanduser(model_path)
     if not os.path.isfile(model_path):
         raise FileNotFoundError(

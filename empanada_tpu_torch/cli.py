@@ -7,11 +7,13 @@ lines and output files):
   empanada-tpu-torch train     <config.yaml>
   empanada-tpu-torch finetune  <config.yaml>
   empanada-tpu-torch evaluate  <gt.json> <pred.json>
-  empanada-tpu-torch models    [list|info|export|import|archive]
+  empanada-tpu-torch models    [list|info|export|import|archive|deploy]
+  empanada-tpu-torch serve     <artifact> <image>
   empanada-tpu-torch tiles     [chop|merge]
   empanada-tpu-torch labels    [count|small|boundary] <labels>
-  empanada-tpu-torch port      <checkpoint>
+  empanada-tpu-torch port      <checkpoint> [--quantize]
   empanada-tpu-torch docs
+  empanada-tpu-torch bench     [--skip-3d] [--only 3d|ortho|train|...]
 
 Usage: ``python -m empanada_tpu_torch <command> ...``.  The commands that
 run a model take ``--device`` (default ``cuda``; ``--device cpu`` runs on
@@ -19,9 +21,11 @@ the CPU, as the tests do).  On the card the models run in bfloat16, the
 dtype the PointRend refine kernel takes; on the CPU in float32, as the JAX
 package's command line runs.  Images are read and written as ``.npy``,
 PNG or uncompressed TIFF (``data/imread.py``, ``data/imwrite.py``), and
-volumes also from chunked stores.  The flags of what the port does not
-have yet exit non-zero and name their ROADMAP item: ``models deploy``,
-``serve``, ``--quantize`` and ``bench`` (item 13).
+volumes also from chunked stores.  ``models export --quantize`` and
+``port --quantize`` write int8 bundles; ``models deploy`` exports a
+serving artifact (``--platforms cuda`` or ``cpu``; ``api/deploy.py``) and
+``serve`` runs one; ``bench`` forwards everything after it to the port's
+benchmark (``empanada_tpu_torch/bench.py``).
 
 Several cards, one process each: ``--coordinator host:port
 --num-processes N --process-id R`` (or ``EMPANADA_COORDINATOR``,
@@ -42,8 +46,6 @@ import os
 import sys
 
 import numpy as np
-
-ITEM_13 = "ROADMAP item 13"
 
 
 def _device(args):
@@ -270,7 +272,8 @@ def _infer3d_one(args, model_name, dev, dtype, multi=False, lead=True):
         save_panoptic=args.save_panoptic, device=dev)
     model = load_model_from_config(config, device=dev, dtype=dtype)
     if args.multichip:
-        # over the world's cards; shape_buckets does nothing in eager PyTorch
+        # over the world's cards; it pads to the plain factor and leaves
+        # shape_buckets, as JAX's engine does
         engine = MultiChipEngine3d(config, model, batch_size=args.batch_size, **common)
     else:
         engine = Engine3d(config, model=model, shape_buckets=args.shape_buckets, **common)
@@ -352,8 +355,6 @@ def cmd_models(args):
     from empanada_tpu_torch.api import get_configs
     from empanada_tpu_torch.api.export import archive_model, export_model, import_model
 
-    if args.quantize:
-        raise SystemExit(f"models {args.action} --quantize: int8 bundles are {ITEM_13}")
     if args.action == "list":
         for name, path in sorted(get_configs().items()):
             print(f"{name}\t{path}")
@@ -367,19 +368,55 @@ def cmd_models(args):
             raise SystemExit(f"models info: {e.args[0]}")
     elif args.action == "export":
         _require("models export", name=args.name, path=args.path)
-        print(export_model(args.name, args.path))
+        try:
+            print(export_model(args.name, args.path, quantize=args.quantize))
+        except KeyError as e:
+            raise SystemExit(f"models export: {e.args[0]}")
     elif args.action == "import":
         _require("models import", path=args.path)
         print(import_model(args.path, model_name=args.name))
     elif args.action == "archive":
         _require("models archive", name=args.name, path=args.path)
         print(archive_model(args.name, args.path))
-    else:
-        raise SystemExit(f"models deploy: a self-contained serving artifact is {ITEM_13}")
+    elif args.action == "deploy":
+        from empanada_tpu_torch.api.deploy import export_serving_artifact
+
+        _require("models deploy", name=args.name, path=args.path)
+        h, w = (int(s) for s in args.shape.split("x"))
+        try:
+            print(export_serving_artifact(
+                _model_config(args.name), args.path, (h, w),
+                platforms=tuple(args.platforms.split(",")),
+                nms_threshold=args.center_confidence, nms_kernel=args.nms_kernel,
+                confidence_thr=args.segment_confidence,
+                fine_boundaries=args.fine_boundaries, max_centers=args.max_centers))
+        except ValueError as e:
+            raise SystemExit(f"models deploy: {e}")
+        except RuntimeError as e:
+            if "no CUDA device" not in str(e):
+                raise
+            raise SystemExit("models deploy: no CUDA device is available; pass "
+                             "--platforms cpu to export for the CPU")
 
 
 def cmd_serve(args):
-    raise SystemExit(f"serve: running a deployed serving artifact is {ITEM_13}")
+    """Run a serving artifact on an image: no model code or registry."""
+    import zipfile
+
+    from empanada_tpu_torch.api.deploy import load_serving_artifact
+
+    try:
+        model = load_serving_artifact(args.artifact)
+    except (OSError, zipfile.BadZipFile, ValueError) as e:
+        raise SystemExit(f"serve: cannot load the artifact {args.artifact}: {e}")
+    except RuntimeError as e:
+        if "no CUDA device" not in str(e):
+            raise
+        raise SystemExit(f"serve: {args.artifact} was exported for cuda and no CUDA "
+                         "device is available")
+    pan = model(np.asarray(_load_array(args.image)))
+    _save_labels(args.output, pan.astype(np.int64))
+    print(f"wrote {args.output} ({len(np.unique(pan)) - 1} labeled segments)")
 
 
 def cmd_tiles(args):
@@ -403,8 +440,6 @@ def cmd_port(args):
         load_torch_checkpoint,
     )
 
-    if args.quantize:
-        raise SystemExit(f"port --quantize: int8 bundles are {ITEM_13}")
     config = _model_config(args.model) if args.model else None
     arch = args.arch or (config and config.get("arch"))
     kwargs = (config or {}).get("model_kwargs", {})
@@ -420,7 +455,8 @@ def cmd_port(args):
         arch, kwargs = infer_arch_and_kwargs(state_dict)
         print(f"inferred arch={arch} kwargs={kwargs}")
     out = save_model_bundle(args.output, arch, kwargs,
-                            load_reference_model(state_dict, arch, kwargs))
+                            load_reference_model(state_dict, arch, kwargs),
+                            quantize=args.quantize)
     print(f"ported {args.checkpoint} ({ckpt_arch or arch}) -> {out}")
 
 
@@ -477,7 +513,8 @@ def build_parser():
         sp.add_argument("--semantic-only", action="store_true", dest="semantic_only")
         sp.add_argument("--fine-boundaries", action="store_true", dest="fine_boundaries")
         sp.add_argument("--shape-buckets", action="store_true", dest="shape_buckets",
-                        help="accepted and ignored: eager PyTorch compiles nothing per shape")
+                        help="pad to ~25%%-growth size buckets (the JAX CLI's, to bound "
+                             "its recompiles); the padding changes the maps")
         device_arg(sp)
 
     def multihost_args(sp):
@@ -562,9 +599,11 @@ def build_parser():
     sp.add_argument("--name", default=None)
     sp.add_argument("--path", default=None)
     sp.add_argument("--quantize", action="store_true",
-                    help="int8 weights (ROADMAP item 13; exits)")
-    sp.add_argument("--shape", default="512x512", help="deploy (ROADMAP item 13; exits)")
-    sp.add_argument("--platforms", default="cpu,tpu", help="deploy (ROADMAP item 13; exits)")
+                    help="export: store int8 weights in the archive")
+    sp.add_argument("--shape", default="512x512",
+                    help="deploy: HxW the serving artifact is specialized for")
+    sp.add_argument("--platforms", default="cuda",
+                    help="deploy: the device the artifact is exported for, cuda or cpu")
     sp.add_argument("--center-confidence", type=float, default=0.1, dest="center_confidence")
     sp.add_argument("--nms-kernel", type=int, default=3, dest="nms_kernel")
     sp.add_argument("--segment-confidence", type=float, default=0.3,
@@ -573,8 +612,8 @@ def build_parser():
     sp.add_argument("--max-centers", type=int, default=256, dest="max_centers")
     sp.set_defaults(func=cmd_models)
 
-    sp = sub.add_parser("serve", help="run a deployed serving artifact (ROADMAP item 13; "
-                                      "exits)")
+    sp = sub.add_parser("serve", help="run a deployed serving artifact (needs the port's "
+                                      "op library, no model code)")
     sp.add_argument("artifact")
     sp.add_argument("image")
     sp.add_argument("-o", "--output", default="pan_seg.npy")
@@ -606,7 +645,7 @@ def build_parser():
     sp.add_argument("--model", default=None, help="registry config supplying arch/kwargs")
     sp.add_argument("--arch", default=None)
     sp.add_argument("--quantize", action="store_true",
-                    help="int8 weights (ROADMAP item 13; exits)")
+                    help="store int8 weights in the output bundle")
     sp.add_argument("--allow-pickle", action="store_true",
                     help="permit full-pickle torch.load for trusted legacy checkpoints "
                          "(arbitrary code execution risk)")
@@ -615,16 +654,21 @@ def build_parser():
     sp = sub.add_parser("docs", help="print the framework documentation")
     sp.set_defaults(func=cmd_docs)
 
-    sub.add_parser("bench", help="the throughput benchmark (ROADMAP item 13; exits)")
+    sp = sub.add_parser("bench", help="the port's throughput benchmark on the card")
+    sp.add_argument("bench_args", nargs=argparse.REMAINDER,
+                    help="flags forwarded to empanada_tpu_torch/bench.py (e.g. --skip-3d)")
     return p
 
 
 def main(argv=None):
     if argv is None:
         argv = sys.argv[1:]
-    # bench would forward everything after it verbatim; it has no port yet
+    # bench forwards everything after it verbatim (argparse.REMAINDER does
+    # not capture leading optionals)
     if argv and argv[0] == "bench":
-        raise SystemExit(f"bench: the port's throughput benchmark is {ITEM_13}")
+        from empanada_tpu_torch import bench
+
+        return bench.main(list(argv[1:]))
     args = build_parser().parse_args(argv)
     args.func(args)
 

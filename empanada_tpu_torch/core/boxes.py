@@ -7,8 +7,50 @@ The helpers the matcher and the tracker use (counterpart of
 from __future__ import annotations
 
 import numpy as np
+from scipy.sparse import csr_matrix
 
-__all__ = ["merge_boxes", "overlapping_box_pairs"]
+__all__ = ["box_area", "box_intersection", "box_iou", "merge_boxes",
+           "overlapping_box_pairs"]
+
+
+def box_area(boxes: np.ndarray) -> np.ndarray:
+    """Area (2D) or volume (3D) of each box of an ``(n, 2 * ndim)`` array."""
+    boxes = np.asarray(boxes)
+    ndim = boxes.shape[1] // 2
+    return np.prod([boxes[:, i + ndim] - boxes[:, i] for i in range(ndim)], axis=0)
+
+
+def box_intersection(boxes1: np.ndarray, boxes2: np.ndarray | None = None) -> np.ndarray:
+    """Dense pairwise intersection area or volume, ``(n, m)``."""
+    boxes1 = np.asarray(boxes1)
+    boxes2 = boxes1 if boxes2 is None else np.asarray(boxes2)
+    ndim = boxes1.shape[1] // 2
+    inter = None
+    for i in range(ndim):
+        lo = np.maximum(boxes1[:, i, None], boxes2[None, :, i])
+        hi = np.minimum(boxes1[:, i + ndim, None], boxes2[None, :, i + ndim])
+        extent = np.clip(hi - lo, 0, None)
+        inter = extent if inter is None else inter * extent
+    return inter
+
+
+def box_iou(boxes1, boxes2=None, return_intersection: bool = False):
+    """Pairwise IoU as a sparse CSR matrix (no entry for pairs that do not
+    overlap); with ``return_intersection`` also the intersections."""
+    boxes1 = np.asarray(boxes1)
+    boxes2 = boxes1 if boxes2 is None else np.asarray(boxes2)
+    shape = (len(boxes1), len(boxes2))
+    if len(boxes1) == 0 or len(boxes2) == 0:
+        empty = csr_matrix(shape, dtype=np.float64)
+        return (empty, csr_matrix(shape, dtype=np.float64)) if return_intersection else empty
+    inter = box_intersection(boxes1, boxes2)
+    union = box_area(boxes1)[:, None] + box_area(boxes2)[None, :] - inter
+    rows, cols = np.nonzero(inter)
+    vals_inter = inter[rows, cols].astype(np.float64)
+    iou = csr_matrix((vals_inter / union[rows, cols], (rows, cols)), shape=shape)
+    if return_intersection:
+        return iou, csr_matrix((vals_inter, (rows, cols)), shape=shape)
+    return iou
 
 
 def merge_boxes(box1, box2):

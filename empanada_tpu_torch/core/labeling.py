@@ -26,6 +26,7 @@ __all__ = [
     "runs_to_regions",
     "label_2d",
     "FlatInstances",
+    "RleDict",
     "decode_runs_packed",
 ]
 
@@ -203,14 +204,18 @@ class FlatInstances:
         e = np.empty(0, dtype=np.int64)
         return FlatInstances(e, np.empty((0, 4), dtype=np.int64), np.zeros(1, dtype=np.int64), e, e)
 
-    def to_dict(self) -> dict:
+    def to_dict(self) -> "RleDict":
         """The nested ``{label: {"box", "starts", "runs"}}`` form (the
-        starts and runs are views into the flat arrays)."""
+        starts and runs are views into the flat arrays), carrying this
+        flat form."""
         off = self.offsets.tolist()
         boxes = self.boxes.tolist()
-        return {label: {"box": tuple(boxes[k]), "starts": self.starts[off[k]: off[k + 1]],
-                        "runs": self.runs[off[k]: off[k + 1]]}
-                for k, label in enumerate(self.labels.tolist())}
+        out = RleDict({label: {"box": tuple(boxes[k]),
+                               "starts": self.starts[off[k]: off[k + 1]],
+                               "runs": self.runs[off[k]: off[k + 1]]}
+                       for k, label in enumerate(self.labels.tolist())})
+        out._flat = self
+        return out
 
     @staticmethod
     def from_dict(d: dict) -> "FlatInstances":
@@ -224,6 +229,19 @@ class FlatInstances:
         return FlatInstances(np.fromiter(d.keys(), dtype=np.int64, count=len(d)),
                              np.array([a["box"] for a in d.values()], dtype=np.int64),
                              offsets, np.concatenate(starts), np.concatenate(runs))
+
+
+class RleDict(dict):
+    """The nested instance dict of ``FlatInstances.to_dict``, a plain dict
+    that also carries the flat form it came from in ``_flat`` (the JAX
+    package's matcher reads it to skip a rebuild; a consumer that changes
+    the dict must not trust it)."""
+
+    __slots__ = ("_flat",)
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._flat = None
 
 
 def runs_to_flat(values, rows, col_starts, col_ends, width: int) -> FlatInstances:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["take", "crop_and_binarize", "mask_iou", "mask_ioa"]
+__all__ = ["take", "put", "crop_and_binarize", "mask_iou", "mask_ioa"]
 
 
 def take(array, indices, axis: int = 0):
@@ -13,6 +13,12 @@ def take(array, indices, axis: int = 0):
     that supports numpy-style tuple indexing, e.g. chunked stores)."""
     sel = tuple(slice(None) if n != axis else indices for n in range(array.ndim))
     return array[sel]
+
+
+def put(array, indices, value, axis: int = 0):
+    """Assign ``value`` at ``indices`` along ``axis``, in place."""
+    sel = tuple(slice(None) if n != axis else indices for n in range(array.ndim))
+    array[sel] = value
 
 
 def crop_and_binarize(mask: np.ndarray, box, label) -> np.ndarray:

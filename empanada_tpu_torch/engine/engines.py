@@ -83,13 +83,17 @@ class _EngineBase:
     """Holds the model on ``device`` (default "cuda", which raises without a
     GPU unless ``device="cpu"``); the model computes in its own parameter
     dtype.  ``model`` is a port model (``empanada_tpu_torch.models``);
-    images are zero-padded to multiples of ``padding_factor``."""
+    images are zero-padded to multiples of ``padding_factor`` or, with
+    ``shape_buckets``, to the next size of ``pp.bucket_dim``'s ladder (the
+    padding changes the result: the ASPP pooling is a global mean)."""
 
-    def __init__(self, model, device=None, padding_factor: int = 1):
+    def __init__(self, model, device=None, padding_factor: int = 1,
+                 shape_buckets: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dtype = next(model.parameters()).dtype
         self.padding_factor = int(padding_factor)
+        self.shape_buckets = bool(shape_buckets)
 
     def _prepare(self, image) -> torch.Tensor:
         """(H, W) or (1, H, W) array -> padded (1, H', W', 1) device tensor."""
@@ -100,7 +104,7 @@ class _EngineBase:
             raise ValueError(f"expected an (H, W) or (1, H, W) image, got {image.shape}")
         x = torch.from_numpy(np.ascontiguousarray(image[..., None], dtype=np.float32))
         x = x.to(self.device, non_blocking=True).to(self.dtype)
-        return pp.factor_pad(x, self.padding_factor)
+        return pp.factor_pad(x, self.padding_factor, buckets=self.shape_buckets)
 
 
 class PanopticDeepLabEngine(_EngineBase):
@@ -173,8 +177,8 @@ class PanopticDeepLabRenderEngine(_EngineBase):
                  nms_threshold: float = 0.1, nms_kernel: int = 7,
                  confidence_thr: float = 0.5, padding_factor: int = 16,
                  coarse_boundaries: bool = True, max_centers: int = 256,
-                 device=None):
-        super().__init__(model, device, padding_factor)
+                 shape_buckets: bool = False, device=None):
+        super().__init__(model, device, padding_factor, shape_buckets)
         self.thing_list = tuple(int(t) for t in thing_list)
         self.label_divisor = int(label_divisor)
         self.stuff_area = int(stuff_area)
@@ -293,8 +297,9 @@ class BCEngine(_EngineBase):
     the sigmoid of the semantic and of the boundary logits (a
     ``PanopticDeepLabBC`` model), for ``stitch.watershed.bc_watershed``."""
 
-    def __init__(self, model, padding_factor: int = 16, device=None):
-        super().__init__(model, device, padding_factor)
+    def __init__(self, model, padding_factor: int = 16, shape_buckets: bool = False,
+                 device=None):
+        super().__init__(model, device, padding_factor, shape_buckets)
 
     @torch.no_grad()
     def infer(self, x: torch.Tensor, render_steps: int = 2) -> dict:

@@ -99,6 +99,7 @@ class StandardPointHead(nn.Module):
             nin = fc_dim + extra
         self.predictor = nn.Linear(nin, num_classes)
         self._packed = None  # (key, pointrend_refine.PackedWeights)
+        self._frozen = None  # (feature_dim, in_features, fc_dim, num_fc) of freeze_packed
 
     def fcs(self):
         return [getattr(self, f"fc{k + 1}") for k in range(self.num_fc)]
@@ -156,11 +157,27 @@ class StandardPointHead(nn.Module):
         (``pointrend_refine.pack_weights``), built once and cached on the
         head; a parameter changed in place or replaced (its ``_version`` or
         ``data_ptr``) rebuilds it."""
+        if self._frozen is not None:
+            fdim, *widths = self._frozen
+            if fdim != feature_dim:
+                raise ValueError(f"point head frozen for F={fdim}, not {feature_dim}")
+            return prr.PackedWeights(self.packed, *widths)
         key = (feature_dim,) + tuple((p._version, p.data_ptr(), p.device, p.dtype)
                                      for p in self.parameters())
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, prr.pack_weights(self.fused_weights(feature_dim)))
         return self._packed[1]
+
+    def freeze_packed(self, feature_dim: int):
+        """Pack the weights once and keep the buffer as the non-persistent
+        buffer ``packed``, which ``packed_weights`` then returns without
+        looking at the parameters: ``torch.export`` traces fake parameters,
+        whose data no cache key can read, and lifts the buffer into the
+        program as a constant.  Later changes to the parameters are not
+        seen; ``api/deploy.py`` freezes a copy of the model."""
+        packed = prr.pack_weights(self.fused_weights(feature_dim))
+        self.register_buffer("packed", packed.buf, persistent=False)
+        self._frozen = (feature_dim, packed.in_features, packed.fc_dim, packed.num_fc)
 
 
 class PointRendSemSegHead(nn.Module):

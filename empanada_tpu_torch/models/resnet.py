@@ -11,7 +11,7 @@ from torch import nn
 
 from empanada_tpu_torch.models.blocks import BatchNorm, ConvBnAct, max_pool_2d
 
-__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet_configs"]
+__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet_configs", "RESNET_WIDTHS"]
 
 
 class BasicBlock(nn.Module):
@@ -124,4 +124,10 @@ resnet_configs = {
                             width_per_group=128),
     "wide_resnet101_2": dict(block="bottleneck", layers=(3, 4, 23, 3),
                              width_per_group=128),
+}
+
+# name -> the widths of the four stages' outputs
+RESNET_WIDTHS = {
+    name: tuple(p * (1 if cfg["block"] == "basic" else 4) for p in (64, 128, 256, 512))
+    for name, cfg in resnet_configs.items()
 }

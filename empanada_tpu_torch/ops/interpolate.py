@@ -15,6 +15,7 @@ import torch
 __all__ = [
     "bilinear_resize",
     "bilinear_resize_nchw",
+    "grid_sample",
     "nearest_resize",
     "point_sample",
     "point_sample_packed",
@@ -128,24 +129,35 @@ def _corner_fn(features):
     return corner
 
 
-def point_sample(features: torch.Tensor, point_coords: torch.Tensor,
-                 mode: str = "bilinear") -> torch.Tensor:
-    """Sample NHWC ``features`` at normalized (x, y) coords in [0, 1]
-    (N, P, 2), zero padding, align_corners=False -> (N, P, C).
-    ``mode="nearest"`` takes the pixel whose centre is nearest, rounding
-    half to even, as the JAX package's ``grid_sample`` does.  Both modes
-    carry gradients to ``features``."""
+def grid_sample(features: torch.Tensor, coords: torch.Tensor, mode: str = "bilinear",
+                align_corners: bool = False) -> torch.Tensor:
+    """Sample NHWC ``features`` at normalized (x, y) coords in [-1, 1]
+    (N, P, 2) with zero padding -> (N, P, C).  ``mode="nearest"`` takes the
+    pixel whose centre is nearest, rounding half to even, as the JAX
+    package's ``grid_sample`` does.  Both modes carry gradients to
+    ``features``."""
     n, h, w, c = features.shape
-    gx = 2.0 * point_coords[..., 0] - 1.0
-    gy = 2.0 * point_coords[..., 1] - 1.0
-    px = ((gx + 1.0) * w - 1.0) / 2.0
-    py = ((gy + 1.0) * h - 1.0) / 2.0
+
+    def to_pix(v, size):
+        if align_corners:
+            return (v + 1.0) * (size - 1) / 2.0
+        return ((v + 1.0) * size - 1.0) / 2.0
+
+    px = to_pix(coords[..., 0], w)
+    py = to_pix(coords[..., 1], h)
     if mode == "nearest":
         return _corner_fn(features)(torch.round(py).to(torch.int64),
                                     torch.round(px).to(torch.int64))
     if mode != "bilinear":
-        raise ValueError(f"point_sample mode {mode!r}: expected 'bilinear' or 'nearest'")
+        raise ValueError(f"grid_sample mode {mode!r}: expected 'bilinear' or 'nearest'")
     return _bilinear_gather(features, px, py, _corner_fn(features))
+
+
+def point_sample(features: torch.Tensor, point_coords: torch.Tensor,
+                 mode: str = "bilinear", align_corners: bool = False) -> torch.Tensor:
+    """``grid_sample`` at (x, y) coords in [0, 1] (N, P, 2)."""
+    return grid_sample(features, 2.0 * point_coords - 1.0, mode=mode,
+                       align_corners=align_corners)
 
 
 def point_sample_packed(features: torch.Tensor, point_coords: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,15 @@ On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.  ``launches`` counts steps by phase (one step
 is the two CUDA launches): "full" is the step the main path runs;
 "gather" and "interp" are its cuts for timing (``ops/refine_profile.py``).
+
+The kernel's part of the step is also the registered op
+``torch.ops.empanada_tpu_torch.pointrend_refine`` (``refine_op``; tensors
+and ints only: the packed weight buffer and the head's widths), so that
+``torch.export`` can trace a program through it (``api/deploy.py``): its
+CUDA implementation is ``launch``, its fake one allocates the output's
+shape, its CPU one is ``refine_reference``.  ``refine`` reaches CUDA
+tensors through the op, so the engines and an exported program share one
+way to the kernel.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ __all__ = [
     "fused_refine_step",
     "launch",
     "refine",
+    "refine_op",
     "refine_reference",
     "refine_step_reference",
     "select_points_reference",
@@ -339,14 +349,51 @@ def launch_phase(phase, up, thr, features, coarse, weights) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("empanada_tpu_torch::pointrend_refine", mutates_args=(),
+                         device_types="cpu")
+def refine_op(up: torch.Tensor, thr: torch.Tensor, features: torch.Tensor,
+              coarse: torch.Tensor, weights: torch.Tensor, in_features: int, fc_dim: int,
+              num_fc: int) -> torch.Tensor:
+    """The kernel's part of the step as a registered op; ``weights`` is
+    ``PackedWeights.buf``.  This body is the CPU implementation, the plain
+    version (for ``torch.library.opcheck`` and programs exported on the
+    CPU)."""
+    return refine_reference(up, thr, features, coarse,
+                            PackedWeights(weights, in_features, fc_dim, num_fc))
+
+
+@refine_op.register_kernel("cuda")
+def _refine_op_cuda(up, thr, features, coarse, weights, in_features, fc_dim, num_fc):
+    return launch(up, thr, features, coarse,
+                  PackedWeights(weights, in_features, fc_dim, num_fc))
+
+
+@refine_op.register_fake
+def _refine_op_fake(up, thr, features, coarse, weights, in_features, fc_dim, num_fc):
+    n = up.shape[0]
+    if up.dim() != 4 or up.shape[-1] != 1 or features.dim() != 4 or coarse.dim() != 4:
+        raise ValueError("pointrend_refine: expected NHWC up (N, H2, W2, 1), features "
+                         "and coarse")
+    if thr.dtype != torch.float32 or tuple(thr.shape) != (n,):
+        raise ValueError("pointrend_refine: thr must be float32 (N,)")
+    if features.shape[-1] != in_features or weights.dim() != 1:
+        raise ValueError(f"pointrend_refine: {features.shape[-1]} feature channels for a "
+                         f"head of {in_features}, or a weight buffer that is not 1-D")
+    if features.dtype != up.dtype or coarse.dtype != up.dtype:
+        raise ValueError("pointrend_refine: up, features and coarse must share a dtype")
+    return torch.empty_like(up)
+
+
 def refine(up, thr, features, coarse, weights) -> torch.Tensor:
-    """The kernel's part of the step: on CUDA tensors a launch (or an
-    error), on CPU tensors ``refine_reference``."""
+    """The kernel's part of the step: on CUDA tensors the registered op (a
+    launch or an error), on CPU tensors ``refine_reference``."""
     if up.device.type == "cpu":
         return refine_reference(up, thr, features, coarse, weights)
     if up.device.type != "cuda":
         raise ValueError(f"pointrend refine: no kernel for device {up.device}")
-    return launch(up, thr, features, coarse, weights)
+    packed = weights if isinstance(weights, PackedWeights) else pack_weights(weights)
+    return refine_op(up, thr, features, coarse, packed.buf, packed.in_features,
+                     packed.fc_dim, packed.num_fc)
 
 
 def refine_step_reference(sem, features, coarse, weights, num_points: int):

@@ -112,7 +112,8 @@ class MultiChipEngine3d:
     """Batched 3D inference engine (the JAX package's class of this name):
     ``infer_on_axis(volume, "xy")`` -> ``(stack, trackers)``.
 
-    ``model`` is a port model (``empanada_tpu_torch.models``); it is moved
+    ``model`` is a port model (``empanada_tpu_torch.models``; None loads
+    the config's bundle in ``compute_dtype``, as JAX's engine does); it is moved
     to ``device`` (default "cuda", this rank's card in a world; raises
     without a GPU unless ``device="cpu"``) and computes in its own
     parameter dtype.  ``mesh``: the world the batches are split over
@@ -129,13 +130,17 @@ class MultiChipEngine3d:
     ``last_batch_size``, ``last_overflow`` (NMS centres dropped on the
     worst slice), ``last_fused`` and ``last_timing`` describe it;
     ``fallbacks`` counts the fused sweeps whose packed rows overflowed and
-    took the per-slice path.
+    took the per-slice path.  ``transfer_compaction=False`` sends dense
+    maps instead of packed runs, ``max_runs_per_row`` caps the runs a row
+    (a row with more takes the per-slice path).  Other keywords (the JAX
+    engine's tuning knobs, ``shape_buckets``) are accepted and unused, as
+    the JAX engine leaves them.
     """
 
     def __init__(
         self,
         model_config: dict,
-        model,
+        model=None,
         inference_scale: int = 1,
         label_divisor: int = 1000,
         median_kernel_size: int = 3,
@@ -160,6 +165,10 @@ class MultiChipEngine3d:
         volume_resident="auto",
         mesh=None,
         device=None,
+        transfer_compaction: bool = True,
+        max_runs_per_row: Optional[int] = None,
+        compute_dtype=torch.float32,
+        **kwargs,
     ):
         if median_kernel_size % 2 != 1:
             raise ValueError("median_kernel_size must be an odd integer")
@@ -173,8 +182,14 @@ class MultiChipEngine3d:
         if batch_size is not None and batch_size % self.mesh.size:
             raise ValueError(f"batch_size {batch_size} must divide over the "
                              f"{self.mesh.size} ranks of the mesh")
+        if model is None:
+            # imported here: api imports parallel (the spatial engine)
+            from empanada_tpu_torch.api.utils import load_model_from_config
+            model = load_model_from_config(model_config, device=self.device, dtype=compute_dtype)
         self.model = model.to(self.device).eval()
         self.dtype = next(model.parameters()).dtype
+        self.transfer_compaction = bool(transfer_compaction)
+        self.max_runs_per_row = max_runs_per_row
         self.model_config = model_config
         self.labels = model_config["labels"]
         self.class_names = model_config["class_names"]
@@ -217,8 +232,12 @@ class MultiChipEngine3d:
         """Per-row run capacity of the packed transfer; 0 sends dense maps.
 
         int16 packing needs pan ids < 65536 and column indices < 32768."""
+        if not self.transfer_compaction:
+            return 0
         if self.num_classes * self.label_divisor > 65535 or width > 32767:
             return 0
+        if self.max_runs_per_row is not None:
+            return min(int(self.max_runs_per_row), int(width))
         return min(max(32, width // 8), int(width))
 
     def _resolve_batch(self, volume_shape, axis: int) -> int:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["flatten_variables", "from_flax", "load_flax"]
+__all__ = ["flatten_variables", "flax_key", "from_flax", "load_flax"]
 
 _RENAME = {
     ("params", "kernel"): "weight",
@@ -42,6 +42,15 @@ def flatten_variables(variables, prefix=()) -> dict:
     return flat
 
 
+def flax_key(path) -> str:
+    """The state-dict key of the flax leaf at ``path`` (a tuple such as
+    ``("params", "encoder", "conv1", "kernel")``)."""
+    col, *mods, leaf = path
+    if (col, leaf) not in _RENAME:
+        raise KeyError(f"flax leaf {'/'.join(path)} has no port counterpart")
+    return ".".join(mods + [_RENAME[col, leaf]])
+
+
 def _convert(module: str, leaf: str, a: np.ndarray) -> np.ndarray:
     if leaf == "kernel" and a.ndim == 4 and module == "tconv":
         return np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
@@ -61,10 +70,8 @@ def from_flax(variables, model: torch.nn.Module) -> dict:
     expected = model.state_dict()
     state = {}
     for path, a in flatten_variables(variables).items():
-        col, *mods, leaf = path
-        if (col, leaf) not in _RENAME:
-            raise KeyError(f"flax leaf {'/'.join(path)} has no port counterpart")
-        key = ".".join(mods + [_RENAME[col, leaf]])
+        _, *mods, leaf = path
+        key = flax_key(path)
         if key not in expected:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: not a port parameter")
         if key in state:

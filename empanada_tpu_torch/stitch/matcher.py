@@ -20,9 +20,18 @@ from empanada_tpu_torch.core.boxes import merge_boxes, overlapping_box_pairs
 from empanada_tpu_torch.core.labeling import FlatInstances, extract_runs, runs_to_regions
 from empanada_tpu_torch.core.masks import crop_and_binarize, mask_ioa, mask_iou
 from empanada_tpu_torch.core.ranges import join_ranges, ranges_to_rle
-from empanada_tpu_torch.core.rle import rle_iou
+from empanada_tpu_torch.core.rle import merge_rles, rle_iou
 
-__all__ = ["RLEMatcher", "fast_matcher", "rle_matcher", "rle_matcher_flat"]
+__all__ = ["RLEMatcher", "fast_matcher", "rle_matcher", "rle_matcher_flat", "merge_attrs"]
+
+
+def merge_attrs(rle_attr1: dict, rle_attr2: dict) -> dict:
+    """Two instances' records merged: the enclosing box and the union of
+    their run-length encodings."""
+    starts, runs = merge_rles(rle_attr1["starts"], rle_attr1["runs"],
+                              rle_attr2["starts"], rle_attr2["runs"])
+    return {"box": merge_boxes(rle_attr1["box"], rle_attr2["box"]), "starts": starts,
+            "runs": runs}
 
 
 def _merge_collisions(mf: FlatInstances, new_labels, uniq, first_idx,

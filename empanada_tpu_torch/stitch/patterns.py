@@ -18,8 +18,9 @@ import threading
 import numpy as np
 
 from empanada_tpu_torch.core.chunked import ChunkedArray, chunked_fill_instances
-from empanada_tpu_torch.core.labeling import extract_runs
+from empanada_tpu_torch.core.labeling import FlatInstances, extract_runs
 from empanada_tpu_torch.core.rle import numpy_fill_instances
+from empanada_tpu_torch.stitch import filters as filters_mod
 from empanada_tpu_torch.stitch.consensus import (
     merge_objects_from_trackers,
     merge_semantic_from_trackers,
@@ -30,7 +31,10 @@ from empanada_tpu_torch.stitch.tracker import InstanceTracker
 
 __all__ = [
     "create_matchers",
+    "create_axis_trackers",
+    "apply_matchers",
     "apply_matchers_flat",
+    "apply_filters",
     "build_flat_seg",
     "forward_matching",
     "MatcherWorker",
@@ -52,6 +56,34 @@ def create_matchers(thing_list, label_divisor, merge_iou_thr, merge_ioa_thr):
         RLEMatcher(tc, label_divisor, merge_iou_thr, merge_ioa_thr)
         for tc in thing_list
     ]
+
+
+def create_axis_trackers(axes, class_labels, label_divisor, shape) -> dict:
+    """{axis name: one ``InstanceTracker`` per class}."""
+    return {axis_name: [InstanceTracker(class_id, label_divisor, shape, axis_name)
+                        for class_id in class_labels]
+            for axis_name in axes}
+
+
+def apply_matchers(rle_seg: dict, matchers) -> dict:
+    """``apply_matchers_flat`` on the nested form ``{class_id: {label:
+    {"box", "starts", "runs"}}}``, in place."""
+    for matcher in matchers:
+        class_id = matcher.class_id
+        flat = FlatInstances.from_dict(rle_seg[class_id])
+        if not matcher.has_target():
+            matcher.initialize_target_flat(flat)
+        else:
+            rle_seg[class_id] = matcher.match_flat(flat).to_dict()
+    return rle_seg
+
+
+def apply_filters(tracker, filters_list):
+    """Apply the filters of ``stitch.filters`` named by ``filters_list``
+    (``[{"name": ..., **kwargs}]``) to ``tracker`` in place."""
+    for filt in filters_list or ():
+        kwargs = {k: v for k, v in filt.items() if k != "name"}
+        getattr(filters_mod, filt["name"])(tracker, **kwargs)
 
 
 def apply_matchers_flat(flat_seg: dict, matchers) -> dict:

@@ -29,6 +29,7 @@ __all__ = [
     "runs_to_rle_seg",
     "runs_to_flat_seg",
     "packed_to_flat_seg",
+    "packed_to_rle_seg",
     "rle_seg_to_pan_seg",
     "unpack_rle_attrs",
 ]
@@ -133,6 +134,17 @@ def packed_to_flat_seg(
     v, r, s, e = decoded
     return runs_to_flat_seg(v, r, s, e, width, labels, label_divisor,
                             thing_list, force_connected)
+
+
+def packed_to_rle_seg(row_buf: np.ndarray, width: int, labels, label_divisor: int,
+                      thing_list, force_connected: bool = True):
+    """``packed_to_flat_seg`` in the nested dict form, or None when a row
+    overflowed its run capacity."""
+    flat_seg = packed_to_flat_seg(row_buf, width, labels, label_divisor, thing_list,
+                                  force_connected)
+    if flat_seg is None:
+        return None
+    return {label: flat.to_dict() for label, flat in flat_seg.items()}
 
 
 def rle_seg_to_pan_seg(rle_seg: dict, shape) -> np.ndarray:

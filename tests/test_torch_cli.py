@@ -284,12 +284,14 @@ UNPORTED = {
     "num_processes": (["infer3d", "x.npy", "--num-processes", "2"], "needs --coordinator"),
     "train_multichip": (["train", "x.yaml", "--multichip", "--process-id", "1"],
                         "needs --coordinator"),
-    "deploy": (["models", "deploy", "--name", "MitoNet_v1", "--path", "x"], "item 13"),
-    "serve": (["serve", "a.bin", "x.npy"], "item 13"),
-    "export_quantize": (["models", "export", "--name", "MitoNet_v1", "--path", "x",
-                         "--quantize"], "item 13"),
-    "port_quantize": (["port", "x.pth", "--quantize"], "item 13"),
-    "bench": (["bench", "--skip-3d"], "item 13"),
+    # the surface of ROADMAP item 13 exits on what it cannot do, naming why
+    "deploy": (["models", "deploy", "--name", "MitoNet_v1", "--path", "x", "--platforms",
+                "tpu"], "JAX package"),
+    "serve": (["serve", "a.bin", "x.npy"], "a.bin"),
+    "export_quantize": (["models", "export", "--name", "no_such_model", "--path", "x",
+                         "--quantize"], "not a registered model"),
+    "port_quantize": (["port", "x.pth", "--quantize"], "readable checkpoint"),
+    "bench": (["bench", "--int8"], "int8_execution"),
 }
 
 

@@ -21,7 +21,9 @@ import torch
 
 from empanada_tpu_torch import resolve_device
 from empanada_tpu_torch.api import Engine2d, Engine3d, init_model_from_config, load_config
+from empanada_tpu_torch.api.deploy import export_serving_artifact
 from empanada_tpu_torch.api.utils import CONFIG_DIR
+from empanada_tpu_torch.bench import main as bench_main
 from empanada_tpu_torch.engine import (
     BCEngine,
     BCEngine3d,
@@ -69,7 +71,9 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "__main__", "eval.evaluator", "eval.metrics", "curation.ops",
                 "curation.tiles", "curation.patches", "curation.export", "api.export",
                 "port.torch_port", "data.imwrite", "parallel", "parallel.mesh",
-                "parallel.multihost", "parallel.spatial", "parallel.data_parallel"):
+                "parallel.multihost", "parallel.spatial", "parallel.data_parallel",
+                "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
+                "utils.progress"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -88,6 +92,13 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
               os.path.join(d, "t"), "--patch-size", "16"])
         main(["tiles", "merge", "--dir", os.path.join(d, "t"), "--out", os.path.join(d, "m")])
         main(["models", "list"])
+    # the URL cache and an int8 bundle need only the standard library
+    from empanada_tpu_torch.api.utils import cached_model_path, requantize_bundle
+    open(os.path.join(d, "blob.bin"), "wb").write(b"weights")
+    got = cached_model_path("file://" + os.path.join(d, "blob.bin"),
+                            cache_dir=os.path.join(d, "cache"))
+    assert open(got, "rb").read() == b"weights"
+    assert callable(requantize_bundle)
     assert (imread(os.path.join(d, "m", "merged_image.tiff")) == np.where(
         seg == 10002, seg, 0)).all(), out.getvalue()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -108,7 +119,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     proc = _run(["-c", _BLOCKED_IMPORTS], REPO)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[1])
-    assert n >= 76  # every module of the port, not an empty walk
+    assert n >= 81  # every module of the port, not an empty walk
 
 
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
@@ -180,6 +191,11 @@ def test_entry_points_raise_without_a_gpu():
     for engine in (Engine2d, Engine3d):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             engine(load_config("MitoNet_v1"), model=model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_serving_artifact(load_config("MitoNet_v1"), "unused.serve", (64, 64),
+                                model=model)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench_main(["--skip-3d"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
