@@ -12,8 +12,9 @@ null.
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the two CUDA sources (csrc/pointrend_refine.cu and
-   csrc/refine_profile.cu, one nvcc each, started together), then the host
+2. build: compiles the three CUDA sources (csrc/pointrend_refine.cu,
+   csrc/refine_profile.cu and csrc/int8_conv.cu, one nvcc each, started
+   together), then the host
    C++ library (csrc/core_kernels.cpp), and prints the build seconds and
    ptxas' resource reports;
 3. kernel vs plain: the refine kernel against its plain PyTorch version on
@@ -205,7 +206,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     the op against a direct launch, a ``trace()`` whose Chrome trace names
     the refine kernel, ``StageTimer(sync=True)`` over a request, and (e)
     ``python -m empanada_tpu_torch bench --skip-3d`` in this process (its
-    JSON line on a ``bench:`` line); ``surface:`` line; at most 120 s.
+    JSON line on a ``bench:`` line); ``surface:`` line; at most 120 s;
+17. int8: the int8 convolution kernel (csrc/int8_conv.cu) against its plain
+    version, bit for bit, at MitoNet_v1's five int8 shapes (13 convolutions
+    a request), N = 1 and 8, bf16 and float32, and its quantized activation
+    against the plain quantize; each shape's ms on CUDA-graph replays
+    beside cuDNN's bf16 conv2d and ``torch._int_mm`` on the im2col'd int8
+    operands (weights column-major and row-major; the sums must equal the
+    convolution's), the kernel's parts by the profiler, the plain ms and
+    the bound at the int8 peak; a 512 x 512 MitoNet_v1 request with
+    ``int8_execution`` through ``Engine2d`` (13 int8 launches, 2 refine
+    launches; ``engine_ms`` beside the float model's in 16 alternating
+    turns; the host ms of a layer3 ConvBnAct call, int8 against float; the
+    map against the float model's, and the float model's against its
+    float32 copy's, ``map_agreement``);
+    ``python -m empanada_tpu_torch bench --int8 --skip-3d`` (``bench int8:``
+    line; value and mfu beside phase 16's float ones); the napari 2D widget
+    (magicgui stubbed by a pass-through) on a seeded int8 model registered
+    in a registry of its own, its map equal to ``Engine2d``'s; ``int8:``
+    line; at most 90 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -256,6 +275,34 @@ def blob_image(shape, n_blobs, seed):
         sig = rng.uniform(min(h, w) * 0.02, min(h, w) * 0.05)
         img -= 0.4 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device milliseconds a call of ``fn()`` by CUDA events around replays
+    of a CUDA graph of ``calls`` calls: no host launch cost in the window,
+    so calls shorter than their launch are timed as the card runs them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -410,6 +457,20 @@ def profiled(fn, iters):
         if any(str(e.device_type).endswith("CUDA") for e in prof.events()):
             break
     return prof
+
+
+def host_ms(fn, calls=200):
+    """Wall milliseconds a call over ``calls`` calls of ``fn()`` with one
+    synchronisation at the end: the host's cost a call where the device's
+    is smaller."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def profile_device(fn, iters, matches):
@@ -3004,7 +3065,7 @@ def surface_phase(prr, api, cfg, model, card, engine_ms, step1, refine_args):
         rec["int8"] = {"bytes_float32": os.path.getsize(plain), "bytes_int8": os.path.getsize(q),
                        "size_ratio": os.path.getsize(plain) / os.path.getsize(q),
                        "dequantized_card_equals_cpu": True,
-                       "pixels_differing_from_float": float((maps["float"] != maps["int8"]).mean())}
+                       "map_against_float": map_agreement(maps["int8"], maps["float"])}
         del q_card, f_card, engines, q_cpu
 
         # (b) the URL cache: a file:// bundle fetched into a cache of its own
@@ -3061,16 +3122,8 @@ def surface_phase(prr, api, cfg, model, card, engine_ms, step1, refine_args):
         launches["surface_device_time"] = n
 
         # the op's dispatch: host ms a call through the registered op against
-        # a direct launch, 200 calls each, in turns (launch, op, op, launch);
-        # at ~0.03 ms of device time a step the loop waits on the host
-        def host_ms(fn, calls=200):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / calls
-
+        # a direct launch, in turns (launch, op, op, launch); at ~0.03 ms of
+        # device time a step the loop waits on the host
         paths = {"launch": lambda: prr.launch(up, thr, feats, coarse, packed),
                  "op": lambda: prr.refine(up, thr, feats, coarse, packed)}
         turns, n, _ = counted(prr, lambda: [(k, host_ms(paths[k]))
@@ -3099,6 +3152,7 @@ def surface_phase(prr, api, cfg, model, card, engine_ms, step1, refine_args):
         line = json.loads(out.getvalue().strip().splitlines()[-1])
         check(line["value"] and line["value"] > 0, f"bench: {line}")
         rec["bench_s"] = bench_s
+        rec["bench"] = line
         print("bench: " + json.dumps(line), flush=True)
     finally:
         if old_cache is None:
@@ -3111,6 +3165,301 @@ def surface_phase(prr, api, cfg, model, card, engine_ms, step1, refine_args):
     check(rec["phase_s"] <= SURFACE_LIMIT_S,
           f"phase 16 took {rec['phase_s']:.1f} s, over its {SURFACE_LIMIT_S} s")
     return rec, launches
+
+
+# phase 17: int8_execution (the int8 convolution kernel on MitoNet_v1's
+# shapes, an int8 request, bench --int8) and the napari widgets on the card,
+# within a limit of its own
+INT8_LIMIT_S = 90
+# the H100 SXM's dense int8 tensor-core peak (NVIDIA data sheet), op/s
+INT8_OPS_PER_S = 1979e12
+# MitoNet_v1's int8 convolutions in one 512 x 512 request: (name, count, input
+# side, channels, stride, dilation); 13 in all
+INT8_SHAPES = (("layer2_block1", 1, 128, 128, 2, 1), ("layer2_blocks2-4", 3, 64, 128, 1, 1),
+               ("layer3_block1", 1, 64, 256, 2, 1), ("layer3_blocks2-6", 5, 32, 256, 1, 1),
+               ("layer4_blocks1-3", 3, 32, 512, 1, 2))
+
+
+def int8_shape_times(ic, x, w, wq, w_scale, stride, dil):
+    """One int8 shape on one input, the kernel beside cuDNN's bf16 conv2d on
+    the same input and weights and ``torch._int_mm`` on the im2col'd int8
+    operands (the product alone; ``int_mm_row_ms`` with the weights
+    row-major, the layout the kernel does not use): each one's ms a call by
+    CUDA events over a CUDA graph's replays (``*_ms``, the clock of the
+    comparison); the kernel's parts (absmax and quantize passes, GEMM) from
+    one torch.profiler pass; the plain version's device ms; the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    n, c, h, _ = x.shape
+    o = wq.shape[0]
+    ho = ic.output_size(h, 3, stride, dil, dil)
+    parts = profile_device(lambda: ic.launch(x, wq, w_scale, stride, dil, dil), 20, {
+        "kernel_profiler_ms": "", "gemm_ms": "conv_kernel", "absmax_ms": "absmax_kernel",
+        "quantize_ms": "quantize_kernel"})
+    xq, _, _ = ic.launch_quantize(x)
+    # im2col: rows (image, output pixel), columns (channel, kh, kw)
+    cols = F.unfold(xq.float(), 3, dilation=dil, padding=dil, stride=stride)
+    a = cols.transpose(1, 2).reshape(-1, c * 9).to(torch.int8).contiguous()
+    b = wq.reshape(o, c * 9).t()  # column-major: cuBLASLt's int8 layout, its fast path
+    b_row = b.contiguous()
+    wb = w.to(x.dtype)
+    m, k = n * ho * ho, 9 * c
+    nbytes = x.numel() * x.element_size() + wq.numel() + 4 * o + m * o * x.element_size()
+    bound_ms, bound_by = bound(nbytes, 2.0 * m * o * k, INT8_OPS_PER_S)
+    calls = {"kernel": lambda: ic.launch(x, wq, w_scale, stride, dil, dil),
+             "cudnn_bf16": lambda: F.conv2d(x, wb, stride=stride, padding=dil, dilation=dil),
+             "int_mm": lambda: torch._int_mm(a, b), "int_mm_row": lambda: torch._int_mm(a, b_row)}
+    want = _int32_conv(xq, wq, stride, dil)
+    rec = {"n": n, "gemm_mnk": [m, o, k], **parts,
+           "plain_ms": device_ms(lambda: ic.int8_conv_reference(x, wq, w_scale, stride, dil,
+                                                                dil), 3),
+           "int_mm_equal": all(bool(torch.equal(torch._int_mm(a, bb).reshape(n, ho, ho, o), want))
+                               for bb in (b, b_row)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           **{f"{name}_ms": graph_ms(fn) for name, fn in calls.items()}}
+    rec["gemm_tops"] = 2.0 * m * o * k / parts["gemm_ms"] / 1e9
+    return rec
+
+
+def map_agreement(got, want) -> dict:
+    """How far panoptic map ``got`` agrees with ``want`` (ids, 0 the
+    background), in measures that a renumbering of instances does not move:
+    the fraction of pixels whose foreground differs; the instances of each
+    map and those matched one to one at IoU > 0.5, with the matches' mean
+    IoU; the fraction of pixels whose id differs once ``got``'s matched ids
+    take ``want``'s (unmatched ones a fresh id). ``ids_differing_fraction``
+    compares the raw ids, which one extra instance renumbers."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.int64).ravel(), np.asarray(want, np.int64).ravel()
+    ids_g, area_g = np.unique(got, return_counts=True)
+    ids_w, area_w = np.unique(want, return_counts=True)
+    pair, inter = np.unique(got * (int(ids_w.max()) + 1) + want, return_counts=True)
+    pg, pw = pair // (int(ids_w.max()) + 1), pair % (int(ids_w.max()) + 1)
+    union = (area_g[np.searchsorted(ids_g, pg)] + area_w[np.searchsorted(ids_w, pw)] - inter)
+    iou = inter / union
+    hit = (pg > 0) & (pw > 0) & (iou > 0.5)
+    fresh = int(max(ids_g.max(), ids_w.max())) + 1
+    to_want = dict(zip(pg[hit].tolist(), pw[hit].tolist()))
+    lut = np.array([0 if i == 0 else to_want.get(int(i), fresh + j)
+                    for j, i in enumerate(ids_g)], np.int64)
+    relabeled = lut[np.searchsorted(ids_g, got)]
+    return {"ids_differing_fraction": float((got != want).mean()),
+            "foreground_differing_fraction": float(((got > 0) != (want > 0)).mean()),
+            "instances": int((ids_g > 0).sum()), "instances_reference": int((ids_w > 0).sum()),
+            "instances_matched": int(hit.sum()),
+            "matched_mean_iou": float(iou[hit].mean()) if hit.any() else 0.0,
+            "matched_pixels_differing_fraction": float((relabeled != want).mean())}
+
+
+def _int32_conv(xq, wq, stride, dil):
+    """The int32 sums of the convolution, NHWC, exactly (float64 conv)."""
+    import torch
+    import torch.nn.functional as F
+
+    acc = F.conv2d(xq.double(), wq.double(), stride=stride, padding=dil, dilation=dil)
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def int8_phase(prr, api, cfg, model, card, bench_float):
+    """Phase 17 (module docstring) beside phase 5's float ``model``.
+    ``bench_float``: phase 16's ``bench --skip-3d`` line.  Returns (record, {path: int8 convolution launches},
+    {path: refine launches}, the int8 kernel's entry of the kernels' line)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.api import utils as api_utils
+    from empanada_tpu_torch.models.blocks import ConvBnAct
+    from empanada_tpu_torch.napari_plugin import widgets
+    from empanada_tpu_torch.ops import int8_conv as ic
+
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator().manual_seed(17)
+    rec, launches, refine_launches = {"card": card}, {}, {}
+
+    def counted_int8(fn):
+        torch.cuda.synchronize()
+        ic.launches["conv"] = 0
+        out, n_refine, seconds = counted(prr, fn)
+        return out, ic.launches["conv"], n_refine, seconds
+
+    # (a) the kernel against its plain version, bit for bit, at every shape,
+    # N = 1 and 8, bf16 and float32 (the images of a batch differ in scale);
+    # the quantized activation against the plain quantize
+    inputs, checked, max_err = {}, 0, 0.0
+    for name, count, side, c, stride, dil in INT8_SHAPES:
+        w = (torch.randn(c, c, 3, 3, generator=gen) / (3.0 * c ** 0.5)).cuda()
+        wq, w_scale = ic.quantize_weight(w)
+        for n in (1, 8):
+            for dt in (bf16, f32):
+                x = torch.randn(n, c, side, side, generator=gen)
+                x[-1] *= 3.0
+                x = x.to("cuda", dt).contiguous(memory_format=torch.channels_last)
+                got = ic.launch(x, wq, w_scale, stride, dil, dil)
+                want = ic.int8_conv_reference(x, wq, w_scale, stride, dil, dil)
+                check(got.dtype == dt and got.is_contiguous(memory_format=torch.channels_last),
+                      f"int8 {name} N={n} {dt}: output {got.dtype} {got.stride()}")
+                max_err = max(max_err, abs_err(got, want))
+                check(torch.equal(got, want), f"int8 {name} N={n} {dt}: kernel differs from "
+                      f"the plain version by {abs_err(got, want):.4g}")
+                xq, a_scale, _ = ic.launch_quantize(x)
+                xr, ar = ic.quantize_activation_reference(x)
+                check(torch.equal(xq, xr) and torch.equal(a_scale, ar),
+                      f"int8 {name} N={n} {dt}: quantized activation differs")
+                checked += 1
+                if dt == bf16:
+                    inputs[name, n] = (x, w, wq, w_scale, stride, dil)
+    print(f"int8 kernel vs plain: {checked} cases (5 shapes x N = 1, 8 x bf16, float32) "
+          "bit-identical, quantized activations identical", flush=True)
+
+    # (b) times of each shape at N = 1 (a request) and N = 8 (bench's batch)
+    shapes = []
+    for name, count, side, c, stride, dil in INT8_SHAPES:
+        shapes.append({"shape": name, "convs_per_request": count, "channels": c,
+                       "stride": stride, "dilation": dil, "input_side": side,
+                       "times": [int8_shape_times(ic, *inputs[name, n]) for n in (1, 8)]})
+        check(all(t["int_mm_equal"] for t in shapes[-1]["times"]),
+              f"int8 {name}: torch._int_mm's sums differ from the convolution's")
+    del inputs
+    rec["shapes"] = shapes
+
+    def per_request(key):
+        return sum(s["convs_per_request"] * s["times"][0][key] for s in shapes)
+
+    # (c) a 512 x 512 MitoNet_v1 request with int8_execution (phase 5's seed)
+    cfg8 = dict(cfg, model_kwargs=dict(cfg["model_kwargs"], int8_execution=True))
+    m8 = api.init_model_from_config(cfg8, seed=0, device="cuda", dtype=bf16)
+    engines = {"int8": api.Engine2d(cfg8, model=m8), "float": api.Engine2d(cfg, model=model)}
+    img = blob_image((512, 512), 40, 0)  # phase 5's first request
+    maps = {}
+    for key, eng in engines.items():
+        maps[key], n8, n_ref, _ = counted_int8(lambda eng=eng: eng.infer(img))
+        launches[f"int8_engine2d_{key}"] = n8
+        refine_launches[f"int8_engine2d_{key}"] = n_ref
+        check(n_ref == 2, f"int8 phase: {n_ref} refine launches for the {key} request")
+    m32 = api.init_model_from_config(cfg, seed=0, device="cuda", dtype=f32)
+    maps["float32"] = api.Engine2d(cfg, model=m32).infer(img)
+    del m32
+    check(launches["int8_engine2d_int8"] == 13,
+          f"int8 request: {launches['int8_engine2d_int8']} int8 launches, expected 13")
+    check(launches["int8_engine2d_float"] == 0, "the float request launched the int8 kernel")
+    check(maps["int8"].shape == img.shape and len(np.unique(maps["int8"])) > 1,
+          "int8 request: an empty or misshapen map")
+    turns = {"float": [], "int8": []}
+    (_, n8, n_ref, _) = counted_int8(lambda: [turns[k].append(cuda_ms(
+        lambda k=k: engines[k]._dispatch(img), 10)) for k in ("float", "int8", "int8", "float") * 4])
+    launches["int8_engine2d_timed"], refine_launches["int8_engine2d_timed"] = n8, n_ref
+
+    # the int8 path's host cost a convolution: host ms a call of a layer3
+    # ConvBnAct (1 x 256 x 32 x 32 bf16), int8 against float, 200 calls each
+    # in turns (float, int8, int8, float); at ~0.02 ms of device time a call
+    # the loop waits on the host
+    x3 = torch.randn(1, 256, 32, 32, generator=gen).to("cuda", bf16).contiguous(
+        memory_format=torch.channels_last)
+    cbas = {k: ConvBnAct(256, 256, 3, int8_execution=k == "int8").to("cuda", bf16).eval()
+            for k in ("float", "int8")}
+    with torch.inference_mode():
+        host_turns, n8, _, _ = counted_int8(lambda: [(k, host_ms(lambda k=k: cbas[k](x3)))
+                                                     for k in ("float", "int8", "int8", "float")])
+    launches["int8_host_dispatch"] = n8
+    host = {k: sum(v for name, v in host_turns if name == k) / 2 for k in cbas}
+    rec["request"] = {
+        "int8_launches_per_request": launches["int8_engine2d_int8"],
+        "engine_ms": sum(turns["int8"]) / len(turns["int8"]),
+        "engine_ms_float": sum(turns["float"]) / len(turns["float"]),
+        "turns_ms": turns,
+        "conv_bn_act_host_ms": host,
+        "int8_host_ms_added_per_request": 13 * (host["int8"] - host["float"]),
+        "map_against_float": map_agreement(maps["int8"], maps["float"]),
+        # the yardstick: the float model in bf16 against itself in float32
+        "float_map_against_float32": map_agreement(maps["float"], maps["float32"]),
+        "int8_convs_ms": per_request("kernel_ms"),
+        "replaced_cudnn_bf16_ms": per_request("cudnn_bf16_ms")}
+    del engines, m8
+
+    # (d) bench --int8 --skip-3d through the command line
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, n8, n_ref, bench_s = counted_int8(lambda: cli.main(["bench", "--int8", "--skip-3d"]))
+    launches["int8_bench"], refine_launches["int8_bench"] = n8, n_ref
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(line.get("int8_execution") is True and line["value"] and line["value"] > 0,
+          f"bench --int8: {line}")
+    check(n8 > 0, "bench --int8 launched no int8 convolution")
+    rec["bench"] = {"value": line["value"], "mfu": line["mfu"], "seconds": bench_s,
+                    "float_value": bench_float["value"], "float_mfu": bench_float["mfu"]}
+    print("bench int8: " + json.dumps(line), flush=True)
+
+    # (e) the napari 2D widget (magicgui stubbed) on the card, on a seeded
+    # int8 model registered in a registry of its own, against Engine2d
+    tmp = tempfile.mkdtemp(prefix="napari-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                               "build"))
+    old_dir, old_gui = api_utils.MODEL_DIR, widgets._magicgui
+    try:
+        api_utils.MODEL_DIR = tmp
+        widgets._magicgui = lambda: (lambda **_: (lambda fn: fn))
+        f32_model = api.init_model_from_config(cfg8, seed=0, device="cpu", dtype=f32)
+        bundle = api.save_model_bundle(os.path.join(tmp, "smoke_int8"), cfg8["arch"],
+                                       cfg8["model_kwargs"], f32_model)
+        api_utils.add_new_model("smoke_int8", dict(cfg8, model=bundle))
+        viewer = types.SimpleNamespace(dims=types.SimpleNamespace(current_step=(0, 0, 0)))
+        layer = types.SimpleNamespace(data=img, name="em")
+        (pan, meta, kind), n8, n_ref, widget_s = counted_int8(
+            lambda: widgets.slice_inference_widget()(viewer, layer, model_name="smoke_int8"))
+        launches["napari_widget"], refine_launches["napari_widget"] = n8, n_ref
+        want = api.Engine2d(api_utils.load_config("smoke_int8"),
+                            label_divisor=10000).infer(img)
+        check(np.array_equal(pan, want), "napari widget: its map differs from Engine2d's")
+        check(n8 == 13 and kind == "labels" and meta["name"] == "em_panoptic",
+              f"napari widget: {n8} int8 launches, {kind}, {meta}")
+        rec["napari_widget"] = {"equal_to_engine2d": True, "int8_launches": n8,
+                                "seconds": widget_s, "dtype": "float32"}
+    finally:
+        api_utils.MODEL_DIR, widgets._magicgui = old_dir, old_gui
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    by = {"bytes": 0.0, "operations": 0.0}
+    for s in shapes:
+        t = s["times"][0]
+        by[t["bound_by"]] += s["convs_per_request"] * t["bound_ms"]
+    entry = {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "empanada_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "empanada_tpu/models/blocks.py:62",
+        "launches": launches["int8_engine2d_int8"],
+        "launches_by_path": dict(launches),
+        "max_abs_err": max_err,
+        "ms": per_request("kernel_ms"),
+        "plain_ms": per_request("plain_ms"),
+        "bound_ms": per_request("bound_ms"),
+        "bound_by": max(by, key=by.get),
+        "library_ms": per_request("int_mm_ms"),
+        "cudnn_bf16_ms": per_request("cudnn_bf16_ms"),
+        "gemm_ms": per_request("gemm_ms"),
+        "profiler_ms": per_request("kernel_profiler_ms"),
+        "per": "one 512x512 MitoNet_v1 request's 13 int8 convolutions at N = 1, each "
+               "whole call (memset, absmax, quantize, implicit GEMM) by CUDA events over "
+               "CUDA-graph replays (profiler_ms, gemm_ms: torch.profiler's device time); "
+               "library_ms: torch._int_mm on the im2col'd int8 operands (the product "
+               "alone, column-major weights), cudnn_bf16_ms: the bf16 convolutions "
+               "replaced, both on the graph clock; not a Pallas kernel (XLA's integer "
+               "convolution)",
+    }
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("int8: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= INT8_LIMIT_S,
+          f"phase 17 took {rec['phase_s']:.1f} s, over its {INT8_LIMIT_S} s")
+    return rec, launches, refine_launches, entry
 
 
 def _traced(trace, tmp, served, img) -> int:
@@ -3203,7 +3552,7 @@ def main():
     # ---- 2. build: one compiler process per CUDA source, all started
     # together, then the host library; a failed build raises
     t0 = time.perf_counter()
-    cuda_srcs = ("pointrend_refine", "refine_profile")
+    cuda_srcs = ("pointrend_refine", "refine_profile", "int8_conv")
     earlier_build = EarlierKernels.start(args.earlier) if args.earlier else None
     _build.load_all(cuda_srcs)
     native.load()
@@ -3487,9 +3836,15 @@ def main():
     # ---- 16. surface: int8 bundles, the URL cache, the serving artifact
     # (the refine kernel as a registered op), profiling, bench
     t0 = time.perf_counter()
-    _, launches_16 = surface_phase(prr, api, cfg, model, card, engine_ms, per_req[0],
-                                   step1_args)
+    surface, launches_16 = surface_phase(prr, api, cfg, model, card, engine_ms, per_req[0],
+                                         step1_args)
     print(f"phase 16 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
+    # ---- 17. int8: the int8 convolution kernel at MitoNet_v1's shapes, an
+    # int8 request through Engine2d, bench --int8, the napari 2D widget
+    t0 = time.perf_counter()
+    _, _, launches_17, int8_entry = int8_phase(prr, api, cfg, model, card, surface["bench"])
+    print(f"phase 17 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
     kernels = [{
         "name": "pointrend_refine",
@@ -3501,14 +3856,15 @@ def main():
                      + sum(launches_2d.values()) + sum(launches_3d_api.values())
                      + sum(launches_12.values()) + sum(launches_13.values())
                      + sum(launches_14.values()) + sum(launches_15.values())
-                     + sum(launches_16.values())),
+                     + sum(launches_16.values()) + sum(launches_17.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
                              "volume_ortho_streamed": launches_ortho["streamed"],
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
-                             **launches_13, **launches_14, **launches_15, **launches_16},
+                             **launches_13, **launches_14, **launches_15, **launches_16,
+                             **launches_17},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),
@@ -3522,7 +3878,7 @@ def main():
         "per": "one 512x512 request: step 1 (sf 2) + step 2 (sf 4), torch.profiler device "
                "time of every activity of the two calls (the counter's zeroing, the select "
                "and refine passes); passes_ms: the two passes alone",
-    }] + profile_entries
+    }] + profile_entries + [int8_entry]
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,12 @@ seeded random weights, bf16) through the whole device pipeline of a
 kernel), the instance cells, the hardened logits and the coarse merge.
 ``mfu`` is the pipeline's FLOPs, counted by
 ``torch.utils.flop_counter.FlopCounterMode``, over the time and the card's
-dense bf16 peak.  Without ``--skip-3d`` the line also holds ``value_3d``
+dense bf16 peak.  ``--int8`` builds the headline's model with
+``int8_execution`` (its wide 3 x 3 encoder convolutions through the int8
+kernel, ``ops/int8_conv.py``; their products counted as FLOPs, so ``mfu``
+keeps its denominator) and adds ``"int8_execution": true`` to the line; the
+3D, ortho, spatial and multimodel sections keep the float model, as the root
+script's do.  Without ``--skip-3d`` the line also holds ``value_3d``
 (``MultiChipEngine3d`` on a 64 x 512 x 512 blob volume, end to end),
 ``value_ortho`` (the three sweeps and the consensus of 64 x 256 x 256),
 ``spatial``, ``multimodel``, ``train_*`` and ``stages_2d``.  ``--only``
@@ -20,9 +25,8 @@ Every time comes from the card: ``main`` exits without one.  The section
 functions take the model, inputs and sizes as arguments, so they run on
 any device (a CPU run measures the CPU, and its numbers are nobody's
 device metric).  ``--measure-baseline`` (it runs the reference
-implementation, which is not in this repository) and ``--int8`` (the JAX
-models' ``int8_execution``, not in the port: ROADMAP item 13f) exit
-non-zero and say why.  The root script's ``vs_baseline`` divides by
+implementation, which is not in this repository) exits non-zero and says
+why.  The root script's ``vs_baseline`` divides by
 reference numbers measured on another host; here it is null.
 """
 
@@ -369,8 +373,8 @@ def main(argv=None):
     parser.add_argument("--measure-baseline", action="store_true")
     parser.add_argument("--skip-3d", action="store_true")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 execution of the wide 3x3 convolutions (the JAX models'; "
-                             "not in the port)")
+                        help="A/B: int8 execution of the wide 3x3 encoder convolutions "
+                             "(s8xs8->s32 kernel)")
     parser.add_argument("--only", default=None,
                         choices=["3d", "ortho", "train", "stages", "spatial", "multimodel"])
     args = parser.parse_args(argv)
@@ -378,13 +382,11 @@ def main(argv=None):
         raise SystemExit("bench --measure-baseline: the baseline is the reference "
                          "implementation run on the CPU, and its checkout is not part of "
                          "this repository")
-    if args.int8:
-        raise SystemExit("bench --int8: the port's models have no int8_execution "
-                         "(ROADMAP item 13f)")
     if not torch.cuda.is_available():
         raise SystemExit("bench measures the card: no CUDA device is available")
     device = torch.device("cuda")
     card = {"kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    headline_kw = dict(FLAGSHIP_KW, int8_execution=True) if args.int8 else None
 
     if args.only:
         fns = {
@@ -392,7 +394,7 @@ def main(argv=None):
             "ortho": lambda: bench_ortho(build(device)[1], blob_volume(64, 256, 256, 6),
                                          device),
             "train": lambda: bench_train(device),
-            "stages": lambda: bench_stages(*reversed(build(device)),
+            "stages": lambda: bench_stages(*reversed(build(device, headline_kw)),
                                            blob_images(BATCH, H, W, device)),
             "spatial": lambda: bench_spatial(build(device)[1],
                                              blob_volume(1, 2048, 2048, 16)[0], device),
@@ -402,7 +404,7 @@ def main(argv=None):
         print(json.dumps({args.only: fns[args.only](), "device": card}))
         return
 
-    pipeline_batch, model = build(device)
+    pipeline_batch, model = build(device, headline_kw)
     images = blob_images(BATCH, H, W, device)
     r2d = bench_2d(pipeline_batch, images)
     st = r2d["stats"]
@@ -426,19 +428,22 @@ def main(argv=None):
         "metric_train": "train step (PanopticLoss+AdamW, bf16 autocast, 256^2xB16)",
         "device": card,
     }
+    if args.int8:
+        out["int8_execution"] = True
     if not args.skip_3d:
         out["stages_2d"] = bench_stages(model, pipeline_batch, images)
-        r3d = bench_3d(model, blob_volume(64, H, W, 8), device)
+        float_pipe, float_model = build(device) if args.int8 else (pipeline_batch, model)
+        r3d = bench_3d(float_model, blob_volume(64, H, W, 8), device)
         out["value_3d"] = r3d.pop("mvox_s")
         out["vs_baseline_3d"] = None
         out["attribution_3d"] = r3d
-        rortho = bench_ortho(model, blob_volume(64, 256, 256, 6), device)
+        rortho = bench_ortho(float_model, blob_volume(64, 256, 256, 6), device)
         out["value_ortho"] = rortho.pop("mvox_s")
         out["vs_baseline_ortho"] = None
         out["attribution_ortho"] = rortho
-        out["spatial"] = bench_spatial(model, blob_volume(1, 2048, 2048, 16)[0], device)
-        out["multimodel"] = bench_multimodel([pipeline_batch, build(device, seed=1)[0]],
-                                             images)
+        out["spatial"] = bench_spatial(float_model, blob_volume(1, 2048, 2048, 16)[0],
+                                       device)
+        out["multimodel"] = bench_multimodel([float_pipe, build(device, seed=1)[0]], images)
         rtrain = bench_train(device)
         out["train_imgs_s"] = rtrain["imgs_s"]
         out["train_mfu"] = rtrain["mfu"]

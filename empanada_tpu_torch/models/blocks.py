@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from empanada_tpu_torch.ops.int8_conv import int8_conv, quantize_weight
 from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
 from empanada_tpu_torch.parallel.mesh import all_reduce_grad, current_data_mesh
 
@@ -25,6 +26,7 @@ __all__ = [
     "ConvBnAct",
     "ConvTransposeBnAct",
     "Interpolate2d",
+    "MasterConv2d",
     "Resample2d",
     "Resize2d",
     "SeparableConv",
@@ -134,19 +136,75 @@ def conv2d(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
                      groups=groups, bias=bias)
 
 
+class MasterConv2d(nn.Conv2d):
+    """A ``Conv2d`` (no bias) whose weight is the float32 master of an int8
+    convolution: a cast of the module to a narrower float type (a bf16
+    model) leaves the weight in float32, as the JAX package keeps its
+    parameters, so that the int8 weights are quantized from float32 values.
+    The float forward casts the weight to the input's type.
+    ``quantized()`` returns (wq, w_scale) of ``ops.int8_conv.quantize_weight``,
+    cached until the weight changes (its identity, ``_version``, device or
+    storage); a weight whose storage cannot be read (a fake tensor under
+    ``torch.export``) is quantized in the traced program instead."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, bias=False, **kwargs)
+        self._quantized = None  # (key, (wq, w_scale))
+
+    def _apply(self, fn, recurse=True):
+        master = self.weight.detach()
+        super()._apply(fn, recurse)
+        w = self.weight
+        if w.is_floating_point() and w.element_size() < 4:
+            w.data = master.to(device=w.device, dtype=torch.float32)
+            if w.grad is not None:
+                w.grad = w.grad.to(torch.float32)
+        return self
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+    def quantized(self):
+        w = self.weight
+        try:
+            key = (id(w), w._version, w.device, w.dtype, w.data_ptr())
+        except RuntimeError:
+            return quantize_weight(w)
+        if self._quantized is None or self._quantized[0] != key:
+            self._quantized = (key, quantize_weight(w))
+        return self._quantized[1]
+
+
 class ConvBnAct(nn.Module):
-    """conv (no bias) + batch norm + activation."""
+    """conv (no bias) + batch norm + activation.
+
+    With ``int8_execution`` a k >= 3, ungrouped convolution of at least 128
+    input channels (the JAX package's gate) runs in eval mode as
+    ``ops.int8_conv.int8_conv`` on int8 weights quantized from its float32
+    master weight (``MasterConv2d``); train mode runs the float
+    convolution."""
 
     def __init__(self, nin: int, nout: int, kernel_size: int = 3, stride: int = 1,
                  groups: int = 1, dilation: int = 1,
-                 activation: Optional[str] = "relu"):
+                 activation: Optional[str] = "relu", int8_execution: bool = False):
         super().__init__()
-        self.conv = conv2d(nin, nout, kernel_size, stride, groups, dilation)
+        self.int8 = int8_execution and kernel_size >= 3 and groups == 1 and nin >= 128
+        if self.int8:
+            self.conv = MasterConv2d(nin, nout, kernel_size, stride=stride,
+                                     padding=dilation * (kernel_size - 1) // 2,
+                                     dilation=dilation)
+        else:
+            self.conv = conv2d(nin, nout, kernel_size, stride, groups, dilation)
         self.bn = BatchNorm(nout)
         self.act = _ACTS[activation]
 
     def forward(self, x, train: bool = False):
-        x = self.bn(self.conv(x), train)
+        if self.int8 and not train:
+            c = self.conv
+            x = int8_conv(x, *c.quantized(), c.stride[0], c.padding[0], c.dilation[0])
+        else:
+            x = self.conv(x)
+        x = self.bn(x, train)
         return self.act(x) if self.act is not None else x
 
 

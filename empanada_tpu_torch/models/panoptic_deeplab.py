@@ -41,11 +41,14 @@ from empanada_tpu_torch.ops.interpolate import bilinear_resize_nchw
 __all__ = ["PanopticDeepLab", "PanopticDeepLabPR", "PanopticDeepLabBC", "create_encoder"]
 
 
-def create_encoder(name: str, output_stride: int = 32):
+def create_encoder(name: str, output_stride: int = 32, int8_execution: bool = False):
     """(encoder, pyramid widths): a ResNet or RegNet by config name; the
-    widths are those of the encoder's whole pyramid, stem first."""
+    widths are those of the encoder's whole pyramid, stem first.
+    ``int8_execution`` reaches a ResNet's blocks; a RegNet ignores it and
+    runs in float, as in the JAX package."""
     if name in resnet_configs:
-        enc = ResNet(output_stride=output_stride, **resnet_configs[name])
+        enc = ResNet(output_stride=output_stride, int8_execution=int8_execution,
+                     **resnet_configs[name])
         return enc, (64,) + enc.widths
     if name in regnet_configs:
         params = RegNetParams(**regnet_configs[name])
@@ -73,15 +76,17 @@ class PanopticDeepLab(nn.Module):
                  low_level_channels_project: Sequence[int] = (128, 64, 32),
                  atrous_rates: Sequence[int] = (2, 4, 6),
                  aspp_channels: Optional[int] = None, aspp_dropout=0.1,
-                 ins_decoder: bool = False, ins_ratio: float = 0.5):
-        # aspp_dropout: one rate, or (semantic, instance) rates
+                 ins_decoder: bool = False, ins_ratio: float = 0.5,
+                 int8_execution: bool = False):
+        # aspp_dropout: one rate, or (semantic, instance) rates;
+        # int8_execution: the encoder's wide 3 x 3 convolutions in int8
         super().__init__()
         self.num_classes = num_classes
         if isinstance(aspp_dropout, (tuple, list)):
             sem_p, ins_p = aspp_dropout
         else:
             sem_p = ins_p = aspp_dropout
-        self.encoder, widths = create_encoder(encoder, stage4_stride)
+        self.encoder, widths = create_encoder(encoder, stage4_stride, int8_execution)
         self.semantic_decoder = PanopticDeepLabDecoder(
             widths, decoder_channels, low_level_stages, low_level_channels_project,
             atrous_rates, aspp_channels, sem_p)

@@ -18,10 +18,12 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, **_):
+                 downsample: bool = False, int8_execution: bool = False, **_):
         super().__init__()
-        self.cba1 = ConvBnAct(inplanes, planes, 3, stride=stride)
-        self.cba2 = ConvBnAct(planes, planes, 3, activation=None)
+        self.cba1 = ConvBnAct(inplanes, planes, 3, stride=stride,
+                              int8_execution=int8_execution)
+        self.cba2 = ConvBnAct(planes, planes, 3, activation=None,
+                              int8_execution=int8_execution)
         self.downsample = (
             ConvBnAct(inplanes, planes, 1, stride=stride, activation=None)
             if downsample else None
@@ -37,13 +39,13 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1, base_width: int = 64,
-                 dilation: int = 1):
+                 dilation: int = 1, int8_execution: bool = False):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         out = planes * self.expansion
         self.cba1 = ConvBnAct(inplanes, width, 1)
         self.cba2 = ConvBnAct(width, width, 3, stride=stride, groups=groups,
-                              dilation=dilation)
+                              dilation=dilation, int8_execution=int8_execution)
         self.cba3 = ConvBnAct(width, out, 1, activation=None)
         self.downsample = (
             ConvBnAct(inplanes, out, 1, stride=stride, activation=None)
@@ -56,11 +58,13 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns the pyramid [p1 (1/4, stem), p2 (1/4), p3 (1/8), p4 (1/16), p5]."""
+    """Returns the pyramid [p1 (1/4, stem), p2 (1/4), p3 (1/8), p4 (1/16), p5].
+    ``int8_execution``: the blocks' wide 3 x 3 convolutions run in int8 in
+    eval mode (``blocks.ConvBnAct``), as in the JAX package."""
 
     def __init__(self, block: str, layers: Sequence[int], groups: int = 1,
                  width_per_group: int = 64, in_channels: int = 1,
-                 output_stride: int = 32):
+                 output_stride: int = 32, int8_execution: bool = False):
         super().__init__()
         if output_stride not in (16, 32):
             raise ValueError(f"output_stride {output_stride}: expected 16 or 32")
@@ -76,9 +80,9 @@ class ResNet(nn.Module):
         inplanes = 64
         stages = [(64, 1, 1), (128, 2, 1), (256, 2, 1), (512, last_stride, dilation)]
         for s, ((planes, stride, dil), n_blocks) in enumerate(zip(stages, layers)):
-            kw = {}
+            kw = dict(int8_execution=int8_execution)
             if block == "bottleneck":
-                kw = dict(groups=groups, base_width=width_per_group, dilation=dil)
+                kw.update(groups=groups, base_width=width_per_group, dilation=dil)
             need_ds = stride != 1 or inplanes != planes * block_cls.expansion
             self.add_module(f"layer{s + 1}_block1", block_cls(
                 inplanes, planes, stride=stride, downsample=need_ds, **kw))

@@ -12,6 +12,11 @@ The port names its submodules after the flax modules, so a flax leaf
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``;
 - ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+An ``int8_execution`` model takes the same float32 kernels: its int8
+convolutions keep them as float32 masters (``models.blocks.MasterConv2d``)
+and derive their int8 copies from them, as the JAX package quantizes its
+float32 parameters.
 """
 
 from __future__ import annotations

@@ -108,10 +108,10 @@ def test_json_line_has_the_root_bench_keys(monkeypatch, capsys, tiny):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--measure-baseline"], "reference"), (["--int8"], "int8_execution"),
+    (["--measure-baseline"], "reference"), (["--int8"], "no CUDA device"),
     (["--skip-3d"], "no CUDA device")])
 def test_refusals(argv, match):
-    if argv == ["--skip-3d"] and torch.cuda.is_available():
+    if match == "no CUDA device" and torch.cuda.is_available():
         pytest.skip("a GPU is present: the bench runs on it")
     with pytest.raises(SystemExit, match=match) as e:
         bench.main(argv)
@@ -123,3 +123,35 @@ def test_cli_forwards_everything_after_bench(monkeypatch):
     monkeypatch.setattr(bench, "main", seen.append)
     port_main(["bench", "--skip-3d", "--only", "3d", "--device", "x"])
     assert seen == [["--skip-3d", "--only", "3d", "--device", "x"]]
+
+
+def test_int8_builds_the_headline_with_int8_execution(monkeypatch, capsys, tiny):
+    """``--int8`` builds the headline's model (and the stages') with
+    ``int8_execution`` and marks the line; the 3D sections get a float
+    model, as the root script's do.  ``build`` itself makes an int8 model
+    whose FLOP count keeps the int8 convolutions."""
+    pipe, model, images = tiny
+    built = []
+
+    def build(device, kw=None, **k):
+        built.append(dict(kw or {}))
+        return pipe, model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "fake")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(bench, "build", build)
+    monkeypatch.setattr(bench, "blob_images", lambda *a, **k: images)
+    st = {"s": 0.01, "median_s": 0.01, "max_s": 0.01, "valid_trials": 1, "jitter": 0.0}
+    monkeypatch.setattr(bench, "bench_2d", lambda *a, **k: {
+        "mvox_s": 1.0, "stats": st, "flops": 1, "mfu": 0.1})
+    bench.main(["--int8", "--skip-3d"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["int8_execution"] is True and out["value"] == 1.0
+    assert built == [dict(bench.FLAGSHIP_KW, int8_execution=True)]
+    monkeypatch.undo()
+
+    int8_pipe, int8_model = bench.build("cpu", dict(TINY, int8_execution=True),
+                                        dtype=torch.float32)
+    assert bench.flop_count(int8_pipe, images) == bench.flop_count(pipe, images)
+    assert sum(getattr(m, "int8", False) for m in int8_model.modules()) == 11

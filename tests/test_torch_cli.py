@@ -291,7 +291,6 @@ UNPORTED = {
     "export_quantize": (["models", "export", "--name", "no_such_model", "--path", "x",
                          "--quantize"], "not a registered model"),
     "port_quantize": (["port", "x.pth", "--quantize"], "readable checkpoint"),
-    "bench": (["bench", "--int8"], "int8_execution"),
 }
 
 
@@ -301,6 +300,23 @@ def test_unported_flags_exit_naming_their_item(case):
     with pytest.raises(SystemExit, match=item) as e:
         port_main(argv + (["--device", "cpu"] if argv[0] in ("infer2d", "infer3d", "train")
                           else []))
+    assert e.value.code not in (0, None)
+
+
+def test_bench_int8_is_forwarded(monkeypatch):
+    """``bench --int8`` reaches the port's bench, which builds an int8 model
+    on the card (without one it exits naming the missing device)."""
+    from empanada_tpu_torch import bench
+
+    seen = []
+    monkeypatch.setattr(bench, "main", seen.append)
+    port_main(["bench", "--int8", "--skip-3d"])
+    assert seen == [["--int8", "--skip-3d"]]
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(SystemExit, match="no CUDA device") as e:
+        port_main(["bench", "--int8"])
     assert e.value.code not in (0, None)
 
 

@@ -1,6 +1,7 @@
 """Isolation of the PyTorch port: every module of empanada_tpu_torch, and
-chip_smoke.py, imports with jax, flax, empanada_tpu, cv2, networkx, PIL
-and zarr blocked (the card's machine has none of the last four), and the
+chip_smoke.py, imports with jax, flax, empanada_tpu, cv2, networkx, PIL,
+zarr, napari and magicgui blocked (the card's machine has none of the last
+six), and the
 port's native host library builds and loads there too, as the command
 line's file and curation commands run; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
@@ -43,7 +44,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2", "networkx", "PIL", "zarr")
+    BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2", "networkx", "PIL", "zarr",
+               "napari", "magicgui")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -73,7 +75,8 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "port.torch_port", "data.imwrite", "parallel", "parallel.mesh",
                 "parallel.multihost", "parallel.spatial", "parallel.data_parallel",
                 "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
-                "utils.progress"):
+                "utils.progress", "ops.int8_conv", "napari_plugin",
+                "napari_plugin.widgets"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -123,12 +126,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
+# the napari adapters' optional GUI packages: only inside a function of
+# empanada_tpu_torch/napari_plugin (a widget factory), never at import time
+GUI_IMPORTS = {"napari", "magicgui"}
 
 
 def test_port_imports_only_torch_numpy_scipy_yaml():
     """Static check of every import statement in the port (and in
     chip_smoke.py): the standard library, torch, numpy, scipy, yaml and the
-    port itself."""
+    port itself; napari and magicgui inside the napari adapters' functions
+    alone."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "empanada_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -137,6 +144,11 @@ def test_port_imports_only_torch_numpy_scipy_yaml():
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
+        in_function = set()
+        if os.sep + "napari_plugin" + os.sep in path:
+            in_function = {id(n) for fn in ast.walk(tree)
+                           if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                           for n in ast.walk(fn)}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 tops = [a.name.split(".")[0] for a in node.names]
@@ -144,7 +156,8 @@ def test_port_imports_only_torch_numpy_scipy_yaml():
                 tops = [node.module.split(".")[0]]
             else:
                 continue
-            bad += [(os.path.relpath(path, REPO), t) for t in tops if t not in allowed]
+            ok = allowed | (GUI_IMPORTS if id(node) in in_function else set())
+            bad += [(os.path.relpath(path, REPO), t) for t in tops if t not in ok]
     assert len(files) >= 35 and not bad, bad
 
 

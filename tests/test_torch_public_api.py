@@ -1,7 +1,6 @@
 """The port's public names: every name of every ``__all__`` of the JAX
 package imports from the port's module of the same path, except a written
-list of names that exist for the TPU alone (and the napari adapters, which
-come next).  Then the names this slice added are held to the JAX
+list of names that exist for the TPU alone.  Then the names this slice added are held to the JAX
 functions on the same inputs, and ``MultiChipEngine3d`` takes JAX's
 arguments (the config's bundle when no model is given, the transfer
 knobs, other keywords)."""
@@ -45,8 +44,6 @@ TPU_ONLY = {
     "empanada_tpu.ops.select.top_k_neg_bf16_indices":
         "a packed single-operand top-k for the TPU's sort (fault C4 of the port's notes); "
         "the port takes torch.topk",
-    "empanada_tpu.napari_plugin": "the napari adapters are ROADMAP item 13d, the next slice",
-    "empanada_tpu.napari_plugin.widgets": "as empanada_tpu.napari_plugin",
 }
 
 
