@@ -5,9 +5,9 @@
 
 ``--earlier DIR`` names a checkout of the parent commit (for example a
 ``git archive`` of it unpacked into a git-ignored directory): its refine
-kernel and tile copy are then built too and timed beside this one's on the
-same inputs (``earlier_ms``, ``earlier_device_ms``); without it those are
-null.
+kernel, tile copy and int8 convolution are then built too and timed beside
+this one's on the same inputs (``earlier_ms``, ``earlier_device_ms``);
+without it those are null.
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
@@ -210,10 +210,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 17. int8: the int8 convolution kernel (csrc/int8_conv.cu) against its plain
     version, bit for bit, at MitoNet_v1's five int8 shapes (13 convolutions
     a request), N = 1 and 8, bf16 and float32, and its quantized activation
-    against the plain quantize; each shape's ms on CUDA-graph replays
+    against the plain quantize, then at four more shapes (C_in % 128 != 0,
+    an uneven split of K); each shape's ms on CUDA-graph replays
     beside cuDNN's bf16 conv2d and ``torch._int_mm`` on the im2col'd int8
     operands (weights column-major and row-major; the sums must equal the
-    convolution's), the kernel's parts by the profiler, the plain ms and
+    convolution's) and, with ``--earlier``, the parent's kernel in turns;
+    the kernel's parts and device activities a call by the profiler (three
+    kernels, no memset), its launch plan, the plain ms and
     the bound at the int8 peak; a 512 x 512 MitoNet_v1 request with
     ``int8_execution`` through ``Engine2d`` (13 int8 launches, 2 refine
     launches; ``engine_ms`` beside the float model's in 16 alternating
@@ -478,7 +481,12 @@ def profile_device(fn, iters, matches):
     for each name -> match of ``matches``: the self device time of the
     kernels and copies whose name holds the match ("" counts every device
     activity)."""
-    prof = profiled(fn, iters)
+    return device_parts(profiled(fn, iters), iters, matches)
+
+
+def device_parts(prof, iters, matches):
+    """``profile_device``'s readout of a profiler session of ``iters``
+    calls."""
     out = {}
     for name, match in matches.items():
         total = 0.0
@@ -511,14 +519,19 @@ class EarlierKernels:
     """The parent commit's refine kernel and tile copy, built with nvcc from
     a checkout of it (``--earlier DIR``, only read) into this checkout's
     build directory, keyed by the source's hash, and bound through the C entry
-    points that commit has (``pointrend_refine_launch(up, thr, feat, coarse,
-    wts, out, n, h2, w2, hc, wc, F, D, num_fc, sf, stream)`` on weights
-    concatenated flat, ``tile_copy_launch(x, out, n, h, w, stream)``,
-    ``gated_tile_copy_launch(x, thr, out, n, h, w, F, D, stream)``), for
-    A/B timing in the same process on the same inputs.  ``start`` launches
-    the two compilers; the constructor waits for them."""
+    points that commit has (``pointrend_refine_launch(phase, grid, up, thr,
+    feat, coarse, packed, out, points, count, n, h2, w2, hc, wc, F, num_fc,
+    sf, stream)`` on ``pack_weights``' layout, the entry of every commit
+    since the kernel's redesign, ``tile_copy_launch(x, out, n, h, w, stream)``,
+    ``gated_tile_copy_launch(x, thr, out, n, h, w, F, D, stream)``), and
+    its int8 convolution (``int8_conv_launch(dtype, mt, x, xq, amax, wq,
+    w_scale, out, n, h, w, c, o, kh, kw, stride, pad, dil, ho, wo,
+    stream)``, the ``mma.sync`` kernel before the ``wgmma`` redesign, its
+    tile rows ``mt`` picked as its wrapper picked them), for A/B timing in
+    the same process on the same inputs.  ``start`` launches the three compilers; the
+    constructor waits for them."""
 
-    SOURCES = ("pointrend_refine", "refine_profile")
+    SOURCES = ("pointrend_refine", "refine_profile", "int8_conv")
 
     @staticmethod
     def start(root):
@@ -552,13 +565,20 @@ class EarlierKernels:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         self._refine = libs["pointrend_refine"].pointrend_refine_launch
         self._refine.restype = ci
-        self._refine.argtypes = [vp] * 6 + [ci] * 9 + [vp]
+        self._refine.argtypes = [ci] * 2 + [vp] * 8 + [ci] * 8 + [vp]
+        self._refine_blocks = libs["pointrend_refine"].pointrend_refine_blocks_per_sm
+        self._refine_blocks.restype = ci
+        self._refine_blocks.argtypes = [ci] * 2
+        self._packed = {}
         self._copy = libs["refine_profile"].tile_copy_launch
         self._copy.restype = ci
         self._copy.argtypes = [vp] * 2 + [ci] * 3 + [vp]
         self._gated = libs["refine_profile"].gated_tile_copy_launch
         self._gated.restype = ci
         self._gated.argtypes = [vp] * 3 + [ci] * 5 + [vp]
+        self._int8 = libs["int8_conv"].int8_conv_launch
+        self._int8.restype = ci
+        self._int8.argtypes = [ci] * 2 + [vp] * 6 + [ci] * 12 + [vp]
 
     @staticmethod
     def _stream(t):
@@ -567,20 +587,30 @@ class EarlierKernels:
         return torch.cuda.current_stream(t.device).cuda_stream
 
     def refine(self, up, thr, feats, coarse, wts):
-        """The parent's step on fused weights (its kernel: "refine_kernel<2>")."""
+        """The parent's whole step (its select pass and "refine_kernel<2>")
+        on the head's fused or packed weights."""
         import torch
 
-        layers, (wp, wpc, bp) = wts
-        parts = ([wf for wf, _, _ in layers] + [wc for _, wc, _ in layers]
-                 + [b for _, _, b in layers] + [wp, wpc, bp])
-        packed = torch.cat([q.reshape(-1).to(torch.bfloat16) for q in parts])
+        from empanada_tpu_torch.ops import pointrend_refine as prr
+
+        if isinstance(wts, prr.PackedWeights):
+            packed = wts
+        else:  # packed once per weights object, outside the timed calls' work
+            if id(wts) not in self._packed:
+                self._packed[id(wts)] = (wts, prr.pack_weights(wts))
+            packed = self._packed[id(wts)][1]
         n, h2, w2, _ = up.shape
         _, hc, wc, fdim = feats.shape
+        phase = prr.PHASES["full"]
+        grid = (self._refine_blocks(phase, fdim)
+                * torch.cuda.get_device_properties(up.device).multi_processor_count)
         out = torch.empty_like(up)
-        err = self._refine(up.data_ptr(), thr.data_ptr(), feats.data_ptr(),
-                           coarse.data_ptr(), packed.data_ptr(), out.data_ptr(), n, h2, w2,
-                           hc, wc, fdim, layers[0][0].shape[1], len(layers), h2 // hc,
-                           self._stream(up))
+        points = torch.empty(n * h2 * w2, dtype=torch.int32, device=up.device)
+        count = torch.zeros(1, dtype=torch.int32, device=up.device)
+        err = self._refine(phase, grid, up.data_ptr(), thr.data_ptr(), feats.data_ptr(),
+                           coarse.data_ptr(), packed.buf.data_ptr(), out.data_ptr(),
+                           points.data_ptr(), count.data_ptr(), n, h2, w2, hc, wc, fdim,
+                           packed.num_fc, h2 // hc, self._stream(up))
         check(err == 0, f"earlier refine launch failed: CUDA error {err}")
         return out
 
@@ -604,6 +634,29 @@ class EarlierKernels:
         err = self._gated(x.data_ptr(), thr.data_ptr(), out.data_ptr(), n, h, w, 0, 0,
                           self._stream(x))
         check(err == 0, f"earlier gated copy launch failed: CUDA error {err}")
+        return out
+
+    def int8_conv(self, x, wq, w_scale, stride, dil):
+        """The parent's whole int8 call (memset, absmax, quantize, its GEMM
+        "conv_kernel") on a channels_last x, 3 x 3 weights, padding =
+        dilation, as its wrapper launched it."""
+        import torch
+
+        n, c, h, w = x.shape
+        o = wq.shape[0]
+        ho = (h + 2 * dil - 2 * dil - 1) // stride + 1
+        wo = (w + 2 * dil - 2 * dil - 1) // stride + 1
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        m = n * ho * wo
+        mt = next((t for t in (4, 2) if -(-m // (32 * t)) * -(-o // 128) >= sms), 1)
+        out = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device,
+                          memory_format=torch.channels_last)
+        xq = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
+        amax = torch.empty(1, dtype=torch.int32, device=x.device)
+        err = self._int8(0 if x.dtype == torch.bfloat16 else 1, mt, x.data_ptr(), xq.data_ptr(),
+                         amax.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                         n, h, w, c, o, 3, 3, stride, dil, dil, ho, wo, self._stream(x))
+        check(err == 0, f"earlier int8 conv launch failed: CUDA error {err}")
         return out
 
 
@@ -3178,25 +3231,51 @@ INT8_OPS_PER_S = 1979e12
 INT8_SHAPES = (("layer2_block1", 1, 128, 128, 2, 1), ("layer2_blocks2-4", 3, 64, 128, 1, 1),
                ("layer3_block1", 1, 64, 256, 2, 1), ("layer3_blocks2-6", 5, 32, 256, 1, 1),
                ("layer4_blocks1-3", 3, 32, 512, 1, 2))
+# shapes beyond MitoNet_v1's, held bit for bit only: (name, N, input side,
+# C_in, C_out, stride, dilation).  C % 128 != 0 (a tap's last K step is
+# partly past C; below 128 channels, and at stride 9, the activations take
+# the cp.async path), a ragged output whose split of K does not divide it
+# evenly (9 steps over 4 blocks on 132 SMs), a 3-tap dilation
+INT8_EXTRA = (("c96", 1, 20, 96, 64, 1, 1), ("c160_stride2", 2, 17, 160, 136, 2, 1),
+              ("ragged_uneven_split", 1, 57, 128, 128, 1, 1),
+              ("c32_dilation3", 1, 9, 32, 8, 1, 3), ("stride9", 1, 40, 128, 64, 9, 1))
 
 
-def int8_shape_times(ic, x, w, wq, w_scale, stride, dil):
+def int8_shape_times(ic, x, w, wq, w_scale, stride, dil, earlier=None):
     """One int8 shape on one input, the kernel beside cuDNN's bf16 conv2d on
     the same input and weights and ``torch._int_mm`` on the im2col'd int8
     operands (the product alone; ``int_mm_row_ms`` with the weights
     row-major, the layout the kernel does not use): each one's ms a call by
     CUDA events over a CUDA graph's replays (``*_ms``, the clock of the
-    comparison); the kernel's parts (absmax and quantize passes, GEMM) from
-    one torch.profiler pass; the plain version's device ms; the bound."""
+    comparison); with ``earlier``, the parent's kernel on the same inputs,
+    in turns with this one (this, parent, parent, this: ``earlier_ms``);
+    the kernel's parts (absmax and quantize passes, GEMM: each the mean
+    device ms of its kernel's events) and its device activities a call
+    from one torch.profiler pass; the launch plan; the plain version's
+    device ms; the bound."""
     import torch
     import torch.nn.functional as F
 
     n, c, h, _ = x.shape
     o = wq.shape[0]
     ho = ic.output_size(h, 3, stride, dil, dil)
-    parts = profile_device(lambda: ic.launch(x, wq, w_scale, stride, dil, dil), 20, {
-        "kernel_profiler_ms": "", "gemm_ms": "conv_kernel", "absmax_ms": "absmax_kernel",
-        "quantize_ms": "quantize_kernel"})
+    iters = 20
+    prof = profiled(lambda: ic.launch(x, wq, w_scale, stride, dil, dil), iters)
+    # each part: the mean of the kernel's events the profiler kept (late in
+    # the script it drops some, so a total over the calls would read short)
+    events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+              if str(e.device_type).endswith("CUDA")]
+    parts = {}
+    for key, kind in (("gemm_ms", "gemm_kernel"), ("absmax_ms", "absmax_kernel"),
+                      ("quantize_ms", "quantize_kernel")):
+        ms = [t for name, t in events if kind in name]
+        check(ms, f"torch.profiler saw no {kind}")
+        parts[key] = sum(ms) / len(ms)
+    parts["kernel_profiler_ms"] = parts["gemm_ms"] + parts["absmax_ms"] + parts["quantize_ms"]
+    acts = [name for name, _ in events]
+    kinds = {k for k in ("absmax_kernel", "quantize_kernel", "gemm_kernel")
+             if any(k in a_ for a_ in acts)}
+    p = ic.launch_plan(x, wq, w_scale, stride, dil, dil)
     xq, _, _ = ic.launch_quantize(x)
     # im2col: rows (image, output pixel), columns (channel, kh, kw)
     cols = F.unfold(xq.float(), 3, dilation=dil, padding=dil, stride=stride)
@@ -3207,18 +3286,37 @@ def int8_shape_times(ic, x, w, wq, w_scale, stride, dil):
     m, k = n * ho * ho, 9 * c
     nbytes = x.numel() * x.element_size() + wq.numel() + 4 * o + m * o * x.element_size()
     bound_ms, bound_by = bound(nbytes, 2.0 * m * o * k, INT8_OPS_PER_S)
-    calls = {"kernel": lambda: ic.launch(x, wq, w_scale, stride, dil, dil),
-             "cudnn_bf16": lambda: F.conv2d(x, wb, stride=stride, padding=dil, dilation=dil),
+    kernel = lambda: ic.launch(x, wq, w_scale, stride, dil, dil)  # noqa: E731
+    calls = {"cudnn_bf16": lambda: F.conv2d(x, wb, stride=stride, padding=dil, dilation=dil),
              "int_mm": lambda: torch._int_mm(a, b), "int_mm_row": lambda: torch._int_mm(a, b_row)}
     want = _int32_conv(xq, wq, stride, dil)
     rec = {"n": n, "gemm_mnk": [m, o, k], **parts,
+           "plan": {"tiles": p.tiles_m * p.tiles_n, "split": p.split, "k_steps": p.k_steps,
+                    "blocks": p.split * p.tiles_m * p.tiles_n, "tile_width": p.wb},
+           "device_activities_per_call": len(acts) / iters,
+           "kernel_kinds": sorted(kinds),
+           "others_per_call": sum(not any(k in a_ for k in kinds) for a_ in acts) / iters,
            "plain_ms": device_ms(lambda: ic.int8_conv_reference(x, wq, w_scale, stride, dil,
                                                                 dil), 3),
            "int_mm_equal": all(bool(torch.equal(torch._int_mm(a, bb).reshape(n, ho, ho, o), want))
                                for bb in (b, b_row)),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           **{f"{name}_ms": graph_ms(fn) for name, fn in calls.items()}}
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if earlier is not None:
+        got = earlier.int8_conv(x, wq, w_scale, stride, dil)
+        rec["earlier_equal"] = bool(torch.equal(
+            got, ic.int8_conv_reference(x, wq, w_scale, stride, dil, dil)))
+        turns = {"kernel": [], "earlier": []}
+        for who in ("kernel", "earlier", "earlier", "kernel"):
+            turns[who].append(graph_ms(kernel if who == "kernel" else (
+                lambda: earlier.int8_conv(x, wq, w_scale, stride, dil))))
+        rec["kernel_ms"] = sum(turns["kernel"]) / 2
+        rec["earlier_ms"] = sum(turns["earlier"]) / 2
+    else:
+        rec["kernel_ms"] = graph_ms(kernel)
+        rec["earlier_ms"] = None
+    rec.update({f"{name}_ms": graph_ms(fn) for name, fn in calls.items()})
     rec["gemm_tops"] = 2.0 * m * o * k / parts["gemm_ms"] / 1e9
+    rec["call_tops"] = 2.0 * m * o * k / rec["kernel_ms"] / 1e9
     return rec
 
 
@@ -3262,10 +3360,12 @@ def _int32_conv(xq, wq, stride, dil):
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
-def int8_phase(prr, api, cfg, model, card, bench_float):
+def int8_phase(prr, api, cfg, model, card, bench_float, earlier=None):
     """Phase 17 (module docstring) beside phase 5's float ``model``.
-    ``bench_float``: phase 16's ``bench --skip-3d`` line.  Returns (record, {path: int8 convolution launches},
-    {path: refine launches}, the int8 kernel's entry of the kernels' line)."""
+    ``bench_float``: phase 16's ``bench --skip-3d`` line; ``earlier``: the
+    parent's kernels (``--earlier``) or None.  Returns (record, {path: int8
+    convolution launches}, {path: refine launches}, the int8 kernel's entry
+    of the kernels' line)."""
     import contextlib
     import io
     import shutil
@@ -3318,7 +3418,26 @@ def int8_phase(prr, api, cfg, model, card, bench_float):
                 checked += 1
                 if dt == bf16:
                     inputs[name, n] = (x, w, wq, w_scale, stride, dil)
-    print(f"int8 kernel vs plain: {checked} cases (5 shapes x N = 1, 8 x bf16, float32) "
+    uneven = []
+    for name, n, side, c, o, stride, dil in INT8_EXTRA:
+        w = (torch.randn(o, c, 3, 3, generator=gen) / (3.0 * c ** 0.5)).cuda()
+        wq, w_scale = ic.quantize_weight(w)
+        for dt in (bf16, f32):
+            x = torch.randn(n, c, side, side, generator=gen)
+            x[-1] *= 3.0
+            x = x.to("cuda", dt).contiguous(memory_format=torch.channels_last)
+            p = ic.launch_plan(x, wq, w_scale, stride, dil, dil)
+            if p.k_steps % p.split and name not in uneven:
+                uneven.append(name)
+            got = ic.launch(x, wq, w_scale, stride, dil, dil)
+            want = ic.int8_conv_reference(x, wq, w_scale, stride, dil, dil)
+            max_err = max(max_err, abs_err(got, want))
+            check(torch.equal(got, want), f"int8 {name} {dt} (split {p.split} of {p.k_steps} "
+                  f"K steps): kernel differs from the plain version by {abs_err(got, want):.4g}")
+            checked += 1
+    check(uneven, "int8: no extra case splits K unevenly")
+    print(f"int8 kernel vs plain: {checked} cases (5 shapes x N = 1, 8 x bf16, float32, and "
+          f"{len(INT8_EXTRA)} more x bf16, float32; uneven splits: {', '.join(uneven)}) "
           "bit-identical, quantized activations identical", flush=True)
 
     # (b) times of each shape at N = 1 (a request) and N = 8 (bench's batch)
@@ -3326,9 +3445,18 @@ def int8_phase(prr, api, cfg, model, card, bench_float):
     for name, count, side, c, stride, dil in INT8_SHAPES:
         shapes.append({"shape": name, "convs_per_request": count, "channels": c,
                        "stride": stride, "dilation": dil, "input_side": side,
-                       "times": [int8_shape_times(ic, *inputs[name, n]) for n in (1, 8)]})
+                       "times": [int8_shape_times(ic, *inputs[name, n], earlier=earlier)
+                                 for n in (1, 8)]})
         check(all(t["int_mm_equal"] for t in shapes[-1]["times"]),
               f"int8 {name}: torch._int_mm's sums differ from the convolution's")
+        check(all(t.get("earlier_equal", True) for t in shapes[-1]["times"]),
+              f"int8 {name}: the parent's kernel differs from the plain version")
+        # three kernels and nothing else (no memset) a call; the profiler drops
+        # events late in the script, so the kinds are checked, not the count
+        check(all(len(t["kernel_kinds"]) == 3 and t["others_per_call"] == 0
+                  and t["device_activities_per_call"] <= 3 for t in shapes[-1]["times"]),
+              f"int8 {name}: a call is not the three kernels alone: "
+              f"{[(t['kernel_kinds'], t['device_activities_per_call']) for t in shapes[-1]['times']]}")
     del inputs
     rec["shapes"] = shapes
 
@@ -3445,11 +3573,20 @@ def int8_phase(prr, api, cfg, model, card, bench_float):
         "bound_by": max(by, key=by.get),
         "library_ms": per_request("int_mm_ms"),
         "cudnn_bf16_ms": per_request("cudnn_bf16_ms"),
+        "earlier_ms": per_request("earlier_ms") if earlier is not None else None,
         "gemm_ms": per_request("gemm_ms"),
         "profiler_ms": per_request("kernel_profiler_ms"),
+        "kernels_per_call": len(shapes[0]["times"][0]["kernel_kinds"]),
+        "device_activities_per_call": shapes[0]["times"][0]["device_activities_per_call"],
+        "other_activities_per_call": shapes[0]["times"][0]["others_per_call"],
+        "faster_than_earlier": ({f"{s['shape']}_n{t['n']}": t["kernel_ms"] < t["earlier_ms"]
+                                 for s in shapes for t in s["times"]}
+                                if earlier is not None else None),
         "per": "one 512x512 MitoNet_v1 request's 13 int8 convolutions at N = 1, each "
-               "whole call (memset, absmax, quantize, implicit GEMM) by CUDA events over "
-               "CUDA-graph replays (profiler_ms, gemm_ms: torch.profiler's device time); "
+               "whole call (absmax, quantize, implicit GEMM: kernels_per_call) by CUDA "
+               "events over CUDA-graph replays (profiler_ms, gemm_ms: torch.profiler's "
+               "device time, the mean of each kernel's events); earlier_ms: the "
+               "parent's kernel in turns with this one; "
                "library_ms: torch._int_mm on the im2col'd int8 operands (the product "
                "alone, column-major weights), cudnn_bf16_ms: the bf16 convolutions "
                "replaced, both on the graph clock; not a Pallas kernel (XLA's integer "
@@ -3507,8 +3644,9 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--earlier", metavar="DIR",
-                        help="a checkout of the parent commit: its refine kernel and tile "
-                             "copy are timed beside this one's (earlier_ms)")
+                        help="a checkout of the parent commit: its refine kernel, tile "
+                             "copy and int8 convolution are timed beside this one's "
+                             "(earlier_ms)")
     parser.add_argument("--world-rank", nargs=5, metavar=("TASK", "RANK", "WORLD", "PORT", "DIR"),
                         help="run one rank of phase 15's worlds (the phase starts them)")
     args = parser.parse_args()
@@ -3843,7 +3981,8 @@ def main():
     # ---- 17. int8: the int8 convolution kernel at MitoNet_v1's shapes, an
     # int8 request through Engine2d, bench --int8, the napari 2D widget
     t0 = time.perf_counter()
-    _, _, launches_17, int8_entry = int8_phase(prr, api, cfg, model, card, surface["bench"])
+    _, _, launches_17, int8_entry = int8_phase(prr, api, cfg, model, card, surface["bench"],
+                                               earlier)
     print(f"phase 17 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
     kernels = [{

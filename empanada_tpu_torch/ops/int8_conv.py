@@ -22,21 +22,28 @@ On a CPU tensor ``int8_conv`` runs the plain version; on a CUDA tensor it
 calls the registered op ``torch.ops.empanada_tpu_torch.int8_conv``, whose
 CUDA implementation launches the kernel (or raises; there is no fallback),
 so that ``torch.export`` and the profiler see one op.  ``launches["conv"]``
-counts the op's CUDA calls (a memset and three kernels each);
+counts the op's CUDA calls (three kernels each: absmax, quantize, GEMM);
 ``launches["quantize"]`` counts the quantize passes launched alone, only to
 check them.
+
+A call's host work is kept small: the launch plan of a shape (``plan``:
+tiles, the split of K, and the SM count it was made for) and the weights'
+TMA map (``_weight_map``, keyed by their address and geometry) are cached,
+and the C entry point takes eight arguments.
 
 What bounds it on an H100: at MitoNet_v1's shapes the integer operations
 (1.2-4.8 G a convolution of a 512 x 512 request, against under 5 MB moved)
 on the tensor cores' int8 rate, 1,979 TOP/s dense.  The quantize passes
-move bytes.  The first kernel runs ``mma.sync`` from registers; its times
-beside the bound are in PERF.md.
+move bytes.  The kernel runs ``wgmma`` s8 from swizzled shared memory, K
+split across a cluster where a request's grid is small; its times beside
+the bound are in PERF.md.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,16 +55,19 @@ __all__ = [
     "int8_conv_op",
     "int8_conv_reference",
     "launch",
+    "launch_plan",
     "launch_quantize",
     "launches",
     "output_size",
+    "plan",
     "quantize_activation_reference",
     "quantize_weight",
+    "split_range",
 ]
 
 launches = {"conv": 0, "quantize": 0}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_sm_cache: dict = {}
+_cards: dict = {}
 
 
 def output_size(size: int, k: int, stride: int, pad: int, dilation: int) -> int:
@@ -112,27 +122,144 @@ def _lib():
     from empanada_tpu_torch.ops import _build
 
     lib = _build.load("int8_conv")
-    lib.int8_quantize_launch.restype = ctypes.c_int
-    lib.int8_quantize_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.int8_conv_launch.restype = ctypes.c_int
-    lib.int8_conv_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                                     + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.int8_quantize_launch.restype = ci
+    lib.int8_quantize_launch.argtypes = [ci, vp, ctypes.c_longlong, vp, vp, vp, vp]
+    lib.int8_weight_map.restype = ci
+    lib.int8_weight_map.argtypes = [vp, ci, ctypes.c_longlong, vp]
+    lib.int8_conv_launch.restype = ci
+    lib.int8_conv_launch.argtypes = [ci] + [vp] * 7
+    lib.int8_max_clusters.restype = ci
+    lib.int8_max_clusters.argtypes = [ci]
     return lib
 
 
-def _tile_rows(m: int, o: int, device) -> int:
-    """The conv kernel's m16 tiles a warp (rows a block: 32 of them): the
-    largest of 4, 2, 1 whose grid covers the card's SMs, else 1."""
-    device = torch.device(device)
-    if device.index not in _sm_cache:
-        _sm_cache[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    sms = _sm_cache[device.index]
-    for mt in (4, 2):
-        if -(-m // (32 * mt)) * -(-o // 128) >= sms:
-            return mt
-    return 1
+# the GEMM's tile (rows x columns x K bytes a step) and the largest split
+# (a cluster of blocks: past 4 the reduction through distributed shared memory
+# costs more than the K steps it saves, PERF.md); the prologue's blocks and
+# partial maxima
+BM = BN = BK = 128
+MAX_SPLIT = 4
+REDUCE_BLOCKS = 1056
+
+
+class Plan(NamedTuple):
+    """The kernel's launch plan of one shape, the order of ``ConvPlan``
+    in ``csrc/int8_conv.cu``: grid (split * tiles_m, tiles_n).  ``wb`` > 0:
+    the activations come by TMA and an M tile is a block of BM // wb rows
+    of wb output pixels of one image; 0: by ``cp.async``, BM consecutive
+    output pixels."""
+
+    n: int
+    h: int
+    w: int
+    c: int
+    o: int
+    kh: int
+    kw: int
+    stride: int
+    pad: int
+    dilation: int
+    ho: int
+    wo: int
+    tiles_m: int
+    tiles_n: int
+    split: int
+    k_steps: int
+    wb: int
+
+
+@functools.lru_cache(maxsize=512)
+def plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int, stride: int, pad: int,
+         dilation: int, sms: int, clusters: tuple | None = None) -> Plan:
+    """The launch plan of an NHWC (n, h, w, c) input and (o, c, kh, kw)
+    weights on a card of ``sms`` SMs, or ValueError for what the kernel
+    does not take.  ``clusters[s - 1]``: the most clusters of s blocks the
+    card holds at once (``_card``; default ``sms // s``, which a card
+    whose GPCs differ in size does not reach).  Tiles are BM x BN; K runs
+    in steps of BK bytes, one tap taking ceil(c / BK) of them.  A grid of
+    tiles that covers at least half the SMs is not split (a batch of 8); a
+    smaller one (a request) splits K over the most blocks a cluster such
+    that all its clusters are resident at once, at most ``MAX_SPLIT`` and
+    at most one a K step.  Where the activations come by TMA
+    (``_tile_width``), M tiles are spatial blocks of one image, else runs
+    of BM output pixels."""
+    if c % 32:
+        raise ValueError(f"int8 conv: {c} input channels; the kernel takes C_in % 32 == 0")
+    if o % 8:
+        raise ValueError(f"int8 conv: {o} output channels; the kernel takes C_out % 8 == 0")
+    if min(n, h, w, kh, kw, stride, dilation) < 1 or pad < 0:
+        raise ValueError(f"int8 conv: input {n} x {h} x {w}, kernel {kh} x {kw}, stride "
+                         f"{stride}, padding {pad}, dilation {dilation} out of range")
+    if n * h * w * c >= 2 ** 31:
+        raise ValueError(f"int8 conv: {n * h * w * c} elements; the kernel indexes below 2^31")
+    ho, wo = (output_size(h, kh, stride, pad, dilation),
+              output_size(w, kw, stride, pad, dilation))
+    if ho <= 0 or wo <= 0 or n * ho * wo * o >= 2 ** 31:
+        raise ValueError(f"int8 conv: output {n} x {o} x {ho} x {wo} out of the kernel's range")
+    wb = _tile_width(c, stride, ho, wo)
+    if wb:
+        tiles_m = n * -(-ho // (BM // wb)) * -(-wo // wb)
+    else:
+        tiles_m = -(-n * ho * wo // BM)
+    tiles_n = -(-o // BN)
+    k_steps = kh * kw * -(-c // BK)
+    tiles = tiles_m * tiles_n
+    clusters = clusters or tuple(sms // s for s in range(1, MAX_SPLIT + 1))
+    split = 1
+    if 2 * tiles < sms:
+        split = max([s for s in range(1, min(MAX_SPLIT, k_steps) + 1)
+                     if tiles <= clusters[s - 1]], default=1)
+    return Plan(n, h, w, c, o, kh, kw, stride, pad, dilation, ho, wo, tiles_m, tiles_n,
+                split, k_steps, wb)
+
+
+def _tile_width(c: int, stride: int, ho: int, wo: int) -> int:
+    """The output pixels a row of a TMA-fed M tile (0: the ``cp.async``
+    path): at least BK input channels (a box's 128 bytes), a stride that a
+    TMA box can traverse (<= 8, the box <= 256 elements a side); the width
+    of the fewest tiles, the wider of equals."""
+    if c < BK or stride > 8:
+        return 0
+    fits = [wb for wb in (128, 64, 32, 16, 8, 4, 2, 1)
+            if wb * stride <= 256 and BM // wb * stride <= 256]
+    return min(fits, key=lambda wb: -(-ho // (BM // wb)) * -(-wo // wb))
+
+
+def split_range(k_steps: int, split: int, rank: int) -> tuple:
+    """The K steps [lo, hi) of block ``rank`` of a split, as the kernel
+    takes them."""
+    return rank * k_steps // split, (rank + 1) * k_steps // split
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_ints(shape: tuple, sms: int, clusters: tuple):
+    return (ctypes.c_int * len(Plan._fields))(*plan(*shape, sms, clusters))
+
+
+@functools.lru_cache(maxsize=256)
+def _weight_map(ptr: int, o: int, k: int):
+    """The TMA map of int8 weights [O, K] at ``ptr`` (128 bytes, encoded
+    once; it holds the address and the geometry, not the values)."""
+    buf = ctypes.create_string_buffer(128)
+    err = _lib().int8_weight_map(ptr, o, k, buf)
+    if err != 0:
+        raise RuntimeError(f"int8 conv: weight tensor map failed: CUDA error {err}")
+    return buf
+
+
+def _card(device) -> tuple:
+    """(SMs, the most clusters of 1..MAX_SPLIT GEMM blocks held at once)
+    of a CUDA device, asked once."""
+    index = device.index
+    if index not in _cards:
+        with torch.cuda.device(index):
+            clusters = tuple(_lib().int8_max_clusters(s) for s in range(1, MAX_SPLIT + 1))
+        if min(clusters) < 1:
+            raise RuntimeError(f"int8 conv: cluster occupancy query failed: {clusters}")
+        _cards[index] = (torch.cuda.get_device_properties(index).multi_processor_count,
+                            clusters)
+    return _cards[index]
 
 
 def _check_input(x):
@@ -154,43 +281,49 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _scratch(x):
+    """One call's scratch: xq (x.numel() int8), then the max and the
+    prologue's partial maxima (float32)."""
+    return torch.empty(x.numel() + 4 * (1 + REDUCE_BLOCKS), dtype=torch.int8, device=x.device)
+
+
 def launch_quantize(x: torch.Tensor):
     """The kernel's first two passes alone on a CUDA tensor: (xq int8 of
     x's shape in ``channels_last`` memory, a_scale 0-d float32, and the
     (1,) int32 bits of max|x|)."""
     x = _check_input(x)
-    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device,
-                     memory_format=torch.channels_last)
-    amax = torch.empty(1, dtype=torch.int32, device=x.device)
+    n, c, h, w = x.shape
+    scratch = _scratch(x)
+    amax = scratch[x.numel():x.numel() + 4].view(torch.int32)
     err = _lib().int8_quantize_launch(_DTYPES[x.dtype], x.data_ptr(), x.numel(),
-                                      amax.data_ptr(), xq.data_ptr(), _stream(x.device))
+                                      amax.data_ptr(), amax.data_ptr() + 4,
+                                      scratch.data_ptr(), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"int8 quantize launch failed: CUDA error {err}")
     launches["quantize"] += 1
+    xq = scratch[:x.numel()].view(n, h, w, c).permute(0, 3, 1, 2)
     a_scale = amax.view(torch.float32).clamp_min(1e-12)[0] * INV127
     return xq, a_scale, amax
 
 
-def _conv_args(x, wq, w_scale, stride, pad, dilation):
+def _launch_args(x, wq, w_scale, stride, pad, dilation):
+    x = _check_input(x)
     n, c, h, w = x.shape
     if wq.dtype != torch.int8 or wq.dim() != 4 or wq.shape[1] != c or wq.device != x.device:
         raise ValueError(f"int8 conv: weights {wq.dtype} {tuple(wq.shape)} on {wq.device} "
                          f"for {c} input channels on {x.device}")
     o, _, kh, kw = wq.shape
-    if o % 8:
-        raise ValueError(f"int8 conv: {o} output channels; the kernel takes C_out % 8 == 0")
     if (w_scale.dtype != torch.float32 or tuple(w_scale.shape) != (o,)
             or w_scale.device != x.device):
         raise ValueError("int8 conv: w_scale must be float32 (C_out,) on the input's device")
-    ho, wo = (output_size(h, kh, stride, pad, dilation),
-              output_size(w, kw, stride, pad, dilation))
-    if ho <= 0 or wo <= 0 or n * ho * wo * o >= 2 ** 31:
-        raise ValueError(f"int8 conv: output {n} x {o} x {ho} x {wo} out of the kernel's range")
-    out = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
-    shape = (n, h, w, c, o, kh, kw, stride, pad, dilation, ho, wo)
-    return (wq.contiguous(memory_format=torch.channels_last), w_scale.contiguous(), out,
-            shape, _tile_rows(n * ho * wo, o, x.device))
+    shape = (n, h, w, c, o, kh, kw, stride, pad, dilation)
+    return x, shape, _card(x.device)
+
+
+def launch_plan(x, wq, w_scale, stride: int, pad: int, dilation: int) -> Plan:
+    """The plan ``launch`` takes for these CUDA tensors on their card."""
+    _, shape, card = _launch_args(x, wq, w_scale, stride, pad, dilation)
+    return plan(*shape, *card)
 
 
 def launch(x, wq, w_scale, stride: int, pad: int, dilation: int) -> torch.Tensor:
@@ -198,13 +331,17 @@ def launch(x, wq, w_scale, stride: int, pad: int, dilation: int) -> torch.Tensor
     GEMM), output in x's type: allocates the output and its scratch, does
     not synchronise, raises (never falls back) without a card or on inputs
     the kernel does not take."""
-    x = _check_input(x)
-    wq, w_scale, out, shape, mt = _conv_args(x, wq, w_scale, stride, pad, dilation)
-    xq = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
-    amax = torch.empty(1, dtype=torch.int32, device=x.device)
-    err = _lib().int8_conv_launch(_DTYPES[x.dtype], mt, x.data_ptr(),
-                                  xq.data_ptr(), amax.data_ptr(), wq.data_ptr(),
-                                  w_scale.data_ptr(), out.data_ptr(), *shape,
+    x, shape, card = _launch_args(x, wq, w_scale, stride, pad, dilation)
+    p = plan(*shape, *card)
+    n, _, _, c, o, kh, kw = shape[:7]
+    wq = wq.contiguous(memory_format=torch.channels_last)
+    w_scale = w_scale.contiguous()
+    out = torch.empty((n, o, p.ho, p.wo), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    scratch = _scratch(x)
+    err = _lib().int8_conv_launch(_DTYPES[x.dtype], x.data_ptr(), scratch.data_ptr(),
+                                  _weight_map(wq.data_ptr(), o, kh * kw * c),
+                                  w_scale.data_ptr(), out.data_ptr(), _plan_ints(shape, *card),
                                   _stream(x.device))
     if err != 0:
         raise RuntimeError(f"int8 conv launch failed: CUDA error {err}")
