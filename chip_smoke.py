@@ -5,8 +5,8 @@
 
 ``--earlier DIR`` names a checkout of the parent commit (for example a
 ``git archive`` of it unpacked into a git-ignored directory): its refine
-kernel, tile copy and int8 convolution are then built too and timed beside
-this one's on the same inputs (``earlier_ms``, ``earlier_device_ms``);
+kernel, tile copy, gated tile copy and int8 convolution are then built too
+and timed beside this one's on the same inputs (``earlier_ms``, ``earlier_device_ms``);
 without it those are null.
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
@@ -27,12 +27,18 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (8, 128, 128, 256), sf = 4 and MitoNet_v1's point head, the profiling
    kernels (tile copy, gated tile copy with and without the refine
    kernel's shared memory reserved, the refine step cut after the gather
-   and after the interpolation) against their plain versions, then their
+   and after the interpolation) against their plain versions (the gated
+   copy bit for bit at three thresholds, the reservations of MitoNet_v1's
+   and the mini's widths, on B = 8, a ragged pair and one image, its
+   persistent grid against ``gated_plan``), then their
    CUDA-event and profiler device times beside their bounds: the whole step
    at all-skip and all-refine (select and refine passes apart; its plain
    version's times, ``full_skip_plain`` and ``full_refine_plain``), the MLP's
-   TFLOP/s at all-refine, and the tile copy against ``copy_`` (medians of 60
-   calls' device times);
+   TFLOP/s at all-refine, the tile copy against ``copy_`` and the gated
+   copies at all-skip and all-refine, unreserved and reserved, and, with
+   ``--earlier``, the parent's (medians of 60 calls'
+   device times; a ``refine profile: gated copies`` line gives each one's
+   ms, the parent's, the bound and its share, the grid and blocks a SM);
 5. main path: MitoNet_v1 at full width (seeded random weights, random BN
    statistics, bf16) serves four 512 x 512 uint8 requests and one 600 x 700
    request through PanopticDeepLabRenderEngine, and a 7-slice stack through
@@ -524,19 +530,67 @@ class EarlierKernels:
     sf, stream)`` on ``pack_weights``' layout, the entry of every commit
     since the kernel's redesign, ``tile_copy_launch(x, out, n, h, w, stream)``,
     ``gated_tile_copy_launch(x, thr, out, n, h, w, F, D, stream)``), and
-    its int8 convolution (``int8_conv_launch(dtype, mt, x, xq, amax, wq,
-    w_scale, out, n, h, w, c, o, kh, kw, stride, pad, dil, ho, wo,
-    stream)``, the ``mma.sync`` kernel before the ``wgmma`` redesign, its
-    tile rows ``mt`` picked as its wrapper picked them), for A/B timing in
-    the same process on the same inputs.  ``start`` launches the three compilers; the
-    constructor waits for them."""
+    its int8 convolution (``int8_conv_launch(dtype, x, scratch, map,
+    w_scale, out, plan, stream)`` with ``int8_weight_map(wq, o, k, map)``
+    and ``int8_max_clusters(split)``, the entries of every commit since the
+    ``wgmma`` redesign, on this checkout's launch plan and scratch, which
+    ``start`` first holds equal to the parent's: ``INT8_PY``, ``INT8_C``), for A/B
+    timing in the same process on the same inputs.  ``start`` launches the
+    three compilers; the constructor waits for them."""
 
     SOURCES = ("pointrend_refine", "refine_profile", "int8_conv")
+    # what int8_conv takes from this checkout for the parent's entry: the
+    # plan and scratch of ops/int8_conv.py, and the C struct and entries
+    # that read them
+    INT8_PY = ("BM", "MAX_SPLIT", "REDUCE_BLOCKS", "_DTYPES", "Plan", "plan", "_tile_width",
+               "output_size", "_scratch")
+    INT8_C = {"ConvPlan": r"struct ConvPlan \{[^}]*\};",
+              "int8_conv_launch": r"int int8_conv_launch\([^)]*\)",
+              "int8_weight_map": r"int int8_weight_map\([^)]*\)",
+              "int8_max_clusters": r"int int8_max_clusters\([^)]*\)"}
+
+    @staticmethod
+    def int8_layout(root):
+        """``INT8_PY``'s and ``INT8_C``'s parts of the checkout at ``root``
+        by name: the Python definitions as ASTs without docstrings, the C
+        text with its whitespace folded (None where a part is missing)."""
+        import ast
+        import re
+
+        def dump(node):
+            body = getattr(node, "body", None)
+            if (isinstance(node, (ast.FunctionDef, ast.ClassDef)) and body
+                    and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)):
+                node.body = body[1:]
+            return ast.dump(node)
+
+        base = os.path.join(root, "empanada_tpu_torch")
+        with open(os.path.join(base, "ops", "int8_conv.py")) as f:
+            tree = ast.parse(f.read())
+        py = {}
+        for node in tree.body:
+            names = ([node.name] if isinstance(node, (ast.FunctionDef, ast.ClassDef)) else
+                     [t.id for t in getattr(node, "targets", []) if isinstance(t, ast.Name)])
+            for name in names:
+                py[name] = dump(node)
+        with open(os.path.join(base, "csrc", "int8_conv.cu")) as f:
+            cu = " ".join(f.read().split())
+        parts = {n: py.get(n) for n in EarlierKernels.INT8_PY}
+        for name, pattern in EarlierKernels.INT8_C.items():
+            m = re.search(pattern, cu)
+            parts[name] = m.group(0) if m else None
+        return parts
 
     @staticmethod
     def start(root):
         from empanada_tpu_torch.ops import _build
 
+        here = os.path.dirname(os.path.abspath(__file__))
+        ours, theirs = EarlierKernels.int8_layout(here), EarlierKernels.int8_layout(root)
+        differ = [n for n in ours if ours[n] != theirs[n]]
+        check(not differ, f"--earlier: the parent's int8 launch plan, scratch or entries "
+              f"differ from this checkout's ({', '.join(differ)}); bind the parent's in "
+              "EarlierKernels.int8_conv")
         os.makedirs(_build.BUILD, exist_ok=True)
         procs = {}
         for name in EarlierKernels.SOURCES:
@@ -578,7 +632,15 @@ class EarlierKernels:
         self._gated.argtypes = [vp] * 3 + [ci] * 5 + [vp]
         self._int8 = libs["int8_conv"].int8_conv_launch
         self._int8.restype = ci
-        self._int8.argtypes = [ci] * 2 + [vp] * 6 + [ci] * 12 + [vp]
+        self._int8.argtypes = [ci] + [vp] * 7
+        self._int8_map = libs["int8_conv"].int8_weight_map
+        self._int8_map.restype = ci
+        self._int8_map.argtypes = [vp, ci, ctypes.c_longlong, vp]
+        self._int8_clusters = libs["int8_conv"].int8_max_clusters
+        self._int8_clusters.restype = ci
+        self._int8_clusters.argtypes = [ci]
+        self._maps = {}
+        self._cards = {}
 
     @staticmethod
     def _stream(t):
@@ -624,38 +686,57 @@ class EarlierKernels:
         check(err == 0, f"earlier tile copy launch failed: CUDA error {err}")
         return out
 
-    def gated_tile_copy(self, x, thr):
-        """The parent's gated copy, no reservation (its kernel:
-        "gated_tile_copy_kernel<false>")."""
+    def gated_tile_copy(self, x, thr, reserve=None):
+        """The parent's gated copy, with the refine kernel's shared memory
+        reserved for ``reserve`` = (F, D) or none (its kernels:
+        "gated_tile_copy_kernel<true>" and "<false>")."""
         import torch
 
         out = torch.empty_like(x)
         n, h, w = x.shape
-        err = self._gated(x.data_ptr(), thr.data_ptr(), out.data_ptr(), n, h, w, 0, 0,
+        fdim, dfc = reserve if reserve is not None else (0, 0)
+        err = self._gated(x.data_ptr(), thr.data_ptr(), out.data_ptr(), n, h, w, fdim, dfc,
                           self._stream(x))
         check(err == 0, f"earlier gated copy launch failed: CUDA error {err}")
         return out
 
     def int8_conv(self, x, wq, w_scale, stride, dil):
-        """The parent's whole int8 call (memset, absmax, quantize, its GEMM
-        "conv_kernel") on a channels_last x, 3 x 3 weights, padding =
-        dilation, as its wrapper launched it."""
+        """The parent's whole int8 call (absmax, quantize, its GEMM
+        "gemm_kernel") on a channels_last x, 3 x 3 weights, padding =
+        dilation, through the entry every commit since the kernel's
+        redesign has: ``ops/int8_conv.py``'s ``plan`` and ``_scratch``,
+        which ``start`` held equal to the parent's, on the parent's own
+        cluster occupancy."""
+        import ctypes
+
         import torch
 
+        from empanada_tpu_torch.ops import int8_conv as ic
+
+        x = x.contiguous(memory_format=torch.channels_last)
+        wq = wq.contiguous(memory_format=torch.channels_last)
+        w_scale = w_scale.contiguous()
         n, c, h, w = x.shape
         o = wq.shape[0]
-        ho = (h + 2 * dil - 2 * dil - 1) // stride + 1
-        wo = (w + 2 * dil - 2 * dil - 1) // stride + 1
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        m = n * ho * wo
-        mt = next((t for t in (4, 2) if -(-m // (32 * t)) * -(-o // 128) >= sms), 1)
-        out = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device,
+        shape = (n, h, w, c, o, 3, 3, stride, dil, dil)
+        if x.device not in self._cards:
+            with torch.cuda.device(x.device):
+                clusters = tuple(self._int8_clusters(s) for s in range(1, ic.MAX_SPLIT + 1))
+            check(min(clusters) >= 1, f"earlier int8 cluster query failed: {clusters}")
+            self._cards[x.device] = (
+                torch.cuda.get_device_properties(x.device).multi_processor_count, clusters)
+        p = ic.plan(*shape, *self._cards[x.device])
+        out = torch.empty((n, o, p.ho, p.wo), dtype=x.dtype, device=x.device,
                           memory_format=torch.channels_last)
-        xq = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
-        amax = torch.empty(1, dtype=torch.int32, device=x.device)
-        err = self._int8(0 if x.dtype == torch.bfloat16 else 1, mt, x.data_ptr(), xq.data_ptr(),
-                         amax.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                         n, h, w, c, o, 3, 3, stride, dil, dil, ho, wo, self._stream(x))
+        scratch = ic._scratch(x)
+        key = (wq.data_ptr(), o, 9 * c)
+        if key not in self._maps:  # a TMA map holds the address, not the values
+            self._maps[key] = ctypes.create_string_buffer(128)
+            err = self._int8_map(wq.data_ptr(), o, 9 * c, self._maps[key])
+            check(err == 0, f"earlier int8 weight map failed: CUDA error {err}")
+        err = self._int8(ic._DTYPES[x.dtype], x.data_ptr(), scratch.data_ptr(), self._maps[key],
+                         w_scale.data_ptr(), out.data_ptr(), (ctypes.c_int * len(p))(*p),
+                         self._stream(x))
         check(err == 0, f"earlier int8 conv launch failed: CUDA error {err}")
         return out
 
@@ -728,15 +809,33 @@ def refine_profile(prr, rp, gen, head, dev, earlier):
     errs = {"tile_copy": 0.0, "gated_tile_copy": 0.0, "refine_gather": 0.0,
             "refine_interp": 0.0}
 
-    # each kernel against its plain version (these launches are not counted)
+    # each kernel against its plain version (these launches are not counted):
+    # the gated copy bit for bit, unreserved and reserved at MitoNet_v1's
+    # and the mini's widths, on B = 8, ragged
+    # images with and without 16-byte rows, one image and edge values
+    # (subnormals, values that double to inf, inf, -0), each launcher's
+    # grid against gated_plan's
     ragged = torch.randn(2, 300, 700, generator=gen).to(dev, bf16)
-    for t, th in ((x, thr_k), (ragged, torch.tensor([0.01, -1.0], device=dev))):
+    edges = torch.tensor([1e-40, -1e-40, 3.3e38, -3.3e38, float("inf"), -0.0, 0.0, 2.0])
+    edges = edges.repeat(2 * 64 * 64).reshape(2, 64, 512).to(dev, bf16)
+    reserves = (None, reserve, (160, 160))
+    aligned = torch.randn(3, 40, 264, generator=gen).to(dev, bf16)  # 16-byte rows, edge tiles
+    for t, th in ((x, thr_k), (ragged, torch.tensor([0.01, -1.0], device=dev)),
+                  (aligned, torch.tensor([0.02, -1.0, 0.5], device=dev)),
+                  (x[:1].contiguous(), thr_k[:1].contiguous()),
+                  (edges, torch.tensor([0.0, 1e-3], device=dev))):
         check(torch.equal(rp.tile_copy(t), rp.tile_copy_reference(t)), "tile_copy differs")
+        for res in reserves:
+            info = rp.gated_launch_info(dev, *t.shape, res)
+            plan = rp.gated_plan(*t.shape, info["blocks_per_sm"], info["sms"])[0]
+            check(info["grid"] == plan, f"gated copy grid {info['grid']}, plan {plan} "
+                  f"({tuple(t.shape)}, reserve={res})")
         for thr in (th, torch.full_like(th, -1.0), torch.full_like(th, float("inf"))):
-            want = rp.gated_tile_copy_reference(t, thr)
-            for res in (None, reserve):
-                check(torch.equal(rp.gated_tile_copy(t, thr, res), want),
-                      f"gated_tile_copy differs (reserve={res})")
+            want = rp.gated_tile_copy_reference(t, thr).view(torch.int16)
+            for res in reserves:
+                got = rp.gated_tile_copy(t, thr, res).view(torch.int16)
+                check(torch.equal(got, want),
+                      f"gated_tile_copy differs ({tuple(t.shape)}, reserve={res})")
     for thr in (thr_k, refine):
         for phase in ("gather", "interp"):
             fn = rp.refine_gather if phase == "gather" else rp.refine_interp
@@ -764,15 +863,6 @@ def refine_profile(prr, rp, gen, head, dev, earlier):
         "copy_plain": (lambda: rp.tile_copy_reference(next(cyc)), 50, ""),
         "gated_plain": (lambda: rp.gated_tile_copy_reference(next(cyc), refine), 5, ""),
     }
-    for name, thr in (("skip", skip), ("refine", refine)):
-        for rname, res in (("", None), ("_reserved", reserve)):
-            items[f"gated_{name}{rname}"] = (
-                lambda thr=thr, res=res: rp.gated_tile_copy(next(cyc), thr, res), 50,
-                "gated_tile_copy_kernel<true>" if res else "gated_tile_copy_kernel<false>")
-        if earlier is not None:
-            items[f"gated_{name}_earlier"] = (
-                lambda thr=thr: earlier.gated_tile_copy(next(cyc), thr), 50,
-                "gated_tile_copy_kernel<false>")
     for phase, fn, kname in (("gather", rp.refine_gather, "refine_kernel<0"),
                              ("interp", rp.refine_interp, "refine_kernel<1")):
         items[f"{phase}_refine"] = (lambda fn=fn: fn(up, refine, feats, coarse, packed), 20,
@@ -810,6 +900,27 @@ def refine_profile(prr, rp, gen, head, dev, earlier):
             samples[name] += device_samples(fn, 30, match)
     for name, ms in samples.items():
         t[name] = {"device_ms": statistics.median(ms), "calls": len(ms)}
+    # the gated copies at all-skip and all-refine, unreserved and reserved:
+    # this kernel and the parent's where --earlier gave it (each profiled
+    # alone, so the match is the instantiation's prefix, whatever template
+    # parameters follow); medians of 30 calls' device times, two rounds, the
+    # second in reverse order
+    gated = {}
+    for name, thr in (("skip", skip), ("refine", refine)):
+        for rname, res in (("", None), ("_reserved", reserve)):
+            match = f"gated_tile_copy_kernel<{'true' if res else 'false'}"
+            gated[f"gated_{name}{rname}"] = (
+                lambda thr=thr, res=res: rp.gated_tile_copy(next(cyc), thr, res), match, res)
+            if earlier is not None:
+                gated[f"gated_{name}{rname}_earlier"] = (
+                    lambda thr=thr, res=res: earlier.gated_tile_copy(next(cyc), thr, res),
+                    match, res)
+    samples = {k: [] for k in gated}
+    for order in (list(gated), list(gated)[::-1]):
+        for name in order:
+            samples[name] += device_samples(gated[name][0], 30, gated[name][1])
+    for name, ms in samples.items():
+        t[name] = {"device_ms": statistics.median(ms), "calls": len(ms)}
     torch.cuda.synchronize()
     launches = dict(rp.launches, refine_gather=prr.launches["gather"],
                     refine_interp=prr.launches["interp"])
@@ -833,6 +944,19 @@ def refine_profile(prr, rp, gen, head, dev, earlier):
     }
     t["bounds_ms"] = {k: v[0] for k, v in b.items()}
     t["bound_by"] = {k: v[1] for k, v in b.items()}
+    # each gated copy: ms, the parent's, the bound and its share, the grid
+    summary = {}
+    for key, (_, _, res) in gated.items():
+        if key.endswith("_earlier"):  # the parent's: beside this kernel's entry
+            continue
+        info = rp.gated_launch_info(dev, *x.shape, res)
+        parent = t.get(key + "_earlier", {}).get("device_ms")
+        summary[key] = {"ms": t[key]["device_ms"], "earlier_ms": parent,
+                        "bound_ms": b["gated"][0],
+                        "share_of_bound": b["gated"][0] / t[key]["device_ms"],
+                        "earlier_share_of_bound": b["gated"][0] / parent if parent else None,
+                        "grid": info["grid"], "blocks_per_sm": info["blocks_per_sm"]}
+    print("refine profile: gated copies " + json.dumps(summary), flush=True)
     # the MLP's rate at all-refine: its FLOPs over the refine pass less the
     # interpolation cut (both after the same select pass)
     mlp_ms = t["full_refine"]["refine_ms"] - t["interp_refine"]["device_ms"]
@@ -856,7 +980,8 @@ def refine_profile(prr, rp, gen, head, dev, earlier):
              plain_ms=t["gated_plain"]["device_ms"], bound_ms=b["gated"][0],
              bound_by=b["gated"][1], library_ms=None,
              earlier_ms=t["gated_refine_earlier"]["device_ms"] if earlier is not None else None,
-             per="(8, 512, 512) bf16, every tile gated, no reservation"),
+             per=f"(8, 512, 512) bf16, every tile gated, no reservation, "
+                 f"{rp.GATED_TILES} tiles a group, median of {t['gated_refine']['calls']} calls"),
         dict(name="refine_gather", route="cuda", source=cut_src,
              replaces="benchmarks/profile_refine_parts.py:36", launches=launches["refine_gather"],
              max_abs_err=errs["refine_gather"], ms=t["gather_refine"]["device_ms"],

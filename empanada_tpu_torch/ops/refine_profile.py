@@ -8,7 +8,8 @@ with its plain PyTorch version:
   version ``x.clone()``;
 - ``gated_tile_copy``: per tile, 2 * s where any |s| <= thr[n], else s
   (``k_when``; with ``reserve`` the refine kernel's dynamic shared memory
-  is reserved, unused: ``k_when_scratch`` and ``k_full_skip``);
+  is reserved, unused: ``k_when_scratch`` and ``k_full_skip``), on a
+  persistent grid whose rule ``gated_plan`` states;
 - ``refine_gather`` / ``refine_interp``: the refine kernel cut after the
   selected points' feature-tap loads and after the bilinear interpolation
   (``profile_refine_parts.py`` modes ``dma`` and ``interp``); at each
@@ -39,6 +40,10 @@ __all__ = [
     "tile_copy_reference",
     "gated_tile_copy",
     "gated_tile_copy_reference",
+    "gated_plan",
+    "gated_launch_info",
+    "tile_origin",
+    "GATED_TILES",
     "refine_gather",
     "refine_interp",
     "refine_phase_reference",
@@ -46,6 +51,7 @@ __all__ = [
 ]
 
 launches = {"tile_copy": 0, "gated_tile_copy": 0}
+GATED_TILES = 4  # tiles of a gated copy group (csrc/refine_profile.cu kGatedTiles)
 
 
 def tile_copy_reference(x: torch.Tensor) -> torch.Tensor:
@@ -62,6 +68,33 @@ def gated_tile_copy_reference(x: torch.Tensor, thr: torch.Tensor) -> torch.Tenso
     gate = tiles.amax(dim=(2, 4)) > 0
     gate = gate.repeat_interleave(TILE_H, 1).repeat_interleave(TILE_W, 2)[:, :h, :w]
     return torch.where(gate, x * 2, x)
+
+
+def tile_origin(q: int, h: int, w: int):
+    """(image, first row, first column) of flat tile ``q`` of (N, h, w):
+    tiles numbered over (image, tile row, tile column), columns fastest."""
+    nty, ntx = -(-h // TILE_H), -(-w // TILE_W)
+    image, rem = divmod(q, nty * ntx)
+    ty, tx = divmod(rem, ntx)
+    return image, ty * TILE_H, tx * TILE_W
+
+
+def gated_plan(n: int, h: int, w: int, blocks_per_sm: int, sms: int):
+    """The gated copy's persistent grid, the rule of its launcher: the tiles
+    (``tile_origin``'s numbering) cut into groups of ``GATED_TILES``
+    consecutive tiles, min(groups, ``blocks_per_sm`` x ``sms``) blocks,
+    block b taking groups b, b + grid, ...  Returns (grid, the flat tiles
+    of each block)."""
+    if blocks_per_sm <= 0 or sms <= 0:
+        raise ValueError(f"gated_plan: no block fits (blocks_per_sm={blocks_per_sm}, "
+                         f"sms={sms})")
+    k = GATED_TILES
+    tiles = n * -(-h // TILE_H) * -(-w // TILE_W)
+    groups = -(-tiles // k)
+    grid = min(groups, blocks_per_sm * sms)
+    blocks = [[q for g in range(b, groups, grid) for q in range(g * k, min((g + 1) * k, tiles))]
+              for b in range(grid)]
+    return grid, blocks
 
 
 def _top_left_taps(features, b, r, c, h2, w2):
@@ -104,10 +137,15 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: expected contiguous tensors on {dev}")
 
 
-def _launch(name: str, *args) -> None:
+def _lib():
     from empanada_tpu_torch.ops import _build
 
-    fn = getattr(_build.load("refine_profile"), f"{name}_launch")
+    return _build.load("refine_profile")
+
+
+def _launch(name: str, *args) -> None:
+    """Call the C entry ``<name>_launch`` and count one launch of ``name``."""
+    fn = getattr(_lib(), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p if isinstance(a, ctypes.c_void_p) else ctypes.c_int
                    for a in args]
@@ -115,6 +153,32 @@ def _launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
+
+
+def _reserve(reserve):
+    fdim, dfc = reserve if reserve is not None else (0, 0)
+    return int(fdim), int(dfc)
+
+
+def gated_launch_info(device, n: int, h: int, w: int, reserve=None) -> dict:
+    """What the gated copy's launcher picks for a contiguous (n, h, w) bf16
+    input on the CUDA ``device`` at ``reserve``: its grid, the blocks of
+    the kernel it launches that fit on one SM (read once per device,
+    kernel and reservation, and cached) and the card's SMs, for holding
+    against ``gated_plan``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("gated_tile_copy kernel: no CUDA device is available")
+    fn = _lib().gated_tile_copy_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = fn(n, h, w, *_reserve(reserve), ctypes.byref(grid), ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"gated_tile_copy plan failed: CUDA error {err}")
+    return {"grid": grid.value, "blocks_per_sm": per_sm.value,
+            "sms": torch.cuda.get_device_properties(device).multi_processor_count}
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -155,10 +219,9 @@ def gated_tile_copy(x: torch.Tensor, thr: torch.Tensor, reserve=None) -> torch.T
     n, h, w = x.shape
     if x.dtype != torch.bfloat16 or thr.dtype != torch.float32 or thr.shape != (n,):
         raise ValueError("gated_tile_copy: expected (N, H, W) bf16 and (N,) float32")
-    fdim, dfc = reserve if reserve is not None else (0, 0)
     out = torch.empty_like(x)
-    _launch("gated_tile_copy", _ptr(x), _ptr(thr), _ptr(out), n, h, w, int(fdim),
-            int(dfc), _stream(x))
+    _launch("gated_tile_copy", _ptr(x), _ptr(thr), _ptr(out), n, h, w, *_reserve(reserve),
+            _stream(x))
     return out
 
 

@@ -6,7 +6,10 @@ here, the port's tiling), and the refine cuts against the port's
 ``sample_points`` (held to JAX by tests/test_torch_refine.py) and a numpy
 top-left tap.  The CUDA kernels themselves run only on the card
 (chip_smoke.py phase "refine profile"); here the wrappers must take the
-plain version on CPU tensors and refuse to fall back otherwise."""
+plain version on CPU tensors and refuse to fall back otherwise.  The gated
+copy's persistent grid is planned in Python (``gated_plan``, the rule its
+launcher follows): the plan must cover every tile exactly once and,
+walked as the kernel walks it, give ``gated_tile_copy_reference``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,12 +41,13 @@ def _jnp_k_when(s, thr, th=16, tw=128):
     return jnp.stack(out)
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 256), (3, 40, 300)], ids=["tiles", "ragged"])
+@pytest.mark.parametrize("shape", [(2, 32, 256), (3, 40, 300), (2, 1, 300), (2, 40, 1)],
+                         ids=["tiles", "ragged", "one-row", "one-column"])
 def test_copy_and_gated_copy(shape):
     rng = np.random.default_rng(0)
     s = rng.normal(0, 1, shape).astype(np.float32)
     s[0] += 3.0 * np.sign(s[0])  # image 0: |s| >= 3 except where the gate fires
-    s[0, 20, 200 % shape[2]] = 0.01
+    s[0, 20 % shape[1], 200 % shape[2]] = 0.01
     x = _bf16(s)
     np.testing.assert_array_equal(rp.tile_copy(x).float().numpy(), x.float().numpy())
     thr = np.array([0.5] * shape[0], np.float32)
@@ -54,6 +58,76 @@ def test_copy_and_gated_copy(shape):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
     assert (got[0] != x[0]).any() and (got[0] == x[0]).any()  # some tiles gate, some not
     assert torch.equal(got[-1], x[-1])
+
+
+# (blocks a SM, SMs): H100 with the refine kernel's reservation, H100
+# without it, and a grid of fewer blocks than tile groups
+OCCUPANCY = {"reserved": (2, 132), "unreserved": (8, 132), "short-grid": (1, 2)}
+PLAN_SHAPES = {"mitonet": (512, 512), "ragged": (40, 300), "ragged-odd": (33, 701),
+               "one-row": (1, 129), "one-column": (300, 1)}
+
+
+@pytest.mark.parametrize("occupancy", list(OCCUPANCY), ids=list(OCCUPANCY))
+@pytest.mark.parametrize("hw", list(PLAN_SHAPES.values()), ids=list(PLAN_SHAPES))
+@pytest.mark.parametrize("n", [1, 8])
+def test_gated_plan_covers_every_tile_once(n, hw, occupancy):
+    h, w = hw
+    per_sm, sms = OCCUPANCY[occupancy]
+    grid, blocks = rp.gated_plan(n, h, w, per_sm, sms)
+    k = rp.GATED_TILES
+    tiles = n * -(-h // 16) * -(-w // 128)
+    groups = -(-tiles // k)
+    assert grid == len(blocks) == min(groups, per_sm * sms)
+    assert sorted(q for b in blocks for q in b) == list(range(tiles))
+    # every pixel of every image lies in exactly one tile of the plan
+    seen = np.zeros((n, h, w), np.int32)
+    for q in (q for b in blocks for q in b):
+        image, r0, c0 = rp.tile_origin(q, h, w)
+        assert 0 <= image < n and 0 <= r0 < h and 0 <= c0 < w
+        seen[image, r0:r0 + 16, c0:c0 + 128] += 1
+    assert (seen == 1).all()
+    # block b takes groups b, b + grid, ... of k consecutive tiles: one
+    # group a block (one wave) when the groups fit on the card at once
+    for b, qs in enumerate(blocks):
+        assert qs == sorted(qs)
+        assert sorted({q // k for q in qs}) == list(range(b, groups, grid))
+    if groups <= per_sm * sms:
+        assert all(len(qs) <= k for qs in blocks)
+    if occupancy == "short-grid" and groups > 2:
+        assert grid < groups
+
+
+@pytest.mark.parametrize("sms", [1, 2, 3, 7])
+def test_gated_plan_walk_is_the_gated_copy(sms):
+    """The kernel's walk, in numpy: each block takes its groups in turn,
+    gates each tile of a group on its image's threshold and doubles it."""
+    rng = np.random.default_rng(sms)
+    n, h, w = 3, 40, 300  # 27 tiles, 7 groups of 4
+    s = rng.normal(0, 1, (n, h, w)).astype(np.float32)
+    s[0] += 3.0 * np.sign(s[0])
+    s[0, 33, 290] = 0.01
+    thr = np.array([0.5, 0.05, -1.0], np.float32)
+    x = _bf16(s)
+    want = rp.gated_tile_copy_reference(x, torch.from_numpy(thr)).float().numpy()
+    got = x.float().numpy().copy()
+    grid, blocks = rp.gated_plan(n, h, w, 1, sms)
+    assert grid == sms
+    if sms < 7:  # blocks walk several groups
+        assert max(len(b) for b in blocks) > rp.GATED_TILES
+    for qs in blocks:
+        for q in qs:
+            image, r0, c0 = rp.tile_origin(q, h, w)
+            tile = got[image, r0:r0 + 16, c0:c0 + 128]
+            if (np.abs(tile) <= thr[image]).any():
+                tile *= 2
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gated_plan_refuses_no_room():
+    with pytest.raises(ValueError, match="no block fits"):
+        rp.gated_plan(8, 512, 512, 0, 132)
+    with pytest.raises(ValueError, match="no block fits"):
+        rp.gated_plan(8, 512, 512, 2, 0)
 
 
 def _step(seed, n=2, hc=12, wc=20, fdim=32, sf=2):
