@@ -15,8 +15,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 2. build: compiles the three CUDA sources (csrc/pointrend_refine.cu,
    csrc/refine_profile.cu and csrc/int8_conv.cu, one nvcc each, started
    together), then the host
-   C++ library (csrc/core_kernels.cpp), and prints the build seconds and
-   ptxas' resource reports;
+   C++ library (csrc/core_kernels.cpp and csrc/image_codecs.cpp), and
+   prints the build seconds and ptxas' resource reports;
 3. kernel vs plain: the refine kernel against its plain PyTorch version on
    the card at MitoNet_v1's shapes (N = 1, 8 and 32, steps sf = 2 and 4,
    F = 256, K = 8192, bf16) and at a ragged geometry, each at the real
@@ -233,7 +233,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     line; value and mfu beside phase 16's float ones); the napari 2D widget
     (magicgui stubbed by a pass-through) on a seeded int8 model registered
     in a registry of its own, its map equal to ``Engine2d``'s; ``int8:``
-    line; at most 90 s.
+    line; at most 90 s;
+18. inputs: a seeded EM-like uint16 volume of 32 x 1024 x 1024 written,
+    with the tests' TIFF writer (``tests/_tiff_writer.py``: zlib for
+    Deflate, its own LZW and PackBits encoders; a pool of processes), as
+    a multipage BigTIFF
+    (Deflate, predictor 2, 256 x 256 tiles), and its first 8 slices as
+    LZW, PackBits and uncompressed stripped TIFFs; each read back by
+    ``data.imread.imread`` bit for bit (decode MB/s, the faster of two
+    reads); ``python -m empanada_tpu_torch infer3d`` of the BigTIFF at
+    ``--downsampling 2`` with phase 5's model as a bundle, in a subprocess
+    on the card (its module run through runpy, as ``-m`` runs it, printing
+    its refine launches), its class TIFF equal to ``api.Engine3d`` at
+    scale 2 + ``stack_postprocessing`` in this process on the numpy
+    volume, 3 refine launches a slice in both (slices/s); ``host_prep`` ms
+    a slice (the scale-2 downsample and normalisation) of the uint16
+    volume beside its uint8 slices (the high bytes); a 1024 x 1024 uint16
+    request at scale 2 through ``api.Engine2d`` beside the uint8 one in 8
+    alternating turns (3 launches each, median ms); ``inputs:`` line; at
+    most 90 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -3724,6 +3742,166 @@ def int8_phase(prr, api, cfg, model, card, bench_float, earlier=None):
     return rec, launches, refine_launches, entry
 
 
+# phase 18: the inputs the JAX package reads (uint16 at scale 2, compressed,
+# tiled and BigTIFF stacks); its limit, the volume's shape, the stripped
+# copies' depth, the rows of a strip and the side of a tile
+INPUTS_LIMIT_S = 90
+INPUT_SHAPE, INPUT_COPY_DEPTH, INPUT_RPS, INPUT_TILE = (32, 1024, 1024), 8, 64, 256
+
+
+def input_volume(shape, seed):
+    """Seeded EM-like uint16 volume, made in bulk: dark blobs (a coarse
+    random field, smoothed by repetition) on a bright background with
+    Gaussian noise, over most of the 16-bit range."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z, h, w = shape
+    coarse = rng.random((z, h // 32 + 1, w // 32 + 1))
+    field = np.repeat(np.repeat(coarse, 32, axis=1), 32, axis=2)[:, :h, :w]
+    blobs = np.where(field < 0.25, 0.45, 1.0)
+    vol = 9000 + 48000 * blobs * (0.8 + 0.2 * field) + rng.normal(0, 700, shape)
+    return np.clip(vol, 0, 65535).astype(np.uint16)
+
+
+def inputs_phase(prr, api, cfg, model, card):
+    """Phase 18 (module docstring).  Returns (the ``inputs:`` record, refine
+    launches per path)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch.data.imread import imread
+    from empanada_tpu_torch.data.volume import resize_by_factor
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))  # the pool's processes inherit it
+    from _tiff_writer import tiff_bytes
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    wd = tempfile.mkdtemp(prefix="inputs-", dir=os.path.join(HERE, "empanada_tpu_torch",
+                                                             "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        vol = input_volume(INPUT_SHAPE, 180)
+        copy = vol[:INPUT_COPY_DEPTH]
+        # (a) the files, each strip or tile encoded in a pool of processes
+        files = {"deflate": ("vol.tif", dict(compression=8, predictor=2, big=True,
+                                             tile=(INPUT_TILE, INPUT_TILE)), vol),
+                 "lzw": ("lzw.tif", dict(compression=5, rows_per_strip=INPUT_RPS), copy),
+                 "packbits": ("pb.tif", dict(compression=32773, rows_per_strip=INPUT_RPS),
+                              copy),
+                 "uncompressed": ("raw.tif", dict(rows_per_strip=INPUT_RPS), copy)}
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+            for codec, (name, kw, pages) in files.items():
+                with open(path(name), "wb") as f:
+                    f.write(tiff_bytes(list(pages), map_fn=pool.map, **kw))
+        rec["write_s"] = time.perf_counter() - t0
+        # (b) each read back bit for bit, the faster of two reads timed
+        rec["decode_MB_per_s"], rec["file_MB"] = {}, {}
+        for codec, (name, _, pages) in files.items():
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = imread(path(name))
+                best = min(best, time.perf_counter() - t0)
+                check(got.dtype == np.uint16 and np.array_equal(got, pages),
+                      f"inputs: the {codec} copy does not read back bit for bit")
+            rec["decode_MB_per_s"][codec] = pages.nbytes / best / 1e6
+            rec["file_MB"][codec] = os.path.getsize(path(name)) / 1e6
+        del got
+
+        # (c) the command line in a subprocess on the card: infer3d of the
+        # BigTIFF at --downsampling 2, with phase 5's model as a bundle; run
+        # through runpy as ``python -m`` runs it, printing its refine
+        # launches at exit
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+        counted_cli = ("import runpy, sys\n"
+                       "from empanada_tpu_torch.ops import pointrend_refine as prr\n"
+                       "sys.argv[0] = 'empanada_tpu_torch'\n"
+                       "try:\n"
+                       "    runpy.run_module('empanada_tpu_torch', run_name='__main__',"
+                       " alter_sys=True)\n"
+                       "finally:\n"
+                       "    print('refine launches:', prr.launches['full'], flush=True)\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", counted_cli, "infer3d", path("vol.tif"), "--downsampling",
+             "2", "--model", path("MitoNet_v1.yaml"), "-o", path("seg_{class}.tif")],
+            cwd=HERE, capture_output=True, text=True, timeout=120)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"inputs: python -m empanada_tpu_torch infer3d: "
+              f"{proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        n_cli = int(lines[-1].split(":")[1])
+
+        # (d) the same sweep in this process on the numpy volume
+        z = vol.shape[0]
+        kw3 = dict(label_divisor=10000, median_kernel_size=3, nms_threshold=0.1, nms_kernel=3,
+                   confidence_thr=0.3, min_size=500, min_extent=5)
+        e3 = api.Engine3d(cfg, model=model, inference_scale=2, **kw3)
+        (_, trackers), n_3d, sweep_s = counted(prr, lambda: e3.infer_on_axis(vol, "xy"))
+        outs = list(api.stack_postprocessing({"xy": trackers}, None, cfg, label_divisor=10000,
+                                             min_size=500, min_extent=5))
+        got = imread(path("seg_mito.tif"))
+        same = bool(np.array_equal(got, outs[0][0]))
+        check(n_3d == 3 * z and n_cli == 3 * z and same
+              and lines[0] == f"class mito: {len(outs[0][2])} instances",
+              f"inputs: infer3d --downsampling 2: {n_cli} launches in the command line, "
+              f"{n_3d} in this process for {z} slices, stacks equal {same}, {lines[:1]}")
+        launches["inputs_infer3d_cli"], launches["inputs_engine3d"] = n_cli, n_3d
+        rec["infer3d_scale2"] = {"cli_wall_s": cli_s, "engine_s": sweep_s,
+                                 "slices_per_s": z / sweep_s, "refine_launches": n_3d,
+                                 "cli_refine_launches": n_cli, "slices": z,
+                                 "instances": len(outs[0][2]), "equal": True}
+
+        # (e) host_prep: the scale-2 downsample and normalisation a slice,
+        # uint16 beside the uint8 slices of the same volume
+        prep = api.Preprocessor(**cfg["norms"])
+        vol8 = (vol >> 8).astype(np.uint8)
+        rec["host_prep_ms"] = {}
+        for key, v in (("uint16", vol), ("uint8", vol8)):
+            prep(resize_by_factor(v[0], 2))
+            t0 = time.perf_counter()
+            for sl in v:
+                prep(resize_by_factor(sl, 2))
+            rec["host_prep_ms"][key] = (time.perf_counter() - t0) / len(v) * 1e3
+
+        # (f) a 1024 x 1024 request at scale 2 through Engine2d, uint16
+        # beside uint8 in 8 alternating turns (3 launches each; medians)
+        e2 = api.Engine2d(cfg, model=model, inference_scale=2, label_divisor=10000)
+        imgs = {"uint16": vol[0], "uint8": vol8[0]}
+        times = {key: [] for key in imgs}
+        for img in imgs.values():
+            e2.infer(img)
+        for turn in range(8):
+            for key in (list(imgs) if turn % 2 == 0 else list(imgs)[::-1]):
+                _, n, secs = counted(prr, lambda: e2.infer(imgs[key]))
+                check(n == 3, f"inputs: {n} refine launches for a {key} request at scale 2")
+                times[key].append(secs * 1e3)
+                launches[f"inputs_engine2d_{key}"] = launches.get(f"inputs_engine2d_{key}", 0) + n
+        rec["engine2d_scale2_ms"] = {key: float(np.median(t)) for key, t in times.items()}
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("inputs: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= INPUTS_LIMIT_S,
+          f"phase 18 took {rec['phase_s']:.1f} s, over its {INPUTS_LIMIT_S} s")
+    return rec, launches
+
+
 def _traced(trace, tmp, served, img) -> int:
     """Events of the refine kernel in the Chrome trace of one request."""
     import torch
@@ -4110,6 +4288,13 @@ def main():
                                                earlier)
     print(f"phase 17 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 18. inputs: a uint16 BigTIFF (and LZW, PackBits, uncompressed
+    # copies) read back, infer3d --downsampling 2 in a subprocess against
+    # Engine3d, uint16 beside uint8 at scale 2
+    t0 = time.perf_counter()
+    _, launches_18 = inputs_phase(prr, api, cfg, model, card)
+    print(f"phase 18 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -4120,7 +4305,8 @@ def main():
                      + sum(launches_2d.values()) + sum(launches_3d_api.values())
                      + sum(launches_12.values()) + sum(launches_13.values())
                      + sum(launches_14.values()) + sum(launches_15.values())
-                     + sum(launches_16.values()) + sum(launches_17.values())),
+                     + sum(launches_16.values()) + sum(launches_17.values())
+                     + sum(launches_18.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -4128,7 +4314,7 @@ def main():
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
-                             **launches_17},
+                             **launches_17, **launches_18},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

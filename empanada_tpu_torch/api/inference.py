@@ -186,7 +186,7 @@ class Engine2d:
     tiles (overlap ``min(128, tile_size // 10)``) whose instances are merged
     across tiles; otherwise thing instances are split into their connected
     components (``force_connected``).  ``inference_scale`` s downsamples the
-    image (uint8) by s and renders ``2 + log2(s)`` PointRend steps back to
+    image (any dtype cv2 resizes) by s and renders ``2 + log2(s)`` PointRend steps back to
     full resolution.  ``shape_buckets`` pads each image (or tile) to the
     next size of the ladder (``ops.postprocess.bucket_dim``) instead of
     the next multiple of the padding factor, as JAX's engine does to bound

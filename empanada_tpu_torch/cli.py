@@ -19,9 +19,12 @@ Usage: ``python -m empanada_tpu_torch <command> ...``.  The commands that
 run a model take ``--device`` (default ``cuda``; ``--device cpu`` runs on
 the CPU, as the tests do).  On the card the models run in bfloat16, the
 dtype the PointRend refine kernel takes; on the CPU in float32, as the JAX
-package's command line runs.  Images are read and written as ``.npy``,
-PNG or uncompressed TIFF (``data/imread.py``, ``data/imwrite.py``), and
-volumes also from chunked stores.  ``models export --quantize`` and
+package's command line runs.  Images are read as ``.npy``, PNG (every
+colour type and depth, interlaced or not) or TIFF (classic and BigTIFF,
+strips or tiles, uncompressed, LZW, Deflate or PackBits; ``data/imread.py``),
+written as ``.npy``, PNG or uncompressed TIFF (``data/imwrite.py``), and
+volumes are also read from chunked stores; ``--downsampling`` takes every
+dtype the JAX package's cv2 resizes.  ``models export --quantize`` and
 ``port --quantize`` write int8 bundles; ``models deploy`` exports a
 serving artifact (``--platforms cuda`` or ``cpu``; ``api/deploy.py``) and
 ``serve`` runs one; ``bench`` forwards everything after it to the port's

@@ -2,11 +2,12 @@
 ``empanada_tpu/core/native.py``).
 
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
-kernels), compiled at first use with the host C++ compiler into
-``empanada_tpu_torch/build/`` and named by a hash of the source.  A failed
+kernels) and ``csrc/image_codecs.cpp`` (the TIFF LZW and PackBits decoders
+of ``data/imread.py``), compiled at first use with the host C++ compiler
+into ``empanada_tpu_torch/build/`` and named by a hash of the sources.  A failed
 build or load raises: nothing falls back silently.  The numpy formulations
 in the calling modules run only when ``use_native`` is set to False (the
-tests hold both paths to the JAX package).
+tests hold both paths to the JAX package); the decoders have none.
 
 Every array handed to C is a named int64 (or the stated dtype) C-contiguous
 local that lives until the call returns; no pointer is taken from a
@@ -44,13 +45,15 @@ __all__ = [
     "vote_sorted_sets",
     "mask_watershed",
     "gray_watershed",
+    "lzw_decode",
+    "packbits_decode",
 ]
 
 # False routes every caller to its numpy formulation
 use_native = True
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "core_kernels.cpp")
+_SRCS = [os.path.join(_PKG, "csrc", name) for name in ("core_kernels.cpp", "image_codecs.cpp")]
 _BUILD = os.path.join(_PKG, "build")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared"]
 
@@ -59,21 +62,23 @@ _lock = threading.Lock()
 
 
 def _compile() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    so = os.path.join(_BUILD, f"libempanada_core-{digest}.so")
+    digest = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    so = os.path.join(_BUILD, f"libempanada_core-{digest.hexdigest()[:12]}.so")
     if os.path.isfile(so):
         return so
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler (g++/c++) to build "
-                           f"{_SRC}; set use_native = False for the numpy path")
+                           f"{', '.join(_SRCS)}; set use_native = False for the numpy path")
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, _SRC],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *_SRCS],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"building {_SRC} failed:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"building {', '.join(_SRCS)} failed:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, so)
     return so
 
@@ -136,6 +141,9 @@ def load() -> ctypes.CDLL:
         lib.mask_watershed.restype = None
         lib.gray_watershed.argtypes = [vp, vp, i64, vp, i64, vp, i64, vp]
         lib.gray_watershed.restype = None
+        for name in ("lzw_decode", "packbits_decode"):
+            getattr(lib, name).argtypes = [vp, i64, vp, i64]
+            getattr(lib, name).restype = i64
         _LIB = lib
         return lib
 
@@ -493,3 +501,24 @@ def vote_sorted_sets(list_of_ranges, vote_thr: int) -> np.ndarray:
     n_out = lib.vote_sorted_sets(_ptr(flat), _ptr(offsets), len(arrs), int(vote_thr),
                                  _ptr(out))
     return out[:n_out].copy()
+
+
+def _decode(name: str, data, size: int) -> tuple:
+    """(bytes decoded, count or -1) of one strip by the library's
+    ``name``, into a buffer of ``size`` bytes it never writes past."""
+    fn = getattr(load(), name)
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    return out, int(fn(_ptr(src), len(src), _ptr(out), size))
+
+
+def lzw_decode(data, size: int) -> tuple:
+    """TIFF LZW (compression 5) of one strip or tile: (buffer of ``size``
+    bytes, bytes written or -1 on a code the stream cannot hold)."""
+    return _decode("lzw_decode", data, size)
+
+
+def packbits_decode(data, size: int) -> tuple:
+    """PackBits (compression 32773) of one strip or tile, as
+    ``lzw_decode``."""
+    return _decode("packbits_decode", data, size)

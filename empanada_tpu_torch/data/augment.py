@@ -11,18 +11,22 @@ same parameters in both packages.
 
 The JAX package calls cv2; its arithmetic is reproduced here in numpy:
 
-- ``resize_linear`` (RandomScale's image): cv2 ``INTER_LINEAR``.  uint8
-  in cv2's fixed point (11-bit weights, ``data/volume.py``) at any output
-  size, bit for bit; other dtypes in cv2's float32 path (within one grey
-  level of cv2 for uint16, 1e-5 relative for float32);
+- ``resize_linear`` (RandomScale's image): cv2 ``INTER_LINEAR`` at any
+  output size, bit for bit for every dtype cv2 resizes (``data/volume.py``,
+  the one routine the volume downsample also runs);
 - ``resize_nearest`` (RandomScale's mask): cv2 ``INTER_NEAREST``, exact;
-- ``warp_affine`` (Rotate): the image as cv2's float32 ``warpAffine``
-  (coordinates and the two lerps as fused multiply-adds, the last columns
-  of a row past a multiple of 16 in cv2's scalar form), the int32 mask as
-  its ``INTER_NEAREST`` fixed point (``AB_BITS`` 10); border codes 0
+- ``warp_affine`` (Rotate): uint8, uint16 and float32 images as cv2's
+  float32 ``warpAffine`` (coordinates and the two lerps as fused
+  multiply-adds, the last columns of a row past a multiple of 16 in cv2's
+  scalar form), int16 images as its fixed-point remap (1/32-pixel
+  coordinates, float32 bilinear weights), the int32 mask as its
+  ``INTER_NEAREST`` fixed point (``AB_BITS`` 10); border codes 0
   (constant 0), 1 (replicate), 2 (reflect) and 4 (reflect 101);
-- ``gaussian_blur`` (GaussianBlur): cv2's bit-exact uint8 path (8-bit
-  fixed-point kernels of 3, 5 or 7 taps, reflect-101 border), exact.
+- ``gaussian_blur`` (GaussianBlur): cv2's 3-, 5- and 7-tap kernels with
+  reflect-101 borders, bit for bit: uint8 and uint16 in cv2's fixed point
+  (exact sums, rounded half up once), int16 and float32 in its float32
+  separable filter (the row pass, then the column pass, each as cv2's
+  vector code orders and fuses it; int16 rounded half to even).
 """
 
 from __future__ import annotations
@@ -32,36 +36,14 @@ from typing import Optional
 
 import numpy as np
 
-from empanada_tpu_torch.data.volume import factor_pad_numpy, linear_taps, resize_linear_u8
+from empanada_tpu_torch.data.volume import (factor_pad_numpy, fma32, resize_linear,
+                                             saturate_cast)
 
 __all__ = ["Compose", "create_augmentations", "AUGMENTATIONS", "resize_linear",
            "resize_nearest", "rotation_matrix", "warp_affine", "gaussian_blur"]
 
 
 # ----- cv2 arithmetic ------------------------------------------------------
-
-
-def resize_linear(image: np.ndarray, out_hw) -> np.ndarray:
-    """cv2.resize(image, (w, h), INTER_LINEAR) of an (H, W) image."""
-    if image.dtype == np.uint8:
-        return resize_linear_u8(image, out_hw)
-    # cv2's float path: float32 weights 1 - f and f, float32 sums
-    (h, w), (nh, nw) = image.shape, out_hw
-    x0, x1, fa0, fa1 = linear_taps(w, nw, clamp_fraction=True, float_weights=True)
-    y0, y1, fb0, fb1 = linear_taps(h, nh, clamp_fraction=False, float_weights=True)
-    src = image.astype(np.float32)
-    rows = src[:, x0] * fa0 + src[:, x1] * fa1
-    out = rows[y0] * fb0[:, None] + rows[y1] * fb1[:, None]
-    return _store(out, image.dtype)
-
-
-def _store(values: np.ndarray, dtype) -> np.ndarray:
-    """cv2's saturate_cast from float32: round half to even and clip for
-    integer types, as is for floats."""
-    if np.issubdtype(dtype, np.integer):
-        info = np.iinfo(dtype)
-        return np.clip(np.rint(values), info.min, info.max).astype(dtype)
-    return values.astype(dtype)
 
 
 def resize_nearest(mask: np.ndarray, out_hw) -> np.ndarray:
@@ -123,13 +105,18 @@ def _taps(image, iy, ix, mode, border_value):
     return v
 
 
-def _fma(a, b, c) -> np.ndarray:
-    """float32 fused multiply-add (the product is exact in float64)."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
-            + np.asarray(c, np.float64)).astype(np.float32)
-
-
 WARP_VECTOR = 16  # pixels of a row that cv2's vector loop takes at a time
+
+
+def _fixed_coords(mi: list, h: int, w: int, round_delta: int):
+    """warpAffine's fixed-point source coordinates (``AB_BITS`` 10) of every
+    output pixel, plus ``round_delta``, in units of 2^-10."""
+    ab = 1 << 10
+    x0 = np.rint([(mi[1] * y + mi[2]) * ab for y in range(h)]).astype(np.int64) + round_delta
+    y0 = np.rint([(mi[4] * y + mi[5]) * ab for y in range(h)]).astype(np.int64) + round_delta
+    adelta = np.rint([mi[0] * x * ab for x in range(w)]).astype(np.int64)
+    bdelta = np.rint([mi[3] * x * ab for x in range(w)]).astype(np.int64)
+    return x0[:, None] + adelta[None], y0[:, None] + bdelta[None]
 
 
 def warp_affine(image: np.ndarray, m: np.ndarray, nearest: bool = False,
@@ -139,19 +126,26 @@ def warp_affine(image: np.ndarray, m: np.ndarray, nearest: bool = False,
     h, w = image.shape
     mi = _invert_affine(m)
     if nearest:
-        ab = 1 << 10  # AB_BITS
-        x0 = np.rint([(mi[1] * y + mi[2]) * ab for y in range(h)]).astype(np.int64) + ab // 2
-        y0 = np.rint([(mi[4] * y + mi[5]) * ab for y in range(h)]).astype(np.int64) + ab // 2
-        adelta = np.rint([mi[0] * x * ab for x in range(w)]).astype(np.int64)
-        bdelta = np.rint([mi[3] * x * ab for x in range(w)]).astype(np.int64)
-        sx = (x0[:, None] + adelta[None]) >> 10
-        sy = (y0[:, None] + bdelta[None]) >> 10
+        sx, sy = (c >> 10 for c in _fixed_coords(mi, h, w, 1 << 9))
         y = _border(sy, h, border_mode)
         x = _border(sx, w, border_mode)
         ok = (y >= 0) & (x >= 0)
         out = np.full((h, w), border_value, dtype=image.dtype)
         out[ok] = image[y[ok], x[ok]]
         return out
+    if image.dtype == np.int16:
+        # cv2's remap of 16S: coordinates in 1/32 pixel (INTER_BITS 5), the
+        # float32 bilinear table, the four taps summed in order
+        cx, cy = (c >> 5 for c in _fixed_coords(mi, h, w, 1 << 4))
+        sx, sy = cx >> 5, cy >> 5
+        fx = (cx & 31).astype(np.float32) * np.float32(1 / 32)
+        fy = (cy & 31).astype(np.float32) * np.float32(1 / 32)
+        one = np.float32(1)
+        out = (_taps(image, sy, sx, border_mode, border_value) * ((one - fy) * (one - fx))
+               + _taps(image, sy, sx + 1, border_mode, border_value) * ((one - fy) * fx)
+               + _taps(image, sy + 1, sx, border_mode, border_value) * (fy * (one - fx))
+               + _taps(image, sy + 1, sx + 1, border_mode, border_value) * (fy * fx))
+        return saturate_cast(out, np.int16)
     m32 = np.asarray(mi, np.float64).astype(np.float32)
     ys = np.arange(h, dtype=np.float32)[:, None]
     xs = np.broadcast_to(np.arange(w, dtype=np.float32)[None], (h, w))
@@ -159,8 +153,8 @@ def warp_affine(image: np.ndarray, m: np.ndarray, nearest: bool = False,
     coords = []
     for c0, c1, c2 in ((m32[0], m32[1], m32[2]), (m32[3], m32[4], m32[5])):
         row = (ys * c1 + c2).astype(np.float32)  # per row, two roundings
-        s = _fma(c0, xs, np.broadcast_to(row, (h, w)))
-        tail = (_fma(xs[:, vec:], c0, np.broadcast_to((ys * c1).astype(np.float32),
+        s = fma32(c0, xs, np.broadcast_to(row, (h, w)))
+        tail = (fma32(xs[:, vec:], c0, np.broadcast_to((ys * c1).astype(np.float32),
                                                       (h, w - vec))) + c2)
         s[:, vec:] = tail.astype(np.float32)
         coords.append(s)
@@ -173,30 +167,111 @@ def warp_affine(image: np.ndarray, m: np.ndarray, nearest: bool = False,
     p01 = _taps(image, iy, ix + 1, border_mode, border_value)
     p10 = _taps(image, iy + 1, ix, border_mode, border_value)
     p11 = _taps(image, iy + 1, ix + 1, border_mode, border_value)
-    v0 = _fma(a, p01 - p00, p00)
-    v1 = _fma(a, p11 - p10, p10)
-    return _store(_fma(b, v1 - v0, v0), image.dtype)
+    v0 = fma32(a, p01 - p00, p00)
+    v1 = fma32(a, p11 - p10, p10)
+    return saturate_cast(fma32(b, v1 - v0, v0), image.dtype)
 
 
+# cv2's small Gaussian kernels (sigma 0) in units of 2^-8
 _SMALL_GAUSSIAN = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16),
                    7: (8, 28, 56, 72, 56, 28, 8)}
+BLUR_DTYPES = (np.uint8, np.uint16, np.int16, np.float32)
+
+
+def _vector_width(w: int) -> int:
+    """The pixels of a row of ``w`` that cv2's float32 filter loops take in
+    vectors: 16 at a time, then 8 once."""
+    vec = w // 16 * 16
+    return vec + 8 if w - vec >= 8 else vec
+
+
+def _blur_rows_f32(s: list, k: list, w: int) -> np.ndarray:
+    """cv2's float32 row pass over the shifted rows ``s`` (one a tap).  Its
+    vector loops (``_vector_width``) fuse the multiply-adds; of the pixels
+    past them the 5-tap filter takes pairs (fused) and a last single one
+    (not fused), the 7-tap filter fours (fused) and single ones (the sixth
+    tap fused, the others not)."""
+    n = len(s)
+    if n == 3:  # every product exact: the order is all there is
+        return s[1] * k[1] + (s[0] + s[2]) * k[0]
+    if n == 5:
+        def row(t, fused):
+            centre = (fma32(t[2], k[2], (t[1] + t[3]) * k[1]) if fused
+                      else t[2] * k[2] + (t[1] + t[3]) * k[1])
+            return centre + (t[0] + t[4]) * k[0]
+        step = 2
+    else:
+        def row(t, fused):
+            # cv2's single pixels fuse only the sixth tap
+            out = t[0] * k[0]
+            for i in range(1, n):
+                out = fma32(t[i], k[i], out) if fused or i == 5 else out + t[i] * k[i]
+            return out
+        step = 4
+    out = row(s, True)
+    vec = _vector_width(w)
+    plain = vec + (w - vec) // step * step
+    if plain < w:
+        out[:, plain:] = row([t[:, plain:] for t in s], False)
+    return out
+
+
+def _blur_columns(rows: np.ndarray, k: list, h: int, w: int) -> np.ndarray:
+    """cv2's symmetric float32 column pass: fused in its vector loops
+    (``_vector_width``), not fused past them."""
+    n = len(k)
+    r = n // 2
+    t = [rows[i:i + h] for i in range(n)]
+
+    def col(t, fused):
+        out = t[r] * k[r]
+        for j in range(1, r + 1):
+            out = (fma32(t[r + j] + t[r - j], k[r + j], out) if fused
+                   else out + (t[r + j] + t[r - j]) * k[r + j])
+        return out
+    out = col(t, True)
+    vec = _vector_width(w)
+    if vec < w:
+        out[:, vec:] = col([v[:, vec:] for v in t], False)
+    return out
 
 
 def gaussian_blur(image: np.ndarray, ksize: int) -> np.ndarray:
-    """cv2.GaussianBlur(image, (k, k), 0) of a uint8 (H, W) image, k in
-    {3, 5, 7}: cv2's bit-exact fixed point, kernels in units of 2^-8,
-    reflect-101 border, the two passes summed exactly and rounded once."""
-    if image.dtype != np.uint8 or ksize not in _SMALL_GAUSSIAN:
+    """cv2.GaussianBlur(image, (k, k), 0) of an (H, W) image, k in {3, 5,
+    7}, bit for bit (module docstring)."""
+    if image.dtype not in BLUR_DTYPES or ksize not in _SMALL_GAUSSIAN:
         raise NotImplementedError(
-            f"gaussian_blur of a {image.dtype} image at ksize {ksize}: only uint8 "
-            f"at {sorted(_SMALL_GAUSSIAN)} reproduces cv2 bit for bit")
-    kern = np.array(_SMALL_GAUSSIAN[ksize], np.int64)
+            f"gaussian_blur of a {image.dtype} image at ksize {ksize}: cv2's arithmetic is "
+            f"reproduced for {', '.join(np.dtype(d).name for d in BLUR_DTYPES)} at "
+            f"{sorted(_SMALL_GAUSSIAN)}")
+    kern = _SMALL_GAUSSIAN[ksize]
     r = ksize // 2
     h, w = image.shape
-    src = np.pad(image.astype(np.int64), r, mode="reflect")
+    ys = _border(np.arange(-r, h + r), h, 4)
+    xs = _border(np.arange(-r, w + r), w, 4)
+    k = [np.float32(v / 256) for v in kern]
+    if image.dtype == np.float32:
+        if h == 1 or w == 1:
+            # cv2 filters a line of pixels along its length only
+            if w > 1:
+                src = image[:, xs]
+                return _blur_rows_f32([src[:, i:i + w] for i in range(ksize)], k, w)
+            return _blur_columns(image[ys], k, h, 1) if h > 1 else image.copy()
+        src = image[ys][:, xs]
+        rows = _blur_rows_f32([src[:, i:i + w] for i in range(ksize)], k, w)
+        if ksize == 3:  # cv2's 3-tap column filter: every product exact
+            return (rows[:-2] + rows[2:]) * k[0] + rows[1:-1] * k[1]
+        return _blur_columns(rows, k, h, w)
+    src = image.astype(np.int64)[ys][:, xs]
     rows = sum(kern[i] * src[:, i:i + w] for i in range(ksize))
+    if image.dtype == np.int16:
+        # cv2 filters int16 in float32; its row sums are exact
+        out = _blur_columns((rows / 256.0).astype(np.float32), k, h, w)
+        return np.clip(np.rint(out), -32768, 32767).astype(np.int16)
+    # uint8, uint16: cv2's fixed point, the exact sum in units of 2^-16
+    # rounded half up
     out = sum(kern[i] * rows[i:i + h] for i in range(ksize))
-    return ((out + (1 << 15)) >> 16).astype(np.uint8)
+    return ((out + (1 << 15)) >> 16).astype(image.dtype)
 
 
 # ----- transforms ----------------------------------------------------------

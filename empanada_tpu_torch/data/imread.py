@@ -1,51 +1,159 @@
 """Image reading without cv2 or PIL: the PNG and TIFF files that training
-folders and the command line hold, decoded with numpy and zlib.
+folders, curation and the command line hold, decoded with numpy, zlib and
+the port's host library (``csrc/image_codecs.cpp``: LZW and PackBits).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
-(Z, H, W).
+(Z, H, W).  ``imread_gray(path)`` returns what the JAX package's
+``_imread_gray`` returns (``cv2.imread(path, IMREAD_UNCHANGED)``, then
+channel 0 of a colour image).  cv2 orders colour channels BGR, so channel
+0 is blue: the last colour channel of the file's RGB.
 
-``imread_gray(path)`` returns what the JAX package's ``_imread_gray``
-returns (``cv2.imread(path, IMREAD_UNCHANGED)``, then channel 0 of a
-colour image):
+PNG: grey at 1, 2, 4, 8 and 16 bits, grey + alpha, RGB and RGBA at 8 and
+16 bits, palette at 1, 2, 4 and 8 bits; any of the five row filters;
+Adam7-interlaced or not; animated PNG frames (offsets, dispose ops, blend
+OVER only without alpha, where it equals SOURCE), of which
+``imread_gray`` reads the default image alone, as cv2 does.  Both scale 2- and 4-bit
+grey to 8 bits; PIL gives 1-bit grey as bool, palette images as indices,
+16-bit colour as the high byte of each sample and 16-bit grey + alpha as
+RGBA; cv2 scales 1-bit grey to 8 bits too, looks palette indices up and
+keeps 16 bits.
 
-- PNG: 8- and 16-bit grey, 8-bit RGB and RGBA, not interlaced, with any
-  of the five row filters.  cv2 orders colour channels BGR, so channel 0
-  is blue: the LAST colour channel of the file's RGB;
-- TIFF: uncompressed, in strips, one plane (PIL's writer): uint8, uint16,
-  int32 or float32 samples, one sample a pixel or RGB (blue again; cv2
-  premultiplies an RGBA TIFF by its alpha, which is not reproduced).
+TIFF: classic and BigTIFF, either byte order; strips or tiles (cut at the
+image's edge); uncompressed, LZW (5), Deflate (8, 32946) or PackBits
+(32773); horizontal differencing (predictor 2, with LZW or Deflate, as
+libtiff applies it); one plane of uint8,
+uint16, int16, int32 or float32 samples: one a pixel (photometric
+min-is-black, or a palette: PIL gives the indices, cv2 the colormap's
+blue scaled to 8 bits), or RGB or RGBA (photometric RGB, 3 or 4).  PIL
+gives int16 grey as int32 (its mode I), keeps the high byte of 16-bit
+colour, opens no colour of other samples than uint8 and uint16 (then
+``imread`` raises; cv2 reads them), and of a fourth sample drops one of
+ExtraSamples 0 (RGBX) and divides one of 1 (associated alpha) out; cv2
+keeps every sample as the file holds it, except that it premultiplies an
+8-bit RGBA TIFF of unassociated alpha (ExtraSamples 2) by its alpha
+(libtiff's ``(v a + 127) / 255``).  ``imread_gray`` reads the first page
+alone, as cv2 does.  Where PIL 12 misreads a file (a big-endian BigTIFF,
+which it does not open; big-endian compressed 16- and 32-bit signed or
+float samples, whose bytes it does not swap) ``imread`` gives the values
+the file holds, as cv2 does.
 
-Anything else raises and names the format.
+Anything else (JPEG, TIFF predictor 3, planes apart, another photometric
+interpretation or sample count: min-is-white, CMYK, YCbCr; an APNG frame
+blended OVER with alpha) raises and names the format; a damaged strip
+raises and names the file, the page and the strip.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
 import numpy as np
 
+from empanada_tpu_torch.core import native
+
 __all__ = ["imread", "imread_gray", "png_frames", "read_png", "read_tiff", "tiff_pages"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# TIFF magic -> (byte order, BigTIFF)
+_TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
+               b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
+_READS = "the port reads PNG and TIFF (module docstring of data/imread.py)"
 
 
-def imread_gray(path: str) -> np.ndarray:
-    """The (H, W) image at ``path`` (PNG or TIFF, module docstring)."""
+class _Raw:
+    """One decoded image as the file holds it: ``pixels`` (H, W) or (H, W,
+    C) samples (1-, 2- and 4-bit ones unpacked to their levels), ``kind``
+    grey, grey_alpha, rgb, rgba or palette, the sample ``depth`` in bits,
+    the ``palette`` (N, 3) of a palette image, the ExtraSamples value of a
+    TIFF's fourth sample (``extra``; None without the tag) and ``where``
+    it was read, for errors."""
+
+    def __init__(self, pixels, kind, depth, where, palette=None, extra=None):
+        self.pixels, self.kind, self.depth, self.where = pixels, kind, depth, where
+        self.palette, self.extra = palette, extra
+
+    def as_pil(self) -> np.ndarray:
+        px = self.pixels
+        if self.kind == "grey" and self.depth < 8:
+            return px.astype(bool) if self.depth == 1 else self._grey8()
+        if self.kind in ("grey", "palette"):
+            return px.astype(np.int32) if px.dtype == np.int16 else px  # PIL's mode I
+        if px.dtype not in (np.uint8, np.uint16):
+            raise ValueError(f"{self.where}: {self.kind.upper()} of {px.dtype} samples, "
+                             f"which PIL does not open; {_READS}")
+        if self.depth == 16:
+            px = (px >> 8).astype(np.uint8)  # PIL keeps 8 bits of colour
+            if self.kind == "grey_alpha":  # as RGBA
+                return px[..., [0, 0, 0, 1]]
+        if self.extra == 0:  # RGBX: PIL drops the fourth sample
+            return px[..., :3]
+        if self.extra == 1:  # associated alpha: PIL divides it out
+            a = px[..., 3:].astype(np.uint32)
+            rgb = np.minimum(255, px[..., :3] * np.uint32(255) // np.maximum(a, 1))
+            return np.concatenate([np.where(a == 0, 0, rgb).astype(np.uint8), px[..., 3:]], -1)
+        return px
+
+    def _grey8(self) -> np.ndarray:
+        """1-, 2- or 4-bit grey levels scaled to 8 bits."""
+        return (self.pixels * (255 // ((1 << self.depth) - 1))).astype(np.uint8)
+
+    def as_cv2_gray(self) -> np.ndarray:
+        px = self.pixels
+        if self.kind == "palette":
+            pal = self.palette
+            if pal.dtype == np.uint16:  # a TIFF colormap: 16 bits, or 8 if it fits
+                pal = (pal >> 8 if pal.max() > 255 else pal).astype(np.uint8)
+            return pal[px, 2]
+        if self.kind == "grey":
+            return self._grey8() if self.depth < 8 else px
+        if self.kind == "grey_alpha":
+            return px[..., 0]
+        if self.kind == "rgba" and self.extra == 2 and px.dtype == np.uint8:  # premultiplied
+            return ((px[..., 2].astype(np.uint32) * px[..., 3] + 127) // 255).astype(np.uint8)
+        return px[..., 2]
+
+
+def _read_file(path: str, first_only: bool = False):
+    """The images in the file at ``path`` as ``_Raw``: every page or frame,
+    or the first (a PNG's default image) alone."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIGNATURE:
-        img = read_png(data, path)
-    elif data[:4] in (b"II*\x00", b"MM\x00*"):
-        img = read_tiff(data, path)
-    else:
-        raise ValueError(f"{path}: not a PNG or TIFF file (starts {data[:8]!r}); the "
-                         "port reads PNG and uncompressed TIFF")
-    if img.ndim == 3:
-        # cv2's channel 0 of BGR(A) is blue: the last colour channel of RGB(A)
-        img = img[..., 2]
-    return img
+        return _png_raw(data, path, first_only)
+    if data[:4] in _TIFF_MAGIC:
+        return _tiff_raw(data, path, first_only)
+    raise ValueError(f"{path}: not a PNG or TIFF file (starts {data[:8]!r}); {_READS}")
+
+
+def imread_gray(path: str) -> np.ndarray:
+    """The (H, W) image at ``path`` as cv2 reads it, channel 0 (module
+    docstring)."""
+    return _read_file(path, first_only=True)[0].as_cv2_gray()
+
+
+def imread(path: str) -> np.ndarray:
+    """The whole image file at ``path`` as PIL's ``Image.open`` gives it:
+    (H, W) or (H, W, C) for one image, and the pages (frames) stacked as
+    (Z, H, W) for a multipage TIFF or an animated PNG."""
+    pages = [raw.as_pil() for raw in _read_file(path)]
+    if len(pages) == 1:
+        return pages[0]
+    if len({p.shape for p in pages}) != 1:
+        raise ValueError(f"{path}: its {len(pages)} pages differ in shape")
+    return np.stack(pages)  # pages of other dtypes promote, as numpy stacks PIL's
+
+
+# ----- PNG -------------------------------------------------------------------
+
+# (x0, y0, dx, dy) of the seven Adam7 passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_KINDS = {0: ("grey", 1), 2: ("rgb", 3), 3: ("palette", 1), 4: ("grey_alpha", 2),
+              6: ("rgba", 4)}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
 def _unfilter_slow(kind: int, cur: bytearray, prior: bytes, bpp: int) -> None:
@@ -77,19 +185,22 @@ def _png_chunks(data: bytes):
             return
 
 
-def _png_unfilter(raw: bytes, w: int, h: int, depth: int, channels: int, name: str):
-    bpp = channels * depth // 8
-    stride = w * bpp
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{name}: PNG data holds {len(raw)} bytes, not {h * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+def _png_rows(raw: bytes, pos: int, w: int, h: int, depth: int, channels: int, name: str):
+    """The (h, w, channels) samples of one filtered image (or Adam7 pass)
+    starting at ``raw[pos]``, and the position after it."""
+    bpp = max(1, channels * depth // 8)
+    stride = (w * channels * depth + 7) // 8
+    end = pos + h * (stride + 1)
+    if len(raw) < end:
+        raise ValueError(f"{name}: PNG data holds {len(raw)} bytes, not {end}")
+    rows = np.frombuffer(raw, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
     filters, out = rows[:, 0], rows[:, 1:].copy()
     prior = np.zeros(stride, np.uint8)
     for r in range(h):
         kind = int(filters[r])
         cur = out[r]
         if kind == 1:
-            cur[:] = np.cumsum(cur.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
+            cur[:] = np.cumsum(cur.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
         elif kind == 2:
             cur += prior
         elif kind in (3, 4):
@@ -100,22 +211,42 @@ def _png_unfilter(raw: bytes, w: int, h: int, depth: int, channels: int, name: s
             raise ValueError(f"{name}: PNG row filter {kind}")
         prior = cur
     if depth == 16:
-        return out.view(">u2").astype(np.uint16).reshape(h, w)
-    return out.reshape(h, w, channels) if channels > 1 else out.reshape(h, w)
+        samples = out.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        samples = out
+    else:  # 1, 2 or 4 bits a sample, most significant first
+        bits = np.unpackbits(out, axis=1).reshape(h, -1, depth)
+        samples = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            axis=2, dtype=np.uint8)[:, :w * channels]
+    return samples.reshape(h, w, channels), end
 
 
-def png_frames(data: bytes, name: str = "<png>") -> list:
-    """The images of a PNG: its one image, or each frame of an animated
-    PNG (APNG) composed onto the canvas as its ``fcTL`` says (offsets,
-    dispose ops; blend op OVER only without an alpha channel, where it
-    equals SOURCE)."""
-    header, idat, frames, control = None, [], [], None
+def _png_image(raw: bytes, w: int, h: int, depth: int, channels: int, interlace: int,
+               name: str) -> np.ndarray:
+    if not interlace:
+        return _png_rows(raw, 0, w, h, depth, channels, name)[0]
+    out = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out[y0::dy, x0::dx], pos = _png_rows(raw, pos, pw, ph, depth, channels, name)
+    return out
+
+
+def _png_raw(data: bytes, name: str, first_only: bool = False) -> list:
+    """The images of a PNG (its one image, or each composed APNG frame; the
+    default image alone if ``first_only``) as ``_Raw``."""
+    header, palette, idat, frames, alpha = None, None, [], [], False
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            alpha = True
         elif kind == b"fcTL":
-            control = struct.unpack(">IIIIIHHBB", body)[1:]
-            frames.append([control, []])
+            frames.append([struct.unpack(">IIIIIHHBB", body)[1:], []])
         elif kind == b"IDAT":
             idat.append(body)
             if frames:  # the default image is the first frame
@@ -125,24 +256,30 @@ def png_frames(data: bytes, name: str = "<png>") -> list:
     if header is None:
         raise ValueError(f"{name}: PNG without IHDR")
     w, h, depth, color, _, _, interlace = header
-    channels = {0: 1, 2: 3, 6: 4}.get(color)
-    if channels is None or depth not in (8, 16) or (channels > 1 and depth != 8) or interlace:
-        raise ValueError(
-            f"{name}: PNG colour type {color}, bit depth {depth}, interlace {interlace} "
-            "is not read; the port reads 8/16-bit grey and 8-bit RGB/RGBA, not interlaced")
-    if not frames:
-        return [_png_unfilter(zlib.decompress(b"".join(idat)), w, h, depth, channels, name)]
+    if color not in _PNG_KINDS or depth not in _PNG_DEPTHS[color] or interlace > 1 \
+            or (color == 3 and palette is None):
+        raise ValueError(f"{name}: PNG colour type {color}, bit depth {depth}, interlace "
+                         f"{interlace} is not a PNG form; {_READS}")
+    kind, channels = _PNG_KINDS[color]
+
+    def raw(pixels):
+        return _Raw(pixels if channels > 1 else pixels[..., 0], kind, depth, name, palette)
+    if first_only or not frames:
+        return [raw(_png_image(zlib.decompress(b"".join(idat)), w, h, depth, channels,
+                               interlace, name))]
+    alpha = alpha or color in (4, 6)
     canvas, out = None, []
     for (fw, fh, x0, y0, _, _, dispose, blend), parts in frames:
-        img = _png_unfilter(zlib.decompress(b"".join(parts)), fw, fh, depth, channels, name)
+        img = _png_image(zlib.decompress(b"".join(parts)), fw, fh, depth, channels,
+                         interlace, name)
         if canvas is None:
-            canvas = np.zeros((h, w) + img.shape[2:], img.dtype)
-        if blend == 1 and channels == 4:
+            canvas = np.zeros((h, w, channels), img.dtype)
+        if blend == 1 and alpha:
             raise ValueError(f"{name}: APNG frame blended OVER with alpha is not read")
         region = (slice(y0, y0 + fh), slice(x0, x0 + fw))
         before = canvas.copy() if dispose == 2 else None
         canvas[region] = img
-        out.append(canvas.copy())
+        out.append(raw(canvas.copy()))
         if dispose == 1:
             canvas[region] = 0
         elif dispose == 2:
@@ -150,84 +287,171 @@ def png_frames(data: bytes, name: str = "<png>") -> list:
     return out
 
 
+def png_frames(data: bytes, name: str = "<png>") -> list:
+    """The images of a PNG as PIL gives them: its one image, or each frame
+    of an animated PNG composed onto the canvas as its ``fcTL`` says."""
+    return [r.as_pil() for r in _png_raw(data, name)]
+
+
 def read_png(data: bytes, name: str = "<png>") -> np.ndarray:
-    """The first image of a PNG (module docstring)."""
+    """The first image of a PNG, as PIL gives it."""
     return png_frames(data, name)[0]
 
 
-_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}  # BYTE, SHORT, LONG, LONG8
+# ----- TIFF ------------------------------------------------------------------
+
+# tag type -> struct code (the numeric types; others are skipped)
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}
+_TIFF_DTYPES = {(8, 1): "u1", (16, 1): "u2", (16, 2): "i2", (32, 2): "i4", (32, 3): "f4"}
+# (photometric, samples a pixel) read: min-is-black grey, RGB(A), a palette
+_TIFF_FORMS = {(1, 1), (2, 3), (2, 4), (3, 1)}
 
 
-def _tiff_page(data: bytes, end: str, ifd: int, name: str):
-    """(image, offset of the next IFD) of the IFD at ``ifd``."""
-    (n,) = struct.unpack(end + "H", data[ifd:ifd + 2])
+def _tiff_ifd(data: bytes, end: str, big: bool, ifd: int):
+    """(tags, offset of the next IFD) of the IFD at ``ifd``."""
+    count_code, entry, value_size = ("Q", 20, 8) if big else ("H", 12, 4)
+    (n,) = struct.unpack_from(end + count_code, data, ifd)
+    base = ifd + struct.calcsize(count_code)
     tags = {}
     for i in range(n):
-        tag, typ, count, value = struct.unpack(end + "HHI4s",
-                                               data[ifd + 2 + 12 * i:ifd + 14 + 12 * i])
+        at = base + entry * i
+        tag, typ, count = struct.unpack_from(end + ("HHQ" if big else "HHI"), data, at)
         code = _TIFF_TYPES.get(typ)
         if code is None:
             continue
         size = struct.calcsize(code) * count
-        raw = value if size <= 4 else data[struct.unpack(end + "I", value)[0]:][:size]
-        tags[tag] = struct.unpack(end + code * count, raw[:size])
-    (next_ifd,) = struct.unpack(end + "I", data[ifd + 2 + 12 * n:ifd + 6 + 12 * n])
+        value = at + entry - value_size
+        if size > value_size:
+            (value,) = struct.unpack_from(end + ("Q" if big else "I"), data, value)
+        tags[tag] = struct.unpack_from(end + code * count, data, value)
+    (next_ifd,) = struct.unpack_from(end + ("Q" if big else "I"), data, base + entry * n)
+    return tags, next_ifd
+
+
+_POOL = None
+
+
+def _pool():
+    """The threads that decode a page's strips or tiles."""
+    global _POOL
+    if _POOL is None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _POOL = ThreadPoolExecutor(min(8, os.cpu_count() or 1),
+                                   thread_name_prefix="imread")
+    return _POOL
+
+
+def _tiff_chunk(data: bytes, offset: int, count: int, compression: int, size: int,
+                where: str) -> bytes:
+    """``size`` decoded bytes of the strip or tile at ``offset``."""
+    src = data[offset:offset + count]
+    if compression == 1:
+        got, buf = len(src), src[:size]
+    elif compression in (8, 32946):
+        try:
+            buf = zlib.decompressobj().decompress(src, size)
+        except zlib.error as exc:
+            raise ValueError(f"{where}: damaged Deflate data ({exc})") from None
+        got = len(buf)
+    else:
+        out, got = (native.lzw_decode if compression == 5 else native.packbits_decode)(src, size)
+        if got < 0:
+            raise ValueError(f"{where}: damaged {'LZW' if compression == 5 else 'PackBits'} "
+                             "data (a code the stream cannot hold)")
+        buf = out
+    if got < size:
+        raise ValueError(f"{where}: {got} bytes decoded of the {size} its rows hold")
+    return buf
+
+
+def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int):
+    """(``_Raw``, offset of the next IFD) of page ``page`` at ``ifd``."""
+    tags, next_ifd = _tiff_ifd(data, end, big, ifd)
     w, h = tags[256][0], tags[257][0]
     bits = tags.get(258, (1,))
     compression = tags.get(259, (1,))[0]
+    photometric = tags.get(262, (1,))[0]
     spp = tags.get(277, (1,))[0]
-    fmt = tags.get(339, (1,))[0]
     planar = tags.get(284, (1,))[0]
-    dtype = {(8, 1): "u1", (16, 1): "u2", (32, 2): "i4", (32, 3): "f4"}.get((bits[0], fmt))
-    if compression != 1 or planar != 1 or dtype is None or len(set(bits)) != 1 \
-            or spp not in (1, 3):
+    # libtiff applies a predictor with LZW and Deflate only
+    predictor = tags.get(317, (1,))[0] if compression in (5, 8, 32946) else 1
+    fmt = tags.get(339, (1,))[0]
+    extra = tags.get(338, (None,))[0] if spp == 4 else None
+    dtype = _TIFF_DTYPES.get((bits[0], fmt))
+    if compression not in (1, 5, 8, 32946, 32773) or predictor not in (1, 2) or planar != 1 \
+            or dtype is None or len(set(bits)) != 1 or (photometric, spp) not in _TIFF_FORMS \
+            or extra not in (None, 0, 1, 2) or (photometric == 3 and 320 not in tags):
         raise ValueError(
-            f"{name}: TIFF with compression {compression}, bits {bits}, sample format "
-            f"{fmt}, {spp} samples, planar {planar} is not read; the port reads "
-            "uncompressed uint8/uint16/int32/float32 strips")
-    offsets, counts = tags[273], tags[279]
-    buf = b"".join(data[o:o + c] for o, c in zip(offsets, counts))
-    img = np.frombuffer(buf, end + dtype, count=w * h * spp).astype(dtype)
-    return (img.reshape(h, w, spp) if spp > 1 else img.reshape(h, w)), next_ifd
+            f"{name}: TIFF page {page} with compression {compression}, predictor {predictor}, "
+            f"bits {bits}, sample format {fmt}, {spp} samples, extra samples {extra}, planar "
+            f"{planar}, photometric {photometric} is not read; {_READS}")
+    itemsize = bits[0] // 8
+    if 322 in tags:
+        tw, th = tags[322][0], tags[323][0]
+        offsets, counts = tags[324], tags[325]
+        across = -(-w // tw)
+        boxes = [((t // across) * th, (t % across) * tw) for t in range(len(offsets))]
+        label = "tile"
+    else:
+        rps = min(tags.get(278, (h,))[0], h)
+        offsets, counts = tags[273], tags[279]
+        tw = w
+        boxes = [(s * rps, 0) for s in range(len(offsets))]
+        label = "strip"
+    out = np.empty((h, w, spp), dtype)
+
+    def place(i):
+        """Decode strip or tile i into ``out`` (zlib, the host library and
+        numpy release the GIL: the pool's threads decode LZW and Deflate
+        in parallel)."""
+        (y0, x0), rows = boxes[i], th if label == "tile" else min(rps, h - boxes[i][0])
+        if rows <= 0:
+            return
+        where = f"{name}: TIFF page {page}, {label} {i}"
+        buf = _tiff_chunk(data, offsets[i], counts[i], compression, rows * tw * spp * itemsize,
+                          where)
+        block = np.frombuffer(buf, end + dtype, rows * tw * spp).reshape(rows, tw, spp)
+        if predictor == 2:  # differences along the row, modulo the sample width
+            block = np.cumsum(block.astype(dtype).view(f"u{itemsize}"), axis=1,
+                              dtype=f"u{itemsize}").view(dtype)
+        rh, rw = min(rows, h - y0), min(tw, w - x0)
+        out[y0:y0 + rh, x0:x0 + rw] = block[:rh, :rw]
+    if compression in (5, 8, 32946) and len(offsets) > 1:  # the slow codecs
+        list(_pool().map(place, range(len(offsets))))
+    else:
+        for i in range(len(offsets)):
+            place(i)
+    pixels = out[..., 0] if spp == 1 else out
+    where = f"{name}: TIFF page {page}"
+    if photometric == 3:
+        cmap = np.asarray(tags[320], np.uint16).reshape(3, -1).T
+        return _Raw(pixels, "palette", bits[0], where, cmap), next_ifd
+    kind = {1: "grey", 3: "rgb", 4: "rgba"}[spp]
+    return _Raw(pixels, kind, bits[0], where, extra=extra), next_ifd
 
 
-def tiff_pages(data: bytes, name: str = "<tiff>") -> list:
-    """Every page of a TIFF, following the chain of IFDs (one a page, as
-    PIL's multipage writer and ``imwrite`` lay them out)."""
-    end = "<" if data[:2] == b"II" else ">"
-    (ifd,) = struct.unpack(end + "I", data[4:8])
+def _tiff_raw(data: bytes, name: str, first_only: bool = False) -> list:
+    """Every page of a TIFF as ``_Raw``, following the chain of IFDs."""
+    end, big = _TIFF_MAGIC[data[:4]]
+    (ifd,) = struct.unpack_from(end + ("Q" if big else "I"), data, 8 if big else 4)
     pages, seen = [], set()
     while ifd:
         if ifd in seen or ifd + 2 > len(data):
             raise ValueError(f"{name}: TIFF IFD chain loops or leaves the file at {ifd}")
         seen.add(ifd)
-        page, ifd = _tiff_page(data, end, ifd, name)
+        page, ifd = _tiff_page(data, end, big, ifd, name, len(pages))
         pages.append(page)
+        if first_only:
+            break
     return pages
 
 
+def tiff_pages(data: bytes, name: str = "<tiff>") -> list:
+    """Every page of a TIFF as PIL gives it."""
+    return [r.as_pil() for r in _tiff_raw(data, name)]
+
+
 def read_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
-    """The first page of a TIFF (module docstring)."""
-    end = "<" if data[:2] == b"II" else ">"
-    (ifd,) = struct.unpack(end + "I", data[4:8])
-    return _tiff_page(data, end, ifd, name)[0]
-
-
-def imread(path: str) -> np.ndarray:
-    """The whole image file at ``path`` as PIL's ``Image.open`` gives it:
-    (H, W) or (H, W, C) for one image, and the pages (frames) stacked as
-    (Z, H, W) for a multipage TIFF or an animated PNG."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] == _PNG_SIGNATURE:
-        pages = png_frames(data, path)
-    elif data[:4] in (b"II*\x00", b"MM\x00*"):
-        pages = tiff_pages(data, path)
-    else:
-        raise ValueError(f"{path}: not a PNG or TIFF file (starts {data[:8]!r}); the "
-                         "port reads PNG and uncompressed TIFF")
-    if len(pages) == 1:
-        return pages[0]
-    if len({p.shape for p in pages}) != 1:
-        raise ValueError(f"{path}: its {len(pages)} pages differ in shape")
-    return np.stack(pages)  # pages of other dtypes promote, as numpy stacks PIL's
+    """The first page of a TIFF, as PIL gives it."""
+    return _tiff_raw(data, name, first_only=True)[0].as_pil()

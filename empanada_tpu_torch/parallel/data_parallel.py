@@ -39,7 +39,8 @@ Boundary semantics match the median queue: slices closer than
 Checkpoint/resume (``checkpoint_dir``) follows ``stitch/checkpoint.py``.
 
 At ``inference_scale`` s > 1 each slice is downsampled on the host
-(``data.volume.resize_by_factor``, cv2's bilinear, uint8 only) and the
+(``data.volume.resize_by_factor``, cv2's bilinear, for every dtype cv2
+resizes) and the
 model renders ``2 + log2(s)`` PointRend steps back to full resolution; such
 a sweep streams from the host, as the JAX engine's does.  The input may be a
 numpy volume or a ``core.chunked.ChunkedArray`` (streamed, slice by slice);

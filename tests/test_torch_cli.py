@@ -22,6 +22,7 @@ from PIL import Image
 
 import empanada_tpu.api.export as jax_export
 import empanada_tpu.api.utils as jax_utils
+from _tiff_writer import tiff_bytes
 from _torch_port import SMALL_PR, jax_init, one_torch_thread, port_model  # noqa: F401
 from conftest import make_blob_image
 from empanada_tpu import api as jax_api
@@ -87,6 +88,12 @@ def root(tmp_path_factory):
         stack = np.stack([seg, seg[::-1]]).astype(np.int32)
         frames = [Image.fromarray(s) for s in stack]
         frames[0].save(d / "seg3.tif", save_all=True, append_images=frames[1:])
+        # uint16: a tiled Deflate BigTIFF with a predictor and an LZW image,
+        # written by the smoke run's encoders
+        (d / "vol16.tif").write_bytes(tiff_bytes(
+            list(vol.astype(np.uint16) * 257 + 99), 8, 2, (32, 32), big=True))
+        (d / "img16.tif").write_bytes(tiff_bytes(
+            [image.astype(np.uint16) * 250 + 7], 5, 2, rows_per_strip=16))
         Image.fromarray(make_blob_image((80, 100), n_blobs=4)).save(d / "big.tiff")
         Image.fromarray((make_blob_image((80, 100), n_blobs=4, seed=2) < 90)
                         .astype(np.uint16)).save(d / "big_mask.tiff")
@@ -152,6 +159,8 @@ INFER2D = {
     "two_models": (["{d}/img.npy", "-o", "{d}/pan_mm.tif", "--model",
                     "{d}/tiny_model_b.yaml"],
                    ["pan_mm.tif", "pan_mm_tiny_model.tif", "pan_mm_tiny_model_b.tif"]),
+    "uint16_lzw_scale2": (["{d}/img16.tif", "-o", "{d}/pan16.tif", "--downsampling", "2"],
+                          ["pan16.tif"]),
 }
 
 
@@ -178,6 +187,8 @@ INFER3D = {
     "two_models": (["{d}/vol.npy", "-o", "{d}/mm_{class}.npy", "--model",
                     "{d}/tiny_model_b.yaml", "--multichip"],
                    ["mm_tiny_model_mito.npy", "mm_tiny_model_b_nuclei.npy"], None),
+    "uint16_bigtiff_scale2": (["{d}/vol16.tif", "-o", "{d}/s16_{class}.tiff",
+                               "--downsampling", "2"], ["s16_mito.tiff"], None),
 }
 
 

@@ -1,31 +1,32 @@
 """The port's data layer against the JAX package's (which calls cv2 and
 PIL), on seeded numpy inputs:
 
-- cv2's arithmetic reproduced in numpy, against cv2 itself: uint8 resizes
-  at any size, nearest resizes, ``warpAffine`` (linear and nearest, every
-  border code) and uint8 ``GaussianBlur`` bit for bit, float32 and uint16
-  warps bit for bit; the float resize path within one grey level
-  (uint16) and 1e-4 (float32 in [0, 1]);
+- cv2's arithmetic reproduced in numpy, against cv2 itself, bit for bit
+  (tolerance 0): resizes of uint8, uint16, int16, float32 and float64
+  images at any size, nearest resizes, ``warpAffine`` (linear and nearest,
+  every border code; uint8, uint16 and float32 images) and
+  ``GaussianBlur`` of uint8, uint16, int16 and float32 images at 3, 5 and
+  7 taps;
 - every transform of ``AUGMENTATIONS`` and the composed default list
-  under one seed: the same draws and the same arrays (exact for uint8
-  images and int32 masks);
+  under one seed: the same draws and the same arrays (exact for uint8,
+  uint16, int16 and float32 images and int32 masks);
 - ``heatmap_and_offsets`` (heatmap within 1e-6, offsets exact) and
   ``seg_to_instance_bd`` (exact);
 - the datasets' items and ``WeightedBatchLoader``'s batches from the same
   folder and seed (exact but the heatmaps, 1e-6);
 - the image reader against PIL's writer and cv2's reader: PNG (8/16-bit
-  grey, RGB, RGBA; each of the five row filters) and uncompressed TIFF
-  (uint8, uint16, int32, float32, RGB), and what it refuses.
+  grey, RGB, RGBA, palette; each of the five row filters) and TIFF
+  (uint8, uint16, int32, float32, RGB, RGBA premultiplied as cv2 reads
+  it), and what it refuses (JPEG, an APNG frame blended OVER with alpha).
+  ``test_torch_inputs.py`` covers the other forms.
 """
 
 import os
-import struct
-import zlib
 
 import cv2
 import numpy as np
 import pytest
-from PIL import Image
+from PIL import Image, PngImagePlugin
 
 import empanada_tpu.data.augment as JA
 import empanada_tpu.data.datasets as JD
@@ -33,15 +34,17 @@ import empanada_tpu.data.targets as JTg
 import empanada_tpu_torch.data.augment as A
 import empanada_tpu_torch.data.datasets as D
 import empanada_tpu_torch.data.targets as Tg
-from empanada_tpu_torch.data.imread import imread_gray
+from empanada_tpu_torch.data.imread import imread, imread_gray
+from test_torch_inputs import _png_bytes
 
 HEATMAP_TOL = 1e-6
 
 
 def _image(rng, shape, dtype=np.uint8):
-    if dtype == np.float32:
-        return rng.random(shape).astype(np.float32)
-    return rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    if np.dtype(dtype).kind == "f":
+        return rng.random(shape).astype(dtype)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape, endpoint=True).astype(dtype)
 
 
 # ---- cv2's arithmetic --------------------------------------------------------
@@ -49,25 +52,20 @@ def _image(rng, shape, dtype=np.uint8):
 
 def test_resize_matches_cv2():
     rng = np.random.default_rng(0)
-    worst = {np.uint16: 0.0, np.float32: 0.0}
     for _ in range(60):
         h, w = (int(v) for v in rng.integers(1, 300, 2))
         s = 1 + rng.uniform(-0.9, 1.0)
         nh, nw = max(1, int(h * s)), max(1, int(w * s))
-        for dtype in (np.uint8, np.uint16, np.float32):
+        for dtype in (np.uint8, np.uint16, np.int16, np.float32, np.float64):
             img = _image(rng, (h, w), dtype)
             want = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
             got = A.resize_linear(img, (nh, nw))
             assert got.dtype == want.dtype and got.shape == want.shape
-            if dtype == np.uint8:
-                np.testing.assert_array_equal(got, want)
-            else:
-                worst[dtype] = max(worst[dtype], np.abs(got.astype(float) - want).max())
+            np.testing.assert_array_equal(got, want, err_msg=f"{dtype} {(h, w, nh, nw)}")
         mask = rng.integers(0, 1 << 20, (h, w)).astype(np.int32)
         np.testing.assert_array_equal(
             A.resize_nearest(mask, (nh, nw)),
             cv2.resize(mask, (nw, nh), interpolation=cv2.INTER_NEAREST))
-    assert worst[np.uint16] <= 1 and worst[np.float32] <= 1e-4, worst
 
 
 @pytest.mark.parametrize("border", [0, 1, 2, 4])
@@ -78,7 +76,7 @@ def test_warp_affine_matches_cv2(border):
         angle = float(rng.uniform(-180, 180))
         m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1.0)
         np.testing.assert_array_equal(A.rotation_matrix((w / 2, h / 2), angle), m)
-        for dtype in (np.uint8, np.uint16, np.float32):
+        for dtype in (np.uint8, np.uint16, np.int16, np.float32):
             img = _image(rng, (h, w), dtype)
             want = cv2.warpAffine(img, m, (w, h), flags=cv2.INTER_LINEAR,
                                   borderMode=border, borderValue=0)
@@ -91,15 +89,23 @@ def test_warp_affine_matches_cv2(border):
 
 
 def test_gaussian_blur_matches_cv2():
+    """Bit for bit at odd and even widths (cv2's vector loops and the
+    pixels past them), and 1-pixel lines; cv2 refuses int32 and so does
+    the port, which also refuses float64 (cv2 blurs it)."""
     rng = np.random.default_rng(1)
-    for _ in range(20):
-        h, w = (int(v) for v in rng.integers(8, 200, 2))
-        img = _image(rng, (h, w))
-        for k in (3, 5, 7):
-            np.testing.assert_array_equal(A.gaussian_blur(img, k),
-                                          cv2.GaussianBlur(img, (k, k), 0))
-    with pytest.raises(NotImplementedError, match="uint16"):
-        A.gaussian_blur(img.astype(np.uint16), 3)
+    shapes = [tuple(int(v) for v in rng.integers(8, 200, 2)) for _ in range(16)]
+    for h, w in shapes + [(1, 37), (29, 1), (1, 1), (5, 23)]:
+        for dtype in (np.uint8, np.uint16, np.int16, np.float32):
+            img = _image(rng, (h, w), dtype)
+            for k in (3, 5, 7):
+                got, want = A.gaussian_blur(img, k), cv2.GaussianBlur(img, (k, k), 0)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want, err_msg=f"{dtype} {(h, w)} {k}")
+    with pytest.raises(cv2.error):
+        cv2.GaussianBlur(img.astype(np.int32), (3, 3), 0)
+    for dtype in (np.int32, np.float64):
+        with pytest.raises(NotImplementedError, match=np.dtype(dtype).name):
+            A.gaussian_blur(img.astype(dtype), 3)
 
 
 # ---- the transforms ----------------------------------------------------------
@@ -145,21 +151,15 @@ def test_transform_matches_jax(name, kw):
 
 
 def test_float_and_uint16_images_through_the_transforms():
-    """RandomScale's float path within the stated tolerance, the rest
-    exact, on uint16 and float32 images."""
-    for dtype, tol in ((np.uint16, 1), (np.float32, 1e-4)):
+    """Every transform on uint16, int16 and float32 images, exact."""
+    for dtype in (np.uint16, np.int16, np.float32):
         for name, kw in TRANSFORMS:
-            if name == "GaussianBlur":
-                continue  # uint8 only, as cv2's bit-exact path (raises otherwise)
             rng = np.random.default_rng(1)
             img = _image(rng, (97, 131), dtype)
             want = JA.AUGMENTATIONS[name](**kw)(image=img, rng=np.random.default_rng(4))
             got = A.AUGMENTATIONS[name](**kw)(image=img, rng=np.random.default_rng(4))
-            if name == "RandomScale":
-                assert got["image"].shape == want["image"].shape
-                assert np.abs(got["image"].astype(float) - want["image"]).max() <= tol
-            else:
-                np.testing.assert_array_equal(got["image"], want["image"])
+            assert got["image"].dtype == want["image"].dtype, (dtype, name)
+            np.testing.assert_array_equal(got["image"], want["image"], err_msg=f"{dtype} {name}")
 
 
 DEFAULT_AUGS = [
@@ -301,7 +301,7 @@ def _jax_read(path):
 PIL_CASES = [("L", np.uint8, (37, 53), ("png", "tif")),
              ("I;16", np.uint16, (41, 29), ("png", "tif")),
              ("RGB", np.uint8, (23, 31, 3), ("png", "tif")),
-             ("RGBA", np.uint8, (23, 31, 4), ("png",)),
+             ("RGBA", np.uint8, (23, 31, 4), ("png", "tif")),
              ("I", np.int32, (20, 30), ("tif",)),
              ("F", np.float32, (20, 30), ("tif",))]
 
@@ -329,55 +329,37 @@ def test_reader_matches_pil_and_cv2(mode, dtype, shape, exts, tmp_path):
             np.testing.assert_array_equal(got, want)
 
 
-def _png(arr, filters):
-    """A PNG of an 8-bit grey image whose row r uses filter filters[r]."""
-    h, w = arr.shape
-    rows, prior = [], np.zeros(w, np.int64)
-    for r in range(h):
-        cur = arr[r].astype(np.int64)
-        left = np.concatenate([[0], cur[:-1]])
-        upleft = np.concatenate([[0], prior[:-1]])
-        f = filters[r]
-        if f == 0:
-            pred = np.zeros(w, np.int64)
-        elif f == 1:
-            pred = left
-        elif f == 2:
-            pred = prior
-        elif f == 3:
-            pred = (left + prior) // 2
-        else:
-            p = left + prior - upleft
-            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
-            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
-        rows.append(bytes([f]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
-        prior = cur
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
-
-
 def test_reader_takes_every_row_filter(tmp_path):
     arr = np.random.default_rng(3).integers(0, 256, (25, 33)).astype(np.uint8)
     path = tmp_path / "filters.png"
-    path.write_bytes(_png(arr, [r % 5 for r in range(25)]))
+    path.write_bytes(_png_bytes(arr, 0, 8))  # row r takes filter r % 5
     np.testing.assert_array_equal(imread_gray(str(path)), arr)
     np.testing.assert_array_equal(_jax_read(str(path)), arr)
 
 
 def test_reader_refuses_other_formats(tmp_path):
-    arr = np.zeros((8, 8), np.uint8)
+    """A palette PNG and an RGBA TIFF (premultiplied by cv2) read as the
+    JAX package reads them; JPEG is refused, naming the format; of an APNG
+    whose second frame is blended OVER with alpha, ``imread_gray`` reads
+    the default image as cv2 does and ``imread`` refuses the frame."""
+    rng = np.random.default_rng(6)
+    arr = rng.integers(0, 256, (8, 8)).astype(np.uint8)
     Image.fromarray(arr).convert("P").save(tmp_path / "p.png")
     Image.fromarray(arr).save(tmp_path / "j.jpg")
-    Image.fromarray(np.zeros((8, 8, 4), np.uint8)).save(tmp_path / "rgba.tif")
-    with pytest.raises(ValueError, match="colour type 3"):
-        imread_gray(str(tmp_path / "p.png"))
+    Image.fromarray(rng.integers(0, 256, (8, 8, 4)).astype(np.uint8)).save(tmp_path / "rgba.tif")
+    for name in ("p.png", "rgba.tif"):
+        path = str(tmp_path / name)
+        got, want = imread_gray(path), _jax_read(path)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="not a PNG or TIFF"):
         imread_gray(str(tmp_path / "j.jpg"))
-    with pytest.raises(ValueError, match="4 samples"):
-        imread_gray(str(tmp_path / "rgba.tif"))
+    frames = [Image.fromarray(rng.integers(0, 256, (8, 8, 4)).astype(np.uint8)) for _ in range(2)]
+    frames[0].save(tmp_path / "over.png", save_all=True, append_images=frames[1:],
+                   blend=PngImagePlugin.Blend.OP_OVER)
+    path = str(tmp_path / "over.png")
+    np.testing.assert_array_equal(imread_gray(path), _jax_read(path))
+    np.testing.assert_array_equal(imread_gray(path), np.asarray(frames[0])[..., 2])
+    with pytest.raises(ValueError, match="blended OVER with alpha"):
+        imread(path)
     assert os.path.getsize(tmp_path / "p.png") > 0

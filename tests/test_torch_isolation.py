@@ -133,13 +133,13 @@ GUI_IMPORTS = {"napari", "magicgui"}
 
 def test_port_imports_only_torch_numpy_scipy_yaml():
     """Static check of every import statement in the port (and in
-    chip_smoke.py): the standard library, torch, numpy, scipy, yaml and the
-    port itself; napari and magicgui inside the napari adapters' functions
-    alone."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    chip_smoke.py and the TIFF writer it imports, tests/_tiff_writer.py):
+    the standard library, torch, numpy, scipy, yaml and the port itself;
+    napari and magicgui inside the napari adapters' functions alone."""
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "_tiff_writer.py")]
     for root, _, names in os.walk(os.path.join(REPO, "empanada_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__"}
+    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__", "_tiff_writer"}
     bad = []
     for path in files:
         with open(path) as f:

@@ -1,10 +1,13 @@
 """The port's ``resize_by_factor`` (cv2's bilinear downsample computed in
 numpy) against the JAX package's, which calls ``cv2.resize(...,
 INTER_LINEAR)``: uint8 bit for bit over a seeded grid of shapes 1-1100 px
-and scales 2-64, and a hypothesis search; any other dtype either equals
-cv2 or raises; ``VolumeDataset`` at scale 2 yields the JAX dataset's
-slices."""
+and scales 2-64, and a hypothesis search; uint16, int16, float32 and
+float64 bit for bit (tolerance 0) over a seeded grid, odd sides and sides
+of 1 among them; int32, which cv2 refuses, raises in both packages;
+``VolumeDataset`` at scale 2 yields the JAX dataset's slices, uint8 and
+uint16, on every axis."""
 
+import cv2
 import numpy as np
 import pytest
 from hypothesis import given, settings
@@ -56,21 +59,36 @@ def test_scale_one_is_identity_for_any_integer():
     assert resize_by_factor(img, 1) is img
 
 
-@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+def _other(rng, dtype, shape):
+    if np.dtype(dtype).kind == "f":
+        return (rng.random(shape) * rng.choice([1.0, 1000.0])).astype(dtype)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape, endpoint=True).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16, np.float32, np.float64, np.int32])
 def test_other_dtypes_equal_cv2_or_raise(dtype):
+    """Every dtype cv2 resizes equals it bit for bit at scales 2-64 (exact
+    2x, odd sides and sides of 1 among the shapes); int32 raises in both
+    packages, and the port's error names the dtype."""
     rng = np.random.default_rng(5)
-    img = rng.integers(0, 1000, (37, 53)).astype(dtype)
-    try:
-        got = resize_by_factor(img, 2)
-    except NotImplementedError as exc:
-        assert np.dtype(dtype).name in str(exc)
-        return
-    np.testing.assert_array_equal(got, jax_resize(img, 2))
+    for h, w, k in list(_cases(25, 7)) + [(37, 53, 2), (1023, 1021, 2), (1024, 1024, 2)]:
+        img = _other(rng, dtype, (h, w))
+        if dtype == np.int32 and (-(-h // k), -(-w // k)) != (h, w):
+            with pytest.raises(cv2.error):
+                jax_resize(img, k)
+            with pytest.raises(TypeError, match="int32"):
+                resize_by_factor(img, k)
+            continue
+        got, want = resize_by_factor(img, k), jax_resize(img, k)
+        assert got.dtype == want.dtype and got.shape == want.shape, (h, w, k)
+        np.testing.assert_array_equal(got, want, err_msg=f"{(h, w, k)}")
 
 
-def test_volume_dataset_scale_2_matches_jax():
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_volume_dataset_scale_2_matches_jax(dtype):
     rng = np.random.default_rng(9)
-    vol = rng.integers(0, 256, (5, 45, 70), dtype=np.uint8)
+    vol = rng.integers(0, np.iinfo(dtype).max, (5, 45, 70), dtype=dtype, endpoint=True)
     for axis in range(3):
         got = list(VolumeDataset(vol, axis, Preprocessor(**NORMS), scale=2, start=1))
         want = list(JaxVolumeDataset(vol, axis, JaxPreprocessor(**NORMS), scale=2, start=1))
