@@ -236,22 +236,34 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     line; at most 90 s;
 18. inputs: a seeded EM-like uint16 volume of 32 x 1024 x 1024 written,
     with the tests' TIFF writer (``tests/_tiff_writer.py``: zlib for
-    Deflate, its own LZW and PackBits encoders; a pool of processes), as
-    a multipage BigTIFF
-    (Deflate, predictor 2, 256 x 256 tiles), and its first 8 slices as
-    LZW, PackBits and uncompressed stripped TIFFs; each read back by
-    ``data.imread.imread`` bit for bit (decode MB/s, the faster of two
-    reads); ``python -m empanada_tpu_torch infer3d`` of the BigTIFF at
-    ``--downsampling 2`` with phase 5's model as a bundle, in a subprocess
-    on the card (its module run through runpy, as ``-m`` runs it, printing
-    its refine launches), its class TIFF equal to ``api.Engine3d`` at
-    scale 2 + ``stack_postprocessing`` in this process on the numpy
-    volume, 3 refine launches a slice in both (slices/s); ``host_prep`` ms
-    a slice (the scale-2 downsample and normalisation) of the uint16
-    volume beside its uint8 slices (the high bytes); a 1024 x 1024 uint16
-    request at scale 2 through ``api.Engine2d`` beside the uint8 one in 8
-    alternating turns (3 launches each, median ms); ``inputs:`` line; at
-    most 90 s.
+    Deflate, lzma for LZMA, its own LZW and PackBits encoders, the tests'
+    numpy JPEG writer ``tests/_jpeg_writer.py``; a pool of processes), as
+    a multipage BigTIFF (Deflate, predictor 2, 256 x 256 tiles), its
+    first 8 slices as LZW, PackBits, uncompressed and LZMA (predictor 2)
+    stripped TIFFs, the volume / 65535 in float32 as a Deflate TIFF of
+    predictor 3, its high bytes as a grey JPEG-in-TIFF stack (quality 90,
+    JPEGTables) and slice 0's as a ``.jpg``; the committed ZSTD stack
+    ``tests/fixtures/zstd_labels.tif`` (``label_volume``); each read back
+    by ``data.imread.imread`` (decode MB/s, the faster of two reads): bit
+    for bit, the JPEG files the bytes the writer makes where PIL is
+    installed and their reads twice equal and PIL's samples of them
+    (SHA-256s, ``INPUT_JPEG_SHA256``; the error against the source
+    recorded);
+    ``python -m empanada_tpu_torch infer3d`` of the BigTIFF at
+    ``--downsampling 2`` and of the JPEG stack at scale 1 with phase 5's
+    model as a bundle, in two subprocesses on the card side by side (each
+    module run through runpy, as ``-m`` runs it, printing its refine
+    launches; ``cli_wall_s`` from the start of both to that one's exit,
+    with the other beside it), their class TIFFs equal to ``api.Engine3d`` at
+    scale 2 and 1 + ``stack_postprocessing`` in this process on the numpy
+    volume and on ``imread``'s array of the JPEG stack, 3 and 2 refine
+    launches a slice in both (slices/s); ``host_prep`` ms a slice (the
+    scale-2 downsample and normalisation) of the uint16 volume beside its
+    uint8 slices (the high bytes); a 1024 x 1024 uint16 request at scale
+    2 through ``api.Engine2d`` beside the uint8 one in 8 alternating
+    turns (3 launches each, median ms); the float32 slice 0 of the
+    predictor-3 stack refused by ``Engine2d`` before any launch, as the
+    JAX package refuses a float image; ``inputs:`` line; at most 90 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -3743,10 +3755,26 @@ def int8_phase(prr, api, cfg, model, card, bench_float, earlier=None):
 
 
 # phase 18: the inputs the JAX package reads (uint16 at scale 2, compressed,
-# tiled and BigTIFF stacks); its limit, the volume's shape, the stripped
-# copies' depth, the rows of a strip and the side of a tile
+# tiled and BigTIFF stacks, predictor 3, LZMA, ZSTD, JPEG); its limit, the
+# volume's shape, the stripped copies' depth, the rows of a strip and the
+# side of a tile
 INPUTS_LIMIT_S = 90
 INPUT_SHAPE, INPUT_COPY_DEPTH, INPUT_RPS, INPUT_TILE = (32, 1024, 1024), 8, 64, 256
+# the JPEG reads' quality, and the SHA-256 of the file the tests' writer
+# (tests/_jpeg_writer.py, deterministic) makes of this volume's 8-bit
+# slices and of PIL's decoding of it (PIL 12.1 / libjpeg-turbo): the
+# JPEG-in-TIFF stack and the single .jpg of slice 0
+INPUT_JPEG_QUALITY = 90
+INPUT_JPEG_SHA256 = {
+    "jpeg_tiff": ("e03c176534e33a25fdd48a4df0514a5793d55435ff03c277ed22d67c36694e3f",
+                  "7b8e9d314e46d8a48528975563a8df4dc5317363769892dbc6e39e161d945229"),
+    "jpg": ("25cf58d3367f86712696bfbb700afe55e5f6fff2b129f27b2e9c5efec0729778",
+            "9c5fc998290bb09925f5c8348e330937a0db2a43e348f21540ad6ae5cc3c4745")}
+# the committed ZSTD TIFF (the card's machine has no ZSTD encoder):
+# label_volume(ZSTD_SHAPE, ZSTD_SEED) as tests/_tiff_writer.py writes it
+# with zstandard at level 3 in strips of 64 rows
+ZSTD_FIXTURE = os.path.join("tests", "fixtures", "zstd_labels.tif")
+ZSTD_SHAPE, ZSTD_SEED = (8, 1024, 1024), 7
 
 
 def input_volume(shape, seed):
@@ -3764,9 +3792,24 @@ def input_volume(shape, seed):
     return np.clip(vol, 0, 65535).astype(np.uint16)
 
 
+def label_volume(shape, seed):
+    """Seeded uint16 label volume: 48-pixel blocks of random ids (60 % of
+    them background 0), each row shifted by up to 8 pixels (ragged edges)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z, h, w = shape
+    ids = rng.integers(1, 60000, (z, h // 48 + 1, w // 48 + 1)).astype(np.uint16)
+    ids = np.where(rng.random(ids.shape) < 0.4, ids, 0)
+    lab = np.repeat(np.repeat(ids, 48, axis=1), 48, axis=2)[:, :h, :w]
+    cols = (np.arange(w)[None, None, :] + rng.integers(0, 9, (z, h))[..., None]) % w
+    return np.take_along_axis(lab, cols, axis=2)
+
+
 def inputs_phase(prr, api, cfg, model, card):
     """Phase 18 (module docstring).  Returns (the ``inputs:`` record, refine
     launches per path)."""
+    import hashlib
     import multiprocessing
     import shutil
     import tempfile
@@ -3779,6 +3822,7 @@ def inputs_phase(prr, api, cfg, model, card):
     from empanada_tpu_torch.data.volume import resize_by_factor
 
     sys.path.insert(0, os.path.join(HERE, "tests"))  # the pool's processes inherit it
+    from _jpeg_writer import jpeg_bytes
     from _tiff_writer import tiff_bytes
 
     t_phase = time.perf_counter()
@@ -3792,37 +3836,79 @@ def inputs_phase(prr, api, cfg, model, card):
     try:
         vol = input_volume(INPUT_SHAPE, 180)
         copy = vol[:INPUT_COPY_DEPTH]
+        vol8 = (vol >> 8).astype(np.uint8)
+        volf = (vol / np.float32(65535)).astype(np.float32)
         # (a) the files, each strip or tile encoded in a pool of processes
         files = {"deflate": ("vol.tif", dict(compression=8, predictor=2, big=True,
                                              tile=(INPUT_TILE, INPUT_TILE)), vol),
                  "lzw": ("lzw.tif", dict(compression=5, rows_per_strip=INPUT_RPS), copy),
                  "packbits": ("pb.tif", dict(compression=32773, rows_per_strip=INPUT_RPS),
                               copy),
-                 "uncompressed": ("raw.tif", dict(rows_per_strip=INPUT_RPS), copy)}
+                 "uncompressed": ("raw.tif", dict(rows_per_strip=INPUT_RPS), copy),
+                 "deflate_p3_float32": ("p3.tif", dict(compression=8, predictor=3,
+                                                       rows_per_strip=INPUT_RPS), volf),
+                 "lzma": ("lzma.tif", dict(compression=34925, predictor=2,
+                                           rows_per_strip=INPUT_RPS), copy),
+                 "jpeg_tiff": ("jpeg.tif", dict(compression=7, quality=INPUT_JPEG_QUALITY,
+                                                rows_per_strip=INPUT_RPS), vol8)}
         t0 = time.perf_counter()
+        rec["write_s"] = {}
         with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+            jpg = pool.apply_async(jpeg_bytes, (vol8[0], INPUT_JPEG_QUALITY))
             for codec, (name, kw, pages) in files.items():
+                t1 = time.perf_counter()
                 with open(path(name), "wb") as f:
                     f.write(tiff_bytes(list(pages), map_fn=pool.map, **kw))
-        rec["write_s"] = time.perf_counter() - t0
-        # (b) each read back bit for bit, the faster of two reads timed
-        rec["decode_MB_per_s"], rec["file_MB"] = {}, {}
+                rec["write_s"][codec] = time.perf_counter() - t1
+            with open(path("slice.jpg"), "wb") as f:
+                f.write(jpg.get())
+        rec["write_s"]["all"] = time.perf_counter() - t0
+        files["jpg"] = ("slice.jpg", {}, vol8[0])
+        # the committed ZSTD stack (no ZSTD encoder on this machine)
+        files["zstd"] = (os.path.join(HERE, ZSTD_FIXTURE), {}, label_volume(ZSTD_SHAPE, ZSTD_SEED))
+        # (b) each read back, the faster of two reads timed: bit for bit, or
+        # for JPEG (the writer's file as where PIL read it) two reads equal and
+        # PIL's samples; the error against the source recorded
+        rec["decode_MB_per_s"], rec["file_MB"], rec["jpeg_error"] = {}, {}, {}
         for codec, (name, _, pages) in files.items():
-            best = float("inf")
+            best, reads = float("inf"), []
             for _ in range(2):
                 t0 = time.perf_counter()
-                got = imread(path(name))
+                reads.append(imread(path(name)))
                 best = min(best, time.perf_counter() - t0)
-                check(got.dtype == np.uint16 and np.array_equal(got, pages),
+            got = reads[0]
+            if codec in INPUT_JPEG_SHA256:
+                with open(path(name), "rb") as f:
+                    file_sha = hashlib.sha256(f.read()).hexdigest()
+                read_sha = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+                check(file_sha == INPUT_JPEG_SHA256[codec][0],
+                      f"inputs: the writer's {codec} file differs from the one PIL read "
+                      f"({file_sha})")
+                check(got.dtype == np.uint8 and got.shape == pages.shape
+                      and np.array_equal(reads[1], got)
+                      and read_sha == INPUT_JPEG_SHA256[codec][1],
+                      f"inputs: the {codec} read: {got.dtype} {got.shape}, SHA-256 {read_sha}, "
+                      f"not PIL's")
+                err = np.abs(got.astype(np.int16) - pages)
+                rec["jpeg_error"][codec] = {"max": int(err.max()), "mean": float(err.mean())}
+            else:
+                check(got.dtype == pages.dtype and np.array_equal(got, pages)
+                      and np.array_equal(reads[1], pages),
                       f"inputs: the {codec} copy does not read back bit for bit")
+            if codec == "deflate_p3_float32":
+                float_slice = got[0].copy()
+            if codec == "jpeg_tiff":
+                jvol = got
             rec["decode_MB_per_s"][codec] = pages.nbytes / best / 1e6
             rec["file_MB"][codec] = os.path.getsize(path(name)) / 1e6
-        del got
+        del got, reads, volf
 
-        # (c) the command line in a subprocess on the card: infer3d of the
-        # BigTIFF at --downsampling 2, with phase 5's model as a bundle; run
-        # through runpy as ``python -m`` runs it, printing its refine
-        # launches at exit
+        # (c) the command line in two subprocesses on the card, side by
+        # side: infer3d of the BigTIFF at --downsampling 2 and of the
+        # JPEG-in-TIFF stack at scale 1, with phase 5's model as a bundle;
+        # run through runpy as ``python -m`` runs it, printing its refine
+        # launches at exit; each one's wall time from the start of both to
+        # its own exit (polled), while the other runs beside it
         bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
         with open(path("MitoNet_v1.yaml"), "w") as f:
             yaml.safe_dump(dict(cfg, model=bundle), f)
@@ -3834,41 +3920,65 @@ def inputs_phase(prr, api, cfg, model, card):
                        " alter_sys=True)\n"
                        "finally:\n"
                        "    print('refine launches:', prr.launches['full'], flush=True)\n")
+        runs = {"scale2": ["vol.tif", "--downsampling", "2", "-o", path("seg_{class}.tif")],
+                "jpeg": ["jpeg.tif", "-o", path("segj_{class}.tif")]}
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", counted_cli, "infer3d", path("vol.tif"), "--downsampling",
-             "2", "--model", path("MitoNet_v1.yaml"), "-o", path("seg_{class}.tif")],
-            cwd=HERE, capture_output=True, text=True, timeout=120)
-        cli_s = time.perf_counter() - t0
-        check(proc.returncode == 0, f"inputs: python -m empanada_tpu_torch infer3d: "
-              f"{proc.stderr[-2000:]}")
-        lines = proc.stdout.strip().splitlines()
-        n_cli = int(lines[-1].split(":")[1])
+        procs, wall = {}, {}
+        try:
+            for key, args in runs.items():
+                with open(path(f"{key}.out"), "w") as out, open(path(f"{key}.err"), "w") as err:
+                    procs[key] = subprocess.Popen(
+                        [sys.executable, "-c", counted_cli, "infer3d", path(args[0]), *args[1:],
+                         "--model", path("MitoNet_v1.yaml")], cwd=HERE, stdout=out, stderr=err)
+            while len(wall) < len(procs) and time.perf_counter() - t0 < 150:
+                for key, proc in procs.items():
+                    if key not in wall and proc.poll() is not None:
+                        wall[key] = time.perf_counter() - t0
+                time.sleep(0.02)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        cli = {}
+        for key, proc in procs.items():
+            with open(path(f"{key}.out")) as out, open(path(f"{key}.err")) as err:
+                out, err = out.read(), err.read()
+            check(key in wall and proc.returncode == 0,
+                  f"inputs: python -m empanada_tpu_torch infer3d ({key}): "
+                  f"{'rc ' + str(proc.returncode) if key in wall else 'over 150 s'} "
+                  f"{err[-2000:]}")
+            lines = out.strip().splitlines()
+            cli[key] = (lines, int(lines[-1].split(":")[1]), wall[key])
 
-        # (d) the same sweep in this process on the numpy volume
+        # (d) the same sweeps in this process: Engine3d at scale 2 on the
+        # numpy volume, and at scale 1 on imread's array of the JPEG stack
         z = vol.shape[0]
         kw3 = dict(label_divisor=10000, median_kernel_size=3, nms_threshold=0.1, nms_kernel=3,
                    confidence_thr=0.3, min_size=500, min_extent=5)
-        e3 = api.Engine3d(cfg, model=model, inference_scale=2, **kw3)
-        (_, trackers), n_3d, sweep_s = counted(prr, lambda: e3.infer_on_axis(vol, "xy"))
-        outs = list(api.stack_postprocessing({"xy": trackers}, None, cfg, label_divisor=10000,
-                                             min_size=500, min_extent=5))
-        got = imread(path("seg_mito.tif"))
-        same = bool(np.array_equal(got, outs[0][0]))
-        check(n_3d == 3 * z and n_cli == 3 * z and same
-              and lines[0] == f"class mito: {len(outs[0][2])} instances",
-              f"inputs: infer3d --downsampling 2: {n_cli} launches in the command line, "
-              f"{n_3d} in this process for {z} slices, stacks equal {same}, {lines[:1]}")
-        launches["inputs_infer3d_cli"], launches["inputs_engine3d"] = n_cli, n_3d
-        rec["infer3d_scale2"] = {"cli_wall_s": cli_s, "engine_s": sweep_s,
-                                 "slices_per_s": z / sweep_s, "refine_launches": n_3d,
-                                 "cli_refine_launches": n_cli, "slices": z,
-                                 "instances": len(outs[0][2]), "equal": True}
+        for key, volume, scale, out, per_slice in (("scale2", vol, 2, "seg_mito.tif", 3),
+                                                   ("jpeg", jvol, 1, "segj_mito.tif", 2)):
+            e3 = api.Engine3d(cfg, model=model, inference_scale=scale, **kw3)
+            (_, trackers), n_3d, sweep_s = counted(prr, lambda: e3.infer_on_axis(volume, "xy"))
+            outs = list(api.stack_postprocessing({"xy": trackers}, None, cfg,
+                                                 label_divisor=10000, min_size=500, min_extent=5))
+            lines, n_cli, cli_s = cli[key]
+            same = bool(np.array_equal(imread(path(out)), outs[0][0]))
+            check(n_3d == per_slice * z and n_cli == per_slice * z and same
+                  and lines[0] == f"class mito: {len(outs[0][2])} instances",
+                  f"inputs: infer3d ({key}): {n_cli} launches in the command line, {n_3d} in "
+                  f"this process for {z} slices, stacks equal {same}, {lines[:1]}")
+            suffix = "" if key == "scale2" else "_jpeg"
+            launches[f"inputs_infer3d_cli{suffix}"] = n_cli
+            launches[f"inputs_engine3d{suffix}"] = n_3d
+            rec["infer3d_scale2" if key == "scale2" else "infer3d_jpeg"] = {
+                "cli_wall_s": cli_s, "engine_s": sweep_s, "slices_per_s": z / sweep_s,
+                "refine_launches": n_3d, "cli_refine_launches": n_cli, "slices": z,
+                "instances": len(outs[0][2]), "equal": True}
+        del jvol
 
         # (e) host_prep: the scale-2 downsample and normalisation a slice,
         # uint16 beside the uint8 slices of the same volume
         prep = api.Preprocessor(**cfg["norms"])
-        vol8 = (vol >> 8).astype(np.uint8)
         rec["host_prep_ms"] = {}
         for key, v in (("uint16", vol), ("uint8", vol8)):
             prep(resize_by_factor(v[0], 2))
@@ -3891,6 +4001,17 @@ def inputs_phase(prr, api, cfg, model, card):
                 times[key].append(secs * 1e3)
                 launches[f"inputs_engine2d_{key}"] = launches.get(f"inputs_engine2d_{key}", 0) + n
         rec["engine2d_scale2_ms"] = {key: float(np.median(t)) for key, t in times.items()}
+
+        # (g) the float32 slice of the predictor-3 stack at scale 2: Engine2d
+        # refuses a float image, as the JAX package's does, before any launch
+        try:
+            _, n, _ = counted(prr, lambda: e2.infer(float_slice))
+            refused = False
+        except TypeError:
+            refused, n = True, prr.launches["full"]
+        check(refused and n == 0,
+              f"inputs: the float32 slice: refused {refused} ({n} launches)")
+        rec["engine2d_float32"] = {"refused": True, "launches": n}
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     torch.cuda.synchronize()
@@ -4288,9 +4409,11 @@ def main():
                                                earlier)
     print(f"phase 17 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
-    # ---- 18. inputs: a uint16 BigTIFF (and LZW, PackBits, uncompressed
-    # copies) read back, infer3d --downsampling 2 in a subprocess against
-    # Engine3d, uint16 beside uint8 at scale 2
+    # ---- 18. inputs: a uint16 BigTIFF (and LZW, PackBits, uncompressed,
+    # LZMA copies), a predictor-3 float32 stack, a JPEG-in-TIFF stack, a
+    # .jpg and the committed ZSTD stack read back; infer3d --downsampling 2
+    # and infer3d of the JPEG stack in subprocesses against Engine3d,
+    # uint16 beside uint8 at scale 2, the float32 slice
     t0 = time.perf_counter()
     _, launches_18 = inputs_phase(prr, api, cfg, model, card)
     print(f"phase 18 seconds: {time.perf_counter() - t0:.1f}", flush=True)

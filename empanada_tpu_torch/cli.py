@@ -20,8 +20,9 @@ run a model take ``--device`` (default ``cuda``; ``--device cpu`` runs on
 the CPU, as the tests do).  On the card the models run in bfloat16, the
 dtype the PointRend refine kernel takes; on the CPU in float32, as the JAX
 package's command line runs.  Images are read as ``.npy``, PNG (every
-colour type and depth, interlaced or not) or TIFF (classic and BigTIFF,
-strips or tiles, uncompressed, LZW, Deflate or PackBits; ``data/imread.py``),
+colour type and depth, interlaced or not), TIFF (classic and BigTIFF,
+strips or tiles, uncompressed, LZW, Deflate, PackBits, LZMA, ZSTD or JPEG)
+or JPEG (``data/imread.py``),
 written as ``.npy``, PNG or uncompressed TIFF (``data/imwrite.py``), and
 volumes are also read from chunked stores; ``--downsampling`` takes every
 dtype the JAX package's cv2 resizes.  ``models export --quantize`` and

@@ -2,10 +2,11 @@
 ``empanada_tpu/core/native.py``).
 
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
-kernels) and ``csrc/image_codecs.cpp`` (the TIFF LZW and PackBits decoders
-of ``data/imread.py``), compiled at first use with the host C++ compiler
-into ``empanada_tpu_torch/build/`` and named by a hash of the sources.  A failed
-build or load raises: nothing falls back silently.  The numpy formulations
+kernels) and the decoders of ``data/imread.py``: ``csrc/image_codecs.cpp``
+(TIFF LZW and PackBits), ``csrc/zstd_decode.cpp`` (ZSTD) and
+``csrc/jpeg_decode.cpp`` (JPEG), compiled at first use with the host C++
+compiler into ``empanada_tpu_torch/build/`` and named by a hash of the
+sources.  A failed build or load raises: nothing falls back silently.  The numpy formulations
 in the calling modules run only when ``use_native`` is set to False (the
 tests hold both paths to the JAX package); the decoders have none.
 
@@ -47,13 +48,17 @@ __all__ = [
     "gray_watershed",
     "lzw_decode",
     "packbits_decode",
+    "zstd_decode",
+    "jpeg_decode",
+    "jpeg_info",
 ]
 
 # False routes every caller to its numpy formulation
 use_native = True
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRCS = [os.path.join(_PKG, "csrc", name) for name in ("core_kernels.cpp", "image_codecs.cpp")]
+_SRCS = [os.path.join(_PKG, "csrc", name) for name in (
+    "core_kernels.cpp", "image_codecs.cpp", "jpeg_decode.cpp", "zstd_decode.cpp")]
 _BUILD = os.path.join(_PKG, "build")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared"]
 
@@ -141,9 +146,14 @@ def load() -> ctypes.CDLL:
         lib.mask_watershed.restype = None
         lib.gray_watershed.argtypes = [vp, vp, i64, vp, i64, vp, i64, vp]
         lib.gray_watershed.restype = None
-        for name in ("lzw_decode", "packbits_decode"):
+        for name in ("lzw_decode", "packbits_decode", "zstd_decode"):
             getattr(lib, name).argtypes = [vp, i64, vp, i64]
             getattr(lib, name).restype = i64
+        lib.jpeg_info.argtypes = [vp, i64, vp, i64, vp, ctypes.c_char_p, i64]
+        lib.jpeg_info.restype = ci
+        lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, vp, i64, ctypes.c_char_p,
+                                    i64]
+        lib.jpeg_decode.restype = ci
         _LIB = lib
         return lib
 
@@ -522,3 +532,44 @@ def packbits_decode(data, size: int) -> tuple:
     """PackBits (compression 32773) of one strip or tile, as
     ``lzw_decode``."""
     return _decode("packbits_decode", data, size)
+
+
+def zstd_decode(data, size: int) -> tuple:
+    """ZSTD (TIFF compression 50000) of one strip or tile, as ``lzw_decode``;
+    -2 for a frame that needs a dictionary."""
+    return _decode("zstd_decode", data, size)
+
+
+def jpeg_info(data, tables=b"") -> tuple:
+    """(height, width, components) of the JPEG stream ``data`` from its
+    headers alone (after the tables stream ``tables``), without decoding or
+    allocating its samples.  A form the decoder refuses raises ValueError
+    with the reason."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    tab = np.frombuffer(tables, np.uint8)
+    info = np.zeros(3, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(_ptr(tab), len(tab), _ptr(src), len(src), _ptr(info), err, 256):
+        raise ValueError(err.value.decode())
+    return tuple(int(v) for v in info)
+
+
+def jpeg_decode(data, tables=b"", color: int = 0, sampling=(0, 0)) -> np.ndarray:
+    """The (H, W, C) uint8 samples of the JPEG stream ``data`` (C 1 or 3),
+    after the tables stream ``tables`` (a TIFF's JPEGTables); ``color`` 0
+    converts YCbCr to RGB by libjpeg's colour-space rule, 1 never (a TIFF
+    of photometric min-is-black or RGB), 2 always (photometric YCbCr);
+    ``sampling`` (h, v), when given, is the first component's sampling
+    factors a TIFF requires (the others' 1 x 1), as libtiff checks them.
+    A form the decoder refuses, or damaged data, raises ValueError with
+    the reason."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    tab = np.frombuffer(tables, np.uint8)
+    out = np.empty(jpeg_info(data, tables), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_decode(_ptr(tab), len(tab), _ptr(src), len(src), int(color), int(sampling[0]),
+                       int(sampling[1]), _ptr(out), out.size, err, 256):
+        raise ValueError(err.value.decode())
+    return out

@@ -2,7 +2,8 @@
 ``empanada_tpu/curation/tiles.py``): chop a large 2D image (and a mask)
 into zero-padded ``patch_size``² TIFF tiles with a ``metadata.json``
 sidecar, and stitch tiles back.  ``.npy`` inputs are read through a
-memmap, PNG and TIFF ones by ``data.imread.imread`` (every form it reads)."""
+memmap, PNG, TIFF and JPEG ones by ``data.imread.imread`` (every form it
+reads)."""
 
 from __future__ import annotations
 

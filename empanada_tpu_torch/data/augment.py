@@ -26,7 +26,8 @@ The JAX package calls cv2; its arithmetic is reproduced here in numpy:
   reflect-101 borders, bit for bit: uint8 and uint16 in cv2's fixed point
   (exact sums, rounded half up once), int16 and float32 in its float32
   separable filter (the row pass, then the column pass, each as cv2's
-  vector code orders and fuses it; int16 rounded half to even).
+  vector code orders and fuses it; int16 rounded half to even), float64
+  in its float64 one (rows fused in loops of four pixels, columns not).
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ from typing import Optional
 
 import numpy as np
 
-from empanada_tpu_torch.data.volume import (factor_pad_numpy, fma32, resize_linear,
-                                             saturate_cast)
+from empanada_tpu_torch.data.volume import (factor_pad_numpy, fma32, fma64,
+                                             resize_linear, saturate_cast)
 
 __all__ = ["Compose", "create_augmentations", "AUGMENTATIONS", "resize_linear",
            "resize_nearest", "rotation_matrix", "warp_affine", "gaussian_blur"]
@@ -175,7 +176,7 @@ def warp_affine(image: np.ndarray, m: np.ndarray, nearest: bool = False,
 # cv2's small Gaussian kernels (sigma 0) in units of 2^-8
 _SMALL_GAUSSIAN = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16),
                    7: (8, 28, 56, 72, 56, 28, 8)}
-BLUR_DTYPES = (np.uint8, np.uint16, np.int16, np.float32)
+BLUR_DTYPES = (np.uint8, np.uint16, np.int16, np.float32, np.float64)
 
 
 def _vector_width(w: int) -> int:
@@ -236,6 +237,21 @@ def _blur_columns(rows: np.ndarray, k: list, h: int, w: int) -> np.ndarray:
     return out
 
 
+def _blur_rows_f64(s: list, k: list, w: int) -> np.ndarray:
+    """cv2's float64 row pass over the shifted rows ``s``: its loop of four
+    pixels sums the taps in order, fused; the pixels past it, not fused."""
+    out = s[0] * k[0]
+    for i in range(1, len(s)):
+        out = fma64(s[i], k[i], out)
+    vec = w // 4 * 4
+    if vec < w:
+        tail = s[0][:, vec:] * k[0]
+        for i in range(1, len(s)):
+            tail = tail + s[i][:, vec:] * k[i]
+        out[:, vec:] = tail
+    return out
+
+
 def gaussian_blur(image: np.ndarray, ksize: int) -> np.ndarray:
     """cv2.GaussianBlur(image, (k, k), 0) of an (H, W) image, k in {3, 5,
     7}, bit for bit (module docstring)."""
@@ -249,6 +265,23 @@ def gaussian_blur(image: np.ndarray, ksize: int) -> np.ndarray:
     h, w = image.shape
     ys = _border(np.arange(-r, h + r), h, 4)
     xs = _border(np.arange(-r, w + r), w, 4)
+    if image.dtype == np.float64:
+        # cv2's float64 filter: rows as _blur_rows_f64, then the symmetric
+        # column pass unfused; a line of pixels along its length only
+        k = [v / 256 for v in kern]
+        if h == 1 and w == 1:
+            return image.copy()
+        if h > 1:
+            src = image[ys][:, xs] if w > 1 else image[ys]
+            rows = _blur_rows_f64([src[:, i:i + w] for i in range(ksize)], k, w) if w > 1 \
+                else src
+            t = [rows[i:i + h] for i in range(ksize)]
+            out = t[r] * k[r]
+            for j in range(1, r + 1):
+                out = out + (t[r + j] + t[r - j]) * k[r + j]
+            return out
+        src = image[:, xs]
+        return _blur_rows_f64([src[:, i:i + w] for i in range(ksize)], k, w)
     k = [np.float32(v / 256) for v in kern]
     if image.dtype == np.float32:
         if h == 1 or w == 1:

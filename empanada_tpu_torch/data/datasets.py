@@ -6,8 +6,9 @@ inverse-frequency^gamma sampling weights, dataset addition, and the three
 dataset flavours: multiclass panoptic, single instance class and
 boundary-contour.  Files are read by ``data.imread.imread_gray`` as the JAX
 package's cv2 reads them (PNG of every colour type and depth, interlaced
-or not; classic and BigTIFF, strips or tiles, uncompressed, LZW, Deflate
-or PackBits; without cv2 or PIL).
+or not; classic and BigTIFF, strips or tiles, uncompressed, LZW, Deflate,
+PackBits, LZMA, ZSTD or JPEG; baseline and progressive JPEG; without cv2
+or PIL).
 
 Batches are numpy dicts with channel-last targets (the train step's
 contract: image (B, H, W, 1), sem (B, H, W), ctr_hmp (B, H, W, 1),

@@ -1,13 +1,15 @@
-"""Image reading without cv2 or PIL: the PNG and TIFF files that training
-folders, curation and the command line hold, decoded with numpy, zlib and
-the port's host library (``csrc/image_codecs.cpp``: LZW and PackBits).
+"""Image reading without cv2 or PIL: the PNG, TIFF and JPEG files that
+training folders, curation and the command line hold, decoded with numpy,
+zlib, lzma and the port's host library (``csrc/image_codecs.cpp``: LZW and
+PackBits; ``csrc/zstd_decode.cpp``: ZSTD; ``csrc/jpeg_decode.cpp``: JPEG).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
 (Z, H, W).  ``imread_gray(path)`` returns what the JAX package's
 ``_imread_gray`` returns (``cv2.imread(path, IMREAD_UNCHANGED)``, then
-channel 0 of a colour image).  cv2 orders colour channels BGR, so channel
-0 is blue: the last colour channel of the file's RGB.
+channel 0 of a colour image; PIL's array where cv2 reads nothing: an LZMA
+or ZSTD TIFF, whose channel 0 is then red).  cv2 orders colour channels
+BGR, so its channel 0 is blue: the last colour channel of the file's RGB.
 
 PNG: grey at 1, 2, 4, 8 and 16 bits, grey + alpha, RGB and RGBA at 8 and
 16 bits, palette at 1, 2, 4 and 8 bits; any of the five row filters;
@@ -20,32 +22,67 @@ RGBA; cv2 scales 1-bit grey to 8 bits too, looks palette indices up and
 keeps 16 bits.
 
 TIFF: classic and BigTIFF, either byte order; strips or tiles (cut at the
-image's edge); uncompressed, LZW (5), Deflate (8, 32946) or PackBits
-(32773); horizontal differencing (predictor 2, with LZW or Deflate, as
-libtiff applies it); one plane of uint8,
-uint16, int16, int32 or float32 samples: one a pixel (photometric
-min-is-black, or a palette: PIL gives the indices, cv2 the colormap's
-blue scaled to 8 bits), or RGB or RGBA (photometric RGB, 3 or 4).  PIL
-gives int16 grey as int32 (its mode I), keeps the high byte of 16-bit
-colour, opens no colour of other samples than uint8 and uint16 (then
-``imread`` raises; cv2 reads them), and of a fourth sample drops one of
-ExtraSamples 0 (RGBX) and divides one of 1 (associated alpha) out; cv2
-keeps every sample as the file holds it, except that it premultiplies an
-8-bit RGBA TIFF of unassociated alpha (ExtraSamples 2) by its alpha
-(libtiff's ``(v a + 127) / 255``).  ``imread_gray`` reads the first page
-alone, as cv2 does.  Where PIL 12 misreads a file (a big-endian BigTIFF,
-which it does not open; big-endian compressed 16- and 32-bit signed or
-float samples, whose bytes it does not swap) ``imread`` gives the values
-the file holds, as cv2 does.
+image's edge); uncompressed, LZW (5), Deflate (8, 32946), PackBits
+(32773), LZMA (34925), ZSTD (50000) or JPEG (7); horizontal differencing
+(predictor 2) and floating-point differencing (predictor 3: each row's
+bytes as planes, most significant first in either byte order) with LZW,
+Deflate, LZMA and ZSTD, as libtiff applies them; samples together or
+planes apart (planar configuration 2: the strips or tiles of each plane in
+turn); uint8, uint16, int16, int32, float32 or float64 samples: one a
+pixel (min-is-black; min-is-white, which both readers invert at 8 bits
+only; a palette: PIL gives the indices, cv2 the colormap's blue scaled to
+8 bits), RGB or RGBA, 8-bit CMYK (PIL gives the 4 samples, cv2 libtiff's
+RGBA of them: b = (255 - K)(255 - Y) / 255) or 8-bit YCbCr (data units of
+any subsampling libtiff reads, converted by its ``TIFFYCbCrToRGB`` tables
+from the YCbCrCoefficients and ReferenceBlackWhite tags, as cv2 gives
+them; PIL misreads the units, and ``imread`` gives the RGB too).  A JPEG
+page (grey, RGB, or YCbCr converted to RGB as libtiff's JPEGCOLORMODE_RGB
+does) decodes each strip or tile after the JPEGTables tag's tables, its
+first component's sampling factors those of the YCbCrSubsampling tag (1 x
+1 for grey and RGB), as libtiff checks them.  PIL gives int16 grey as
+int32 (its mode I), keeps the high byte of 16-bit colour, opens no colour
+of other samples than uint8 and uint16, no float64 page and no int16 or
+int32 min-is-white one (then ``imread`` raises; cv2 reads them), and of a
+fourth sample drops one of ExtraSamples 0 (RGBX) and divides one of 1
+(associated alpha) out; cv2 keeps every sample as the file holds it,
+except that it premultiplies an 8-bit RGBA TIFF of unassociated alpha
+(ExtraSamples 2) by its alpha (libtiff's ``(v a + 127) / 255``).
+``imread_gray`` reads the first page alone, as cv2 does.  Where PIL 12
+misreads a file (a big-endian BigTIFF, which it does not open; big-endian
+compressed 16- and 32-bit signed or float samples, whose bytes it does not
+swap; YCbCr data units) ``imread`` gives the values the file holds, as cv2
+does; where cv2 misreads one (16-bit and float planes apart, plane 0
+taken for the whole pixel; the last unit of an odd-length row of 4 x 4
+YCbCr units, which libtiff's scanline size leaves unread) ``imread_gray``
+gives the values the file holds.
 
-Anything else (JPEG, TIFF predictor 3, planes apart, another photometric
-interpretation or sample count: min-is-white, CMYK, YCbCr; an APNG frame
-blended OVER with alpha) raises and names the format; a damaged strip
-raises and names the file, the page and the strip.
+JPEG (``.jpg``, and the strips and tiles of a compression-7 TIFF):
+baseline, extended and progressive Huffman at 8 bits, 1 or 3 components,
+any integral sampling factors, restart intervals; decoded as
+libjpeg-turbo decodes it for both readers (the islow IDCT, fancy
+upsampling, its YCbCr tables and colour-space rule): grey (H, W), colour
+RGB for ``imread`` and blue for ``imread_gray``.  Neither reader applies
+an EXIF orientation, and neither does the port.
+
+Anything else raises and names the form: other formats (BMP, GIF, WebP,
+...); arithmetic-coded, lossless, hierarchical, 12-bit, 2- and 4-component
+(CMYK, YCCK) and DNL JPEG, and progressive JPEG whose scans leave
+coefficients unfinished (libjpeg smooths those); old-style JPEG TIFF
+(compression 6); predictor 3 of integer samples; other photometric
+interpretations and sample counts (CMYK with an extra sample or 16 bits,
+16-bit YCbCr, CIELab, masks); an APNG frame blended OVER with alpha; a
+TIFF's JPEG stream wider or taller than its strip or tile (as libtiff
+refuses it, read from the stream's headers before any sample is
+allocated; libtiff's one exception, a last strip of the page's width
+that is too tall, reads) or smaller than it (libtiff reads that with a
+warning, PIL and cv2 then differ).  A damaged strip raises and names the
+file, the page and the strip; a damaged JPEG file names the file.
 """
+
 
 from __future__ import annotations
 
+import lzma
 import os
 import struct
 import zlib
@@ -60,23 +97,31 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # TIFF magic -> (byte order, BigTIFF)
 _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
-_READS = "the port reads PNG and TIFF (module docstring of data/imread.py)"
+_READS = "the port reads PNG, TIFF and JPEG (module docstring of data/imread.py)"
 
 
 class _Raw:
     """One decoded image as the file holds it: ``pixels`` (H, W) or (H, W,
-    C) samples (1-, 2- and 4-bit ones unpacked to their levels), ``kind``
-    grey, grey_alpha, rgb, rgba or palette, the sample ``depth`` in bits,
-    the ``palette`` (N, 3) of a palette image, the ExtraSamples value of a
-    TIFF's fourth sample (``extra``; None without the tag) and ``where``
-    it was read, for errors."""
+    C) samples (1-, 2- and 4-bit ones unpacked to their levels; 8-bit
+    min-is-white inverted and YCbCr converted to RGB, as both readers do),
+    ``kind`` grey, grey_alpha, rgb, rgba, cmyk or palette, the sample
+    ``depth`` in bits, the ``palette`` (N, 3) of a palette image, the
+    ExtraSamples value of a TIFF's fourth sample (``extra``; None without
+    the tag), whether cv2 decodes the file (``cv2_reads``: not LZMA or ZSTD
+    TIFF, where the JAX package's ``_imread_gray`` takes PIL's array) and
+    PIL opens it (``pil_opens``), and ``where`` it was read, for errors."""
 
-    def __init__(self, pixels, kind, depth, where, palette=None, extra=None):
+    def __init__(self, pixels, kind, depth, where, palette=None, extra=None, cv2_reads=True,
+                 pil_opens=True):
         self.pixels, self.kind, self.depth, self.where = pixels, kind, depth, where
         self.palette, self.extra = palette, extra
+        self.cv2_reads, self.pil_opens = cv2_reads, pil_opens
 
     def as_pil(self) -> np.ndarray:
         px = self.pixels
+        if not self.pil_opens:
+            raise ValueError(f"{self.where}: {self.kind} of {px.dtype} samples, which PIL "
+                             f"does not open; {_READS}")
         if self.kind == "grey" and self.depth < 8:
             return px.astype(bool) if self.depth == 1 else self._grey8()
         if self.kind in ("grey", "palette"):
@@ -102,6 +147,9 @@ class _Raw:
 
     def as_cv2_gray(self) -> np.ndarray:
         px = self.pixels
+        if not self.cv2_reads:  # PIL's array, channel 0: red where cv2's is blue
+            pil = self.as_pil()
+            return pil[..., 0] if pil.ndim == 3 else pil
         if self.kind == "palette":
             pal = self.palette
             if pal.dtype == np.uint16:  # a TIFF colormap: 16 bits, or 8 if it fits
@@ -113,6 +161,9 @@ class _Raw:
             return px[..., 0]
         if self.kind == "rgba" and self.extra == 2 and px.dtype == np.uint8:  # premultiplied
             return ((px[..., 2].astype(np.uint32) * px[..., 3] + 127) // 255).astype(np.uint8)
+        if self.kind == "cmyk":  # libtiff's RGBA path: b = (255 - K) (255 - Y) / 255
+            return ((255 - px[..., 3].astype(np.uint32)) * (255 - px[..., 2]) // 255).astype(
+                np.uint8)
         return px[..., 2]
 
 
@@ -125,7 +176,14 @@ def _read_file(path: str, first_only: bool = False):
         return _png_raw(data, path, first_only)
     if data[:4] in _TIFF_MAGIC:
         return _tiff_raw(data, path, first_only)
-    raise ValueError(f"{path}: not a PNG or TIFF file (starts {data[:8]!r}); {_READS}")
+    if data[:2] == b"\xff\xd8":
+        try:
+            px = native.jpeg_decode(data)
+        except ValueError as exc:
+            raise ValueError(f"{path}: {exc}; {_READS}") from None
+        return [_Raw(px[..., 0] if px.shape[2] == 1 else px,
+                     "grey" if px.shape[2] == 1 else "rgb", 8, path)]
+    raise ValueError(f"{path}: not a PNG, TIFF or JPEG file (starts {data[:8]!r}); {_READS}")
 
 
 def imread_gray(path: str) -> np.ndarray:
@@ -300,11 +358,23 @@ def read_png(data: bytes, name: str = "<png>") -> np.ndarray:
 
 # ----- TIFF ------------------------------------------------------------------
 
-# tag type -> struct code (the numeric types; others are skipped)
-_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}
-_TIFF_DTYPES = {(8, 1): "u1", (16, 1): "u2", (16, 2): "i2", (32, 2): "i4", (32, 3): "f4"}
-# (photometric, samples a pixel) read: min-is-black grey, RGB(A), a palette
-_TIFF_FORMS = {(1, 1), (2, 3), (2, 4), (3, 1)}
+# tag type -> struct code (the numeric types; others are skipped); RATIONAL
+# (5) is read as (numerator, denominator) pairs
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q",
+               17: "q"}
+_TIFF_DTYPES = {(8, 1): "u1", (16, 1): "u2", (16, 2): "i2", (32, 2): "i4", (32, 3): "f4",
+                (64, 3): "f8"}
+# (photometric, samples a pixel) read: min-is-white or min-is-black grey,
+# RGB(A), a palette, CMYK, YCbCr
+_TIFF_FORMS = {(0, 1), (1, 1), (2, 3), (2, 4), (3, 1), (5, 4), (6, 3)}
+# the YCbCr subsamplings (h, v) libtiff reads
+_SUBSAMPLINGS = {(1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)}
+_TIFF_CODECS = {1: "none", 5: "LZW", 7: "JPEG", 8: "Deflate", 32946: "Deflate",
+                32773: "PackBits", 34925: "LZMA", 50000: "ZSTD"}
+# the compressions libtiff applies a predictor with, and those cv2 5 cannot
+# decode (its libtiff is built without them)
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+_NOT_IN_CV2 = (34925, 50000)
 
 
 def _tiff_ifd(data: bytes, end: str, big: bool, ifd: int):
@@ -319,11 +389,19 @@ def _tiff_ifd(data: bytes, end: str, big: bool, ifd: int):
         code = _TIFF_TYPES.get(typ)
         if code is None:
             continue
+        count *= 2 if typ == 5 else 1
         size = struct.calcsize(code) * count
         value = at + entry - value_size
         if size > value_size:
             (value,) = struct.unpack_from(end + ("Q" if big else "I"), data, value)
+        if typ == 7:
+            tags[tag] = bytes(data[value:value + count])
+            continue
         tags[tag] = struct.unpack_from(end + code * count, data, value)
+        if typ == 5:  # as libtiff keeps a RATIONAL: a float
+            v = tags[tag]
+            tags[tag] = tuple(np.float32(v[k] / v[k + 1]) if v[k + 1] else np.float32(0)
+                              for k in range(0, count, 2))
     (next_ifd,) = struct.unpack_from(end + ("Q" if big else "I"), data, base + entry * n)
     return tags, next_ifd
 
@@ -354,15 +432,55 @@ def _tiff_chunk(data: bytes, offset: int, count: int, compression: int, size: in
         except zlib.error as exc:
             raise ValueError(f"{where}: damaged Deflate data ({exc})") from None
         got = len(buf)
+    elif compression == 34925:  # an .xz stream, never decoded past the strip's size
+        try:
+            buf = lzma.LZMADecompressor().decompress(src, size)
+        except lzma.LZMAError as exc:
+            raise ValueError(f"{where}: damaged LZMA data ({exc})") from None
+        got = len(buf)
     else:
-        out, got = (native.lzw_decode if compression == 5 else native.packbits_decode)(src, size)
+        decode = {5: native.lzw_decode, 32773: native.packbits_decode,
+                  50000: native.zstd_decode}[compression]
+        out, got = decode(src, size)
         if got < 0:
-            raise ValueError(f"{where}: damaged {'LZW' if compression == 5 else 'PackBits'} "
-                             "data (a code the stream cannot hold)")
+            what = ("a dictionary, which the port does not read" if got == -2
+                    else "a code the stream cannot hold")
+            raise ValueError(f"{where}: damaged {_TIFF_CODECS[compression]} data ({what})")
         buf = out
     if got < size:
         raise ValueError(f"{where}: {got} bytes decoded of the {size} its rows hold")
     return buf
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
+    """libtiff's ``TIFFYCbCrToRGB`` of (..., 3) uint8 Y, Cb, Cr: its
+    tables from YCbCrCoefficients (529) and ReferenceBlackWhite (532) in
+    float32 and 16-bit fixed point, as ``TIFFYCbCrToRGBInit`` builds them."""
+    f32, one_half = np.float32, 1 << 15
+    lr, lg, lb = (f32(v) for v in tags.get(529, (0.299, 0.587, 0.114)))
+    ref = [f32(v) for v in tags.get(532, (0, 255, 128, 255, 128, 255))]
+
+    def fix(v):  # FIX(CLAMP(v, 0, 2)): a float32 product, + 0.5 in double, truncated
+        return int(float(f32(min(max(v, f32(0)), f32(2))) * f32(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):  # float32, clamped to +-4096, truncated
+        den = rw - rb if rw - rb != 0 else f32(1)
+        v = ((c - np.int32(int(rb))).astype(f32) * f32(cr)) / f32(den)
+        return np.clip(v, f32(-4096), f32(4096)).astype(np.int64)
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+    x = np.arange(-128, 128, dtype=np.int32)
+    cr = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+    cb = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+    y_tab = code2v(x + 128, ref[0], ref[1], 255)
+    y = y_tab[ycc[..., 0]]
+    cb_i, cr_i = ycc[..., 1], ycc[..., 2]
+    r = y + ((d1 * cr + one_half) >> 16)[cr_i]
+    g = y + (((d4 * cb + one_half)[cb_i] + (d2 * cr)[cr_i]) >> 16)
+    b = y + ((d3 * cb + one_half) >> 16)[cb_i]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
 def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int):
@@ -373,62 +491,123 @@ def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int)
     compression = tags.get(259, (1,))[0]
     photometric = tags.get(262, (1,))[0]
     spp = tags.get(277, (1,))[0]
-    planar = tags.get(284, (1,))[0]
-    # libtiff applies a predictor with LZW and Deflate only
-    predictor = tags.get(317, (1,))[0] if compression in (5, 8, 32946) else 1
+    planar = tags.get(284, (1,))[0] if spp > 1 else 1
+    predictor = tags.get(317, (1,))[0] if compression in _PREDICTED else 1
     fmt = tags.get(339, (1,))[0]
-    extra = tags.get(338, (None,))[0] if spp == 4 else None
+    extra = tags.get(338, (None,))[0] if spp == 4 and photometric == 2 else None
+    sub = tuple(tags.get(530, (2, 2))) if photometric == 6 else (1, 1)
     dtype = _TIFF_DTYPES.get((bits[0], fmt))
-    if compression not in (1, 5, 8, 32946, 32773) or predictor not in (1, 2) or planar != 1 \
+    where = f"{name}: TIFF page {page}"
+    if compression == 6:
+        raise ValueError(f"{where}: old-style JPEG (compression 6) is not read; {_READS}")
+    byte_forms = photometric in (5, 6) or compression == 7
+    if compression not in _TIFF_CODECS or predictor not in (1, 2, 3) or planar not in (1, 2) \
             or dtype is None or len(set(bits)) != 1 or (photometric, spp) not in _TIFF_FORMS \
-            or extra not in (None, 0, 1, 2) or (photometric == 3 and 320 not in tags):
+            or extra not in (None, 0, 1, 2) or (photometric == 3 and 320 not in tags) \
+            or (predictor == 3 and fmt != 3) or (byte_forms and dtype != "u1") \
+            or (compression == 7 and (planar != 1 or photometric not in (1, 2, 6))) \
+            or (photometric == 6 and (planar != 1 or sub not in _SUBSAMPLINGS
+                                      or (sub != (1, 1) and predictor != 1))):
         raise ValueError(
-            f"{name}: TIFF page {page} with compression {compression}, predictor {predictor}, "
-            f"bits {bits}, sample format {fmt}, {spp} samples, extra samples {extra}, planar "
-            f"{planar}, photometric {photometric} is not read; {_READS}")
+            f"{where} with compression {compression}, predictor {predictor}, bits {bits}, "
+            f"sample format {fmt}, {spp} samples, extra samples {extra}, planar {planar}, "
+            f"photometric {photometric} is not read; {_READS}")
     itemsize = bits[0] // 8
+    planes = spp if planar == 2 else 1
+    per_plane = spp // planes  # samples in each strip's or tile's pixel
     if 322 in tags:
         tw, th = tags[322][0], tags[323][0]
         offsets, counts = tags[324], tags[325]
         across = -(-w // tw)
-        boxes = [((t // across) * th, (t % across) * tw) for t in range(len(offsets))]
+        boxes = [((t // across) * th, (t % across) * tw) for t in range(-(-h // th) * across)]
         label = "tile"
     else:
         rps = min(tags.get(278, (h,))[0], h)
         offsets, counts = tags[273], tags[279]
         tw = w
-        boxes = [(s * rps, 0) for s in range(len(offsets))]
+        boxes = [(s * rps, 0) for s in range(-(-h // rps))]
         label = "strip"
+    if len(offsets) < len(boxes) * planes or len(counts) < len(offsets):
+        raise ValueError(f"{where}: {len(offsets)} {label}s for {len(boxes) * planes}")
     out = np.empty((h, w, spp), dtype)
+    tables = bytes(tags.get(347, b""))  # UNDEFINED (7) or BYTE (1)
 
     def place(i):
-        """Decode strip or tile i into ``out`` (zlib, the host library and
-        numpy release the GIL: the pool's threads decode LZW and Deflate
-        in parallel)."""
-        (y0, x0), rows = boxes[i], th if label == "tile" else min(rps, h - boxes[i][0])
-        if rows <= 0:
+        """Decode strip or tile i (plane-major when the planes are apart)
+        into ``out`` (zlib, lzma, the host library and numpy release the
+        GIL: the pool's threads decode in parallel)."""
+        plane, k = divmod(i, len(boxes))
+        (y0, x0), rows = boxes[k], th if label == "tile" else min(rps, h - boxes[k][0])
+        chunk = f"{where}, {label} {i}"
+        rh, rw = min(rows, h - y0), min(tw, w - x0)
+        if compression == 7:
+            src = data[offsets[i]:offsets[i] + counts[i]]
+            try:
+                # libtiff's JPEGPreDecode, before any sample is allocated: a
+                # stream larger than its strip or tile is refused, except a
+                # last strip of the page's width that is too tall
+                jh, jw, _ = native.jpeg_info(src, tables)
+                if jw > tw or (jh > rows and not (label == "strip" and jw == tw
+                                                   and y0 + rows == h)):
+                    raise ValueError(f"a JPEG of {jw} x {jh} exceeds its {tw} x {rows} {label}")
+                block = native.jpeg_decode(src, tables, 2 if photometric == 6 else 1, sub)
+            except ValueError as exc:
+                raise ValueError(f"{chunk}: {exc}") from None
+            if block.shape[0] < rh or block.shape[1] < rw or block.shape[2] != spp:
+                raise ValueError(f"{chunk}: a JPEG of {block.shape} for {rows} rows of {tw}")
+            out[y0:y0 + rh, x0:x0 + rw] = block[:rh, :rw]
             return
-        where = f"{name}: TIFF page {page}, {label} {i}"
-        buf = _tiff_chunk(data, offsets[i], counts[i], compression, rows * tw * spp * itemsize,
-                          where)
-        block = np.frombuffer(buf, end + dtype, rows * tw * spp).reshape(rows, tw, spp)
+        if sub != (1, 1):  # YCbCr data units: sh x sv Y samples, then Cb and Cr
+            sh, sv = sub
+            uy, ux = -(-rows // sv), -(-tw // sh)
+            buf = _tiff_chunk(data, offsets[i], counts[i], compression,
+                              uy * ux * (sh * sv + 2), chunk)
+            units = np.frombuffer(buf, np.uint8, uy * ux * (sh * sv + 2)).reshape(uy, ux, -1)
+            luma = units[..., :sh * sv].reshape(uy, ux, sv, sh).transpose(0, 2, 1, 3)
+            chroma = units[..., None, None, sh * sv:]
+            block = np.concatenate([luma.reshape(uy, sv, ux, sh, 1),
+                                    np.broadcast_to(chroma.transpose(0, 2, 1, 3, 4),
+                                                    (uy, sv, ux, sh, 2))], -1)
+            block = block.reshape(uy * sv, ux * sh, 3)
+            out[y0:y0 + rh, x0:x0 + rw] = block[:rh, :rw]
+            return
+        size = rows * tw * per_plane * itemsize
+        buf = _tiff_chunk(data, offsets[i], counts[i], compression, size, chunk)
+        if predictor == 3:
+            # libtiff's fpAcc: each row summed bytewise with stride spp, its
+            # bytes then planes, the most significant first whatever the
+            # file's byte order: big-endian samples once put back together
+            raw = np.frombuffer(buf, np.uint8, size).reshape(rows, -1, per_plane)
+            raw = np.cumsum(raw, axis=1, dtype=np.uint8).reshape(rows, itemsize, -1)
+            block = np.ascontiguousarray(raw.transpose(0, 2, 1)).view(">" + dtype)
+        else:
+            block = np.frombuffer(buf, end + dtype, rows * tw * per_plane)
+        block = block.reshape(rows, tw, per_plane)
         if predictor == 2:  # differences along the row, modulo the sample width
             block = np.cumsum(block.astype(dtype).view(f"u{itemsize}"), axis=1,
                               dtype=f"u{itemsize}").view(dtype)
-        rh, rw = min(rows, h - y0), min(tw, w - x0)
-        out[y0:y0 + rh, x0:x0 + rw] = block[:rh, :rw]
-    if compression in (5, 8, 32946) and len(offsets) > 1:  # the slow codecs
-        list(_pool().map(place, range(len(offsets))))
+        cols = slice(plane, plane + 1) if planes > 1 else slice(None)
+        out[y0:y0 + rh, x0:x0 + rw, cols] = block[:rh, :rw]
+    n_chunks = len(boxes) * planes
+    if compression in (5, 7, 8, 32946, 34925, 50000) and n_chunks > 1:  # the slow codecs
+        list(_pool().map(place, range(n_chunks)))
     else:
-        for i in range(len(offsets)):
+        for i in range(n_chunks):
             place(i)
     pixels = out[..., 0] if spp == 1 else out
-    where = f"{name}: TIFF page {page}"
+    cv2_reads = compression not in _NOT_IN_CV2
     if photometric == 3:
         cmap = np.asarray(tags[320], np.uint16).reshape(3, -1).T
-        return _Raw(pixels, "palette", bits[0], where, cmap), next_ifd
-    kind = {1: "grey", 3: "rgb", 4: "rgba"}[spp]
-    return _Raw(pixels, kind, bits[0], where, extra=extra), next_ifd
+        return _Raw(pixels, "palette", bits[0], where, cmap, cv2_reads=cv2_reads), next_ifd
+    if photometric == 6 and compression != 7:
+        pixels = _ycbcr_to_rgb(pixels, tags)
+    if photometric == 0 and dtype == "u1":  # both readers invert 8-bit min-is-white
+        pixels = 255 - pixels
+    kind = {1: "grey", 3: "rgb", 4: "cmyk" if photometric == 5 else "rgba"}[spp]
+    # PIL opens no float64 page, and no int16 or int32 min-is-white one
+    pil_opens = dtype != "f8" and not (photometric == 0 and dtype in ("i2", "i4"))
+    return _Raw(pixels, kind, bits[0], where, extra=extra, cv2_reads=cv2_reads,
+                pil_opens=pil_opens), next_ifd
 
 
 def _tiff_raw(data: bytes, name: str, first_only: bool = False) -> list:

@@ -1,9 +1,11 @@
 """A TIFF writer for the port's input tests and for phase 18 of
 chip_smoke.py: the port writes no compressed file (the JAX package's
 ``_save_labels`` writes uncompressed ones), so the files it must read are
-encoded here, with zlib for Deflate and the LZW and PackBits encoders
-below."""
+encoded here, with zlib for Deflate, ``lzma`` for LZMA, ``zstandard`` (the
+tests' machine only) for ZSTD, ``_jpeg_writer`` for JPEG and the LZW and
+PackBits encoders below."""
 
+import lzma
 import struct
 import zlib
 
@@ -77,32 +79,74 @@ def packbits_encode(data: bytes, row_bytes: int) -> bytes:
     return bytes(out)
 
 
+# the compressions libtiff applies a predictor with
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+
+
+def float_difference(block: np.ndarray) -> np.ndarray:
+    """Predictor 3 of (rows, w, spp) float samples, as libtiff's ``fpDiff``
+    writes it: each row's bytes as planes, most significant first whatever
+    the file's byte order, then differenced bytewise with stride spp."""
+    rows, w, spp = block.shape
+    item = block.dtype.itemsize
+    planes = np.ascontiguousarray(block).astype(block.dtype.newbyteorder(">")).view(
+        np.uint8).reshape(rows, w * spp, item).transpose(0, 2, 1).reshape(rows, -1)
+    out = planes.copy()
+    out[:, spp:] -= planes[:, :-spp]
+    return out
+
+
 def encode_chunk(args) -> bytes:
     """One strip or tile of ``tiff_bytes``: (compression, raw bytes, bytes a
-    row) -> the bytes written."""
-    compression, raw, row_bytes = args
+    row, JPEG quality) -> the bytes written.  A JPEG strip (7) is an
+    abbreviated stream of one grey (rows, bytes a row) block: its tables are
+    the page's JPEGTables."""
+    compression, raw, row_bytes, quality = args
     if compression == 5:
         return lzw_encode(raw)
-    if compression == 8:
+    if compression in (8, 32946):
         return zlib.compress(raw, 6)
     if compression == 32773:
         return packbits_encode(raw, row_bytes)
+    if compression == 34925:  # an .xz stream a strip, as libtiff writes it
+        return lzma.compress(raw, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+    if compression == 50000:
+        import zstandard
+
+        return zstandard.ZstdCompressor(level=quality or 3).compress(raw)
+    if compression == 7:
+        from _jpeg_writer import jpeg_bytes
+
+        grey = np.frombuffer(raw, np.uint8).reshape(-1, row_bytes)
+        return jpeg_bytes(grey, quality or 75, tables=False)
     return raw
 
 
 def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None,
                big=False, order="<", extra_samples=None, colormap=None, photometric=None,
-               map_fn=map):
+               map_fn=map, planar=1, subsampling=None, quality=None, extra_tags=(),
+               jpeg_fn=None):
     """A TIFF of ``pages`` ((H, W) or (H, W, C) arrays of one dtype): classic
     or BigTIFF (``big``), byte order ``order``, in strips of
     ``rows_per_strip`` rows (all by default) or ``tile`` (w, h) tiles
-    (zero-padded at the edges), uncompressed (1), LZW (5), Deflate (8) or
-    PackBits (32773), with horizontal differencing (``predictor`` 2, LZW
-    and Deflate only) or without;
-    grey, RGB, RGBA (``extra_samples`` the ExtraSamples value) or a palette
-    (``colormap``, 3 x 2^bits uint16); ``photometric`` overrides the
-    Photometric tag those imply.  ``map_fn`` maps ``encode_chunk``
-    over the strips or tiles (a process pool's ``map`` spreads them)."""
+    (zero-padded at the edges), uncompressed (1), LZW (5), Deflate (8),
+    PackBits (32773), LZMA (34925), ZSTD (50000, at level ``quality``) or
+    JPEG (7: grey uint8 pages at ``quality``, the tables in JPEGTables),
+    with horizontal differencing (``predictor`` 2) or floating-point
+    differencing (3, float samples), LZW, Deflate, LZMA and ZSTD only, or
+    without; samples together (``planar`` 1) or each plane in strips or
+    tiles of its own (2); grey, RGB, RGBA (``extra_samples`` the
+    ExtraSamples value) or a palette (``colormap``, 3 x 2^bits uint16);
+    ``photometric`` overrides the Photometric tag those imply.  YCbCr
+    pages (photometric 6) of ``subsampling`` (h, v) are written in its data
+    units (h x v Y samples, then Cb and Cr: the page's channels 1 and 2 at
+    the unit's top-left pixel; strips only), with the YCbCrSubsampling
+    tag.  ``extra_tags`` adds (tag, type, values) entries (types 3, 4, 5 as (num, den) pairs,
+    7, 16).  ``map_fn`` maps ``encode_chunk`` over the strips or tiles (a
+    process pool's ``map`` spreads them).  ``jpeg_fn`` (compression 7)
+    encodes each (rows, w, samples) uint8 strip or tile as a whole JPEG
+    stream instead, tables included (no JPEGTables tag): colour JPEG from
+    another encoder."""
     fmt = {"u": 1, "i": 2, "f": 3}
     off = "Q" if big else "I"
     out = bytearray((b"II" if order == "<" else b"MM")
@@ -110,30 +154,50 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
                         (43, 8, 0, 0) if big else (42, 0))))
     link = len(out) - (8 if big else 4)  # where the next IFD's offset goes
     pages = [np.asarray(p) for p in pages]
-    blocks_of, jobs = [], []
+    blocks_of, jobs, raw_blocks = [], [], []
     for page in pages:
         h, w = page.shape[:2]
         spp = page.shape[2] if page.ndim == 3 else 1
         px = page.reshape(h, w, spp)
         item = px.dtype.itemsize
-        if tile:
-            tw, th = tile
-            ny, nx = -(-h // th), -(-w // tw)
-            padded = np.zeros((ny * th, nx * tw, spp), px.dtype)
-            padded[:h, :w] = px
-            blocks = [padded[y * th:(y + 1) * th, x * tw:(x + 1) * tw]
-                      for y in range(ny) for x in range(nx)]
-        else:
-            rps = rows_per_strip or h
-            blocks = [px[y:y + rps] for y in range(0, h, rps)]
+        if subsampling and compression != 7:
+            # YCbCr data units: (h/v rows, w/h units a row, h*v + 2 samples a unit)
+            sh, sv = subsampling
+            ny, nx = -(-h // sv), -(-w // sh)
+            full = np.zeros((ny * sv, nx * sh, 3), px.dtype)
+            full[:h, :w] = px
+            full[h:] = full[h - 1:h]
+            full[:, w:] = full[:, w - 1:w]
+            luma = full[..., 0].reshape(ny, sv, nx, sh).transpose(0, 2, 1, 3).reshape(ny, nx, -1)
+            px = np.concatenate([luma, full[::sv, ::sh, 1:]], -1).reshape(ny, -1, 1)
+        planes = [px] if planar == 1 else [px[..., c:c + 1] for c in range(spp)]
+        blocks = []
+        for plane in planes:
+            if tile:
+                tw, th = tile
+                ny, nx = -(-h // th), -(-w // tw)
+                padded = np.zeros((ny * th, nx * tw, plane.shape[2]), px.dtype)
+                padded[:h, :w] = plane
+                blocks += [padded[y * th:(y + 1) * th, x * tw:(x + 1) * tw]
+                           for y in range(ny) for x in range(nx)]
+            else:
+                rps = rows_per_strip or h
+                step = rps // subsampling[1] if subsampling and compression != 7 else rps
+                blocks += [plane[y:y + step] for y in range(0, plane.shape[0], step)]
         blocks_of.append(len(blocks))
+        raw_blocks += blocks
         for block in blocks:
-            if predictor == 2 and compression in (5, 8):  # as libtiff applies it
+            row_bytes = block.shape[1] * block.shape[2] * item
+            if predictor == 3 and compression in _PREDICTED:
+                jobs.append((compression, float_difference(block).tobytes(), row_bytes, quality))
+                continue
+            if predictor == 2 and compression in _PREDICTED:  # as libtiff applies it
                 u = np.ascontiguousarray(block).view(f"u{item}")
                 block = np.concatenate([u[:, :1], u[:, 1:] - u[:, :-1]], axis=1)
             raw = np.ascontiguousarray(block).astype(block.dtype.newbyteorder(order)).tobytes()
-            jobs.append((compression, raw, block.shape[1] * spp * item))
-    encoded = iter(list(map_fn(encode_chunk, jobs)))
+            jobs.append((compression, raw, row_bytes, quality))
+    encoded = iter([jpeg_fn(b) for b in raw_blocks] if jpeg_fn
+                   else list(map_fn(encode_chunk, jobs)))
     for page, n_blocks in zip(pages, blocks_of):
         h, w = page.shape[:2]
         spp = page.shape[2] if page.ndim == 3 else 1
@@ -148,8 +212,8 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
         tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [item * 8] * spp), (259, 3, [compression]),
                 (262, 3, [photometric if photometric is not None
                           else 3 if colormap is not None else 2 if spp >= 3 else 1]),
-                (277, 3, [spp]), (284, 3, [1]),
-                (339, 3, [fmt[page.dtype.kind]] * spp)]
+                (277, 3, [spp]), (284, 3, [planar]),
+                (339, 3, [fmt[page.dtype.kind]] * spp)] + list(extra_tags)
         counts = [len(c) for c in chunks]
         if tile:
             tags += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 16 if big else 4, offsets),
@@ -163,8 +227,14 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
             tags.append((320, 3, np.asarray(colormap).reshape(-1).tolist()))
         if extra_samples is not None:
             tags.append((338, 3, [extra_samples]))
+        if subsampling:
+            tags.append((530, 3, list(subsampling)))
+        if compression == 7 and jpeg_fn is None:
+            from _jpeg_writer import jpeg_tables
+
+            tags.append((347, 7, list(jpeg_tables(quality or 75))))
         tags.sort()
-        codes = {3: "H", 4: "I", 16: "Q"}
+        codes = {3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}
         inline = 8 if big else 4
         entries = b""
         values = bytearray()
@@ -174,7 +244,8 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
         out += b"\0" * (ifd - len(out))
         spill = ifd + head + n_entry * len(tags) + inline
         for tag, typ, vals in tags:
-            raw = struct.pack(order + codes[typ] * len(vals), *vals)
+            flat = [v for pair in vals for v in pair] if typ == 5 else vals
+            raw = struct.pack(order + codes[typ] * len(vals), *flat)
             if len(raw) <= inline:
                 field = raw.ljust(inline, b"\0")
             else:

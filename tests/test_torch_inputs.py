@@ -2,26 +2,38 @@
 the CPU at small sizes; every comparison is exact (tolerance 0):
 
 - TIFF written by ``_tiff_writer.tiff_bytes`` (the writer phase 18 of
-  chip_smoke.py uses too: LZW, Deflate and PackBits encoders of its own)
-  at odd sizes: uint8, uint16, int16, int32 and float32 pages,
-  uncompressed, LZW, Deflate and PackBits, with and without horizontal
-  differencing, in strips and in tiles cut at the edge, classic and
-  BigTIFF, both byte orders; RGB and RGBA of each sample type and each
-  ExtraSamples value; and TIFF written by PIL (libtiff's LZW, Deflate,
-  PackBits, with a predictor; a BigTIFF; RGB, RGBA, palette).
-  ``imread_gray`` equals the JAX package's ``_imread_gray`` (cv2),
-  ``imread`` its ``cli._load_array`` (PIL), both the pages written.  PIL
-  12 misreads two of the forms (it does not open a big-endian BigTIFF,
-  and does not swap big-endian compressed 16- and 32-bit signed or float
-  samples): there ``imread`` equals the pages written and cv2;
+  chip_smoke.py uses too: LZW, Deflate and PackBits encoders of its own,
+  zlib, lzma and zstandard) at odd sizes: uint8, uint16, int16, int32,
+  float32 and float64 pages, uncompressed, LZW, Deflate, PackBits, LZMA
+  and ZSTD, with and without horizontal differencing (floating-point
+  differencing, predictor 3, for floats), in strips and in tiles cut at
+  the edge, classic and BigTIFF, both byte orders; RGB and RGBA of each
+  sample type and each ExtraSamples value; planes apart; min-is-white,
+  CMYK and YCbCr (each subsampling, ReferenceBlackWhite and
+  YCbCrCoefficients); and TIFF written by PIL (libtiff's LZW, Deflate,
+  PackBits, LZMA, ZSTD and JPEG, with a predictor; a BigTIFF; RGB, RGBA,
+  palette).  ``imread_gray`` equals the JAX package's ``_imread_gray``
+  (cv2, or PIL where cv2 reads nothing: LZMA and ZSTD), ``imread`` its
+  ``cli._load_array`` (PIL), both the pages written.  PIL 12 misreads
+  some forms (it does not open a big-endian BigTIFF, does not swap
+  big-endian compressed 16- and 32-bit signed or float samples, and
+  reads uncompressed YCbCr with the wrong layout) and opens no float64
+  page: there ``imread`` equals the pages written and cv2, or raises
+  with PIL; cv2 misreads 16-bit and float planes apart (plane 0 taken
+  for the whole pixel): there ``imread_gray`` equals the pages written;
 - PNG of every colour type and bit depth (grey 1-16, RGB and RGBA 8 and
   16, palette 1-8, grey + alpha 8 and 16), interlaced or not, every row
   filter, and PIL's own palette, bilevel, grey + alpha and ``tRNS`` files;
-- a damaged LZW, Deflate or PackBits strip, or a cut uncompressed one,
-  raises naming the file, the page and the strip; JPEG, TIFF predictor 3
-  and the photometric forms not read (min-is-white, CMYK, YCbCr) are
-  refused, naming themselves; ``imread_gray`` reads a TIFF's first page
-  alone, as cv2 does;
+- a damaged LZW, Deflate, PackBits, LZMA, ZSTD or JPEG strip, or a cut
+  uncompressed one, raises naming the file, the page and the strip; the
+  forms the port does not read (arithmetic, lossless, hierarchical,
+  12-bit, CMYK and DNL JPEG; old-style JPEG TIFF, predictor 3 of integer
+  samples; BMP and GIF; the photometric forms and sample counts neither
+  reader takes) are refused, naming themselves; ``imread_gray`` reads a
+  TIFF's first page alone, as cv2 does; the ZSTD decoder equals
+  zstandard's frames at levels 1 to 19, with and without checksums, and
+  reads the committed ZSTD stack phase 18 reads on the card
+  (``chip_smoke.label_volume``) as PIL does;
 - uint16 volumes and images at ``inference_scale`` 2 through the port's
   ``Engine3d``, ``MultiChipEngine3d`` and ``Engine2d`` equal the JAX
   package's maps and stacks (small widths, seeded weights carried by the
@@ -54,7 +66,7 @@ from empanada_tpu_torch.parallel.data_parallel import MultiChipEngine3d
 from test_torch_ortho import CFG, _volume, assert_same_trackers
 
 jax_gray = JD._imread_gray
-DTYPES = (np.uint8, np.uint16, np.int16, np.int32, np.float32)
+DTYPES = (np.uint8, np.uint16, np.int16, np.int32, np.float32, np.float64)
 
 
 def _pages(rng, dtype, shape, n=2):
@@ -78,7 +90,15 @@ def _pil_dtype(dtype):
 
 # ---- TIFF ----------------------------------------------------------------------
 
-CODECS = [(1, 1), (5, 1), (5, 2), (8, 1), (8, 2), (32773, 1)]
+CODECS = [(1, 1), (5, 1), (5, 2), (8, 1), (8, 2), (32773, 1), (34925, 1), (34925, 2),
+          (50000, 1), (50000, 2)]
+
+
+def _raises_with_pil(read, path, want=ValueError, match="which PIL does not open"):
+    with pytest.raises(Exception):
+        jax_load(path)
+    with pytest.raises(want, match=match):
+        read(path)
 
 
 @pytest.mark.parametrize("order", ["<", ">"])
@@ -87,42 +107,77 @@ CODECS = [(1, 1), (5, 1), (5, 2), (8, 1), (8, 2), (32773, 1)]
 @pytest.mark.parametrize("compression,predictor", CODECS,
                          ids=[f"c{c}-p{p}" for c, p in CODECS])
 def test_tiff_forms_read_as_pil_and_cv2(compression, predictor, tile, big, order, tmp_path):
+    """Each dtype; floats take predictor 3 where the others take 2.  cv2
+    decodes no LZMA or ZSTD: ``imread_gray`` then equals PIL's array."""
     rng = np.random.default_rng(compression + predictor)
+    cv2_reads = compression not in (34925, 50000)
     for dtype in DTYPES:
-        if predictor == 2 and dtype == np.float32:
-            continue  # floats take predictor 3, which the port refuses
+        floats = np.dtype(dtype).kind == "f"
         pages = _pages(rng, dtype, (37, 53))
         path = str(tmp_path / f"{np.dtype(dtype).name}.tif")
         with open(path, "wb") as f:
-            f.write(tiff_bytes(pages, compression, predictor, tile,
-                                          None if tile else 8, big, order))
-        got, gray = imread(path), imread_gray(path)
-        _same(gray, jax_gray(path))
-        _same(gray, pages[0])
-        np.testing.assert_array_equal(got, np.stack(pages))
-        assert got.dtype == _pil_dtype(dtype)
+            f.write(tiff_bytes(pages, compression, 3 if predictor == 2 and floats else predictor,
+                               tile, None if tile else 8, big, order))
         pil_misreads = order == ">" and (big or (compression != 1 and dtype in (
             np.int16, np.int32, np.float32)))
-        if not pil_misreads:
-            _same(got, jax_load(path))
+        if dtype == np.float64:  # PIL opens no float64 page
+            _raises_with_pil(imread, path)
+        else:
+            got = imread(path)
+            np.testing.assert_array_equal(got, np.stack(pages))
+            assert got.dtype == _pil_dtype(dtype)
+            if not pil_misreads:
+                _same(got, jax_load(path))
+        if cv2_reads:
+            gray = imread_gray(path)
+            _same(gray, jax_gray(path))
+            _same(gray, pages[0])
+        elif dtype == np.float64:
+            _raises_with_pil(imread_gray, path)
+        else:  # the JAX package's PIL fallback
+            gray = imread_gray(path)
+            _same(gray, pages[0].astype(_pil_dtype(dtype)))
+            if not pil_misreads:
+                _same(gray, jax_gray(path))
 
 
-PIL_TIFF = [(comp, mode) for comp in (None, "tiff_lzw", "tiff_adobe_deflate", "packbits")
-            for mode in ("L", "I;16", "I", "F", "RGB", "RGBA", "P")]
+def test_big_endian_float_differencing_as_pil_misreads_it(tmp_path):
+    """Predictor 3's byte planes are most significant first in either byte
+    order: a big-endian float32 page reads as written (cv2 agrees), where
+    PIL swaps its bytes once more."""
+    page = _pages(np.random.default_rng(7), np.float32, (13, 21), 1)[0]
+    path = str(tmp_path / "be.tif")
+    with open(path, "wb") as f:
+        f.write(tiff_bytes([page], 8, 3, order=">"))
+    _same(imread(path), page)
+    _same(imread_gray(path), jax_gray(path))
+    np.testing.assert_array_equal(jax_load(path).view(np.uint32),
+                                  page.byteswap().view(np.uint32))
+
+
+PIL_TIFF = ([(comp, mode) for comp in (None, "tiff_lzw", "tiff_adobe_deflate", "packbits",
+                                        "lzma", "zstd")
+             for mode in ("L", "I;16", "I", "F", "RGB", "RGBA", "P")]
+            + [("jpeg", mode) for mode in ("L", "RGB", "YCbCr")])
 
 
 @pytest.mark.parametrize("compression,mode", PIL_TIFF, ids=[f"{c}-{m}" for c, m in PIL_TIFF])
 def test_pil_written_tiff(compression, mode, tmp_path):
-    """libtiff's own encoders (a predictor where it takes one), three
-    pages; RGBA as cv2 premultiplies it, a palette as cv2 looks it up."""
+    """libtiff's own encoders (a predictor where it takes one: 3 for
+    floats), three pages; RGBA as cv2 premultiplies it, a palette as cv2
+    looks it up; JPEG of grey, RGB and YCbCr (libjpeg's RGB)."""
     rng = np.random.default_rng(len(mode))
-    shape = {"RGB": (29, 41, 3), "RGBA": (29, 41, 4)}.get(mode, (29, 41))
+    shape = {"RGB": (29, 41, 3), "RGBA": (29, 41, 4), "YCbCr": (29, 41, 3)}.get(mode, (29, 41))
     dtype = {"I;16": np.uint16, "I": np.int32, "F": np.float32}.get(mode, np.uint8)
     frames = []
     for arr in _pages(rng, dtype, shape, 3):
+        if compression == "jpeg":  # smooth, as images are
+            arr = np.cumsum(np.cumsum(arr // 16, 0), 1).astype(np.uint8)
         im = Image.fromarray(arr)
-        frames.append(im.convert("P") if mode == "P" else im)
-    info = {317: 2} if compression in ("tiff_lzw", "tiff_adobe_deflate") and mode != "F" else {}
+        frames.append(im.convert(mode) if mode in ("P", "YCbCr") else im)
+    info = {}
+    if compression in ("tiff_lzw", "tiff_adobe_deflate", "lzma", "zstd"):
+        info = {317: 3 if mode == "F" else 2}
     path = str(tmp_path / "pil.tif")
     frames[0].save(path, compression=compression, save_all=True, append_images=frames[1:],
                    tiffinfo=info)
@@ -179,13 +234,14 @@ def _page_chunks(data):
     return out
 
 
-@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("compression", [1, 5, 7, 8, 32773, 34925, 50000])
 def test_damaged_strip_names_file_page_and_strip(compression, tmp_path):
     rng = np.random.default_rng(compression)
-    pages = _pages(rng, np.uint16, (40, 23))
-    data = bytearray(tiff_bytes(pages, compression, rows_per_strip=10))
+    dtype = np.uint8 if compression == 7 else np.uint16
+    pages = _pages(rng, dtype, (40, 23))
+    data = bytearray(tiff_bytes(pages, compression, rows_per_strip=8 if compression == 7 else 10))
     offset, count, at = _page_chunks(bytes(data))[1][2]  # page 1, strip 2
-    if compression in (1, 32773):
+    if compression in (1, 7, 32773):
         struct.pack_into("<I", data, at, count // 3)  # a strip cut short
     elif compression == 5:
         data[offset:offset + count] = b"\xff" * count  # codes past the table
@@ -197,21 +253,87 @@ def test_damaged_strip_names_file_page_and_strip(compression, tmp_path):
         imread(str(path))
 
 
+def _jpeg(tmp_path, **kw):
+    """A small baseline JPEG's bytes (PIL's), to damage."""
+    img = np.cumsum(np.random.default_rng(2).integers(0, 9, (16, 24)), 1).astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "src.jpg", **kw)
+    return bytearray((tmp_path / "src.jpg").read_bytes())
+
+
+def _sof(data):
+    """The offset of the frame header's marker."""
+    return next(i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] in (
+        0xC0, 0xC1, 0xC2))
+
+
+def _refused(kind, tmp_path):
+    """(file name, bytes) of a form the port refuses."""
+    if kind.startswith("jpeg-sof"):  # the frame marker of another process
+        data = _jpeg(tmp_path)
+        data[_sof(data) + 1] = int(kind[8:], 16)
+        return "x.jpg", data
+    if kind == "jpeg-12bit":
+        data = _jpeg(tmp_path)
+        data[_sof(data) + 4] = 12
+        return "x.jpg", data
+    if kind == "jpeg-dnl":  # height 0: a DNL marker would give it
+        data = _jpeg(tmp_path)
+        struct.pack_into(">H", data, _sof(data) + 5, 0)
+        return "x.jpg", data
+    if kind == "jpeg-cmyk":
+        Image.fromarray(np.zeros((8, 8, 4), np.uint8), "CMYK").save(tmp_path / "c.jpg")
+        return "x.jpg", (tmp_path / "c.jpg").read_bytes()
+    if kind == "tiff-old-jpeg":
+        data = bytearray(tiff_bytes([np.zeros((8, 8), np.uint8)]))
+        (ifd,) = struct.unpack_from("<I", data, 4)
+        (n,) = struct.unpack_from("<H", data, ifd)
+        for i in range(n):
+            if struct.unpack_from("<H", data, ifd + 2 + 12 * i)[0] == 259:
+                struct.pack_into("<H", data, ifd + 2 + 12 * i + 8, 6)
+        return "x.tif", data
+    if kind == "tiff-predictor3-uint16":
+        return "x.tif", tiff_bytes([np.zeros((8, 8), np.uint16)], 8, predictor=3)
+    Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / f"x.{kind}")
+    return f"x.{kind}", (tmp_path / f"x.{kind}").read_bytes()
+
+
+# (form, what the error names)
+REFUSED = [("jpeg-sofc9", r"arithmetic-coded JPEG \(SOF9\)"),
+           ("jpeg-sofca", r"arithmetic-coded JPEG \(SOF10\)"),
+           ("jpeg-sofc3", r"lossless JPEG \(SOF3\)"),
+           ("jpeg-sofc5", r"hierarchical JPEG \(SOF5\)"),
+           ("jpeg-12bit", "12-bit JPEG"), ("jpeg-dnl", "DNL"),
+           ("jpeg-cmyk", r"4-component JPEG \(CMYK or YCCK\)"),
+           ("tiff-old-jpeg", r"old-style JPEG \(compression 6\)"),
+           ("gif", "not a PNG, TIFF or JPEG"), ("webp", "not a PNG, TIFF or JPEG")]
+
+
+def _assert_refused(kind, match, tmp_path):
+    name, data = _refused(kind, tmp_path)
+    path = tmp_path / name
+    path.write_bytes(bytes(data))
+    for read in (imread, imread_gray):
+        with pytest.raises(ValueError, match=match):
+            read(str(path))
+
+
 def test_refusals_name_the_format(tmp_path):
-    Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "j.jpg")
-    with pytest.raises(ValueError, match="not a PNG or TIFF"):
-        imread(str(tmp_path / "j.jpg"))
-    # a Deflate page of floats with predictor 3 (floating point)
-    data = tiff_bytes([np.zeros((8, 8), np.float32)], 8, predictor=3)
-    (tmp_path / "p3.tif").write_bytes(data)
-    with pytest.raises(ValueError, match="predictor 3"):
-        imread(str(tmp_path / "p3.tif"))
+    """A format the port does not read (BMP), and predictor 3 of integer
+    samples (libtiff's floating-point differencing takes floats only)."""
+    _assert_refused("bmp", "not a PNG, TIFF or JPEG", tmp_path)
+    _assert_refused("tiff-predictor3-uint16", "predictor 3, bits", tmp_path)
+
+
+@pytest.mark.parametrize("kind,match", REFUSED, ids=[k for k, _ in REFUSED])
+def test_forms_that_stay_refused(kind, match, tmp_path):
+    _assert_refused(kind, match, tmp_path)
 
 
 def test_gray_reads_the_first_page_alone(tmp_path):
     """cv2 decodes the first page of a TIFF: a later page in a form the
-    port refuses (predictor 3) does not stop ``imread_gray``, and stops
-    ``imread``, which reads every page as PIL does."""
+    port refuses (predictor 3 of integer samples) does not stop
+    ``imread_gray``, and stops ``imread``, which reads every page as PIL
+    does."""
     rng = np.random.default_rng(4)
     first = _pages(rng, np.uint16, (21, 33), 1)[0]
     data = bytearray(tiff_bytes([first, np.zeros((21, 33), np.uint16)], 8, predictor=2))
@@ -262,24 +384,196 @@ def test_colour_tiff_samples_and_alpha(spp, extra, dtype, order, tmp_path):
             imread(path)
 
 
-# (photometric, samples a pixel) refused: min-is-white, CMYK, YCbCr, and
-# RGB or grey with the other's sample count
-PHOTOMETRIC = [(0, 1), (5, 4), (6, 3), (2, 1), (1, 3)]
+# (photometric, dtype) of the grey and CMYK forms read: both readers invert
+# 8-bit min-is-white (and no other depth); PIL gives CMYK's 4 samples, cv2
+# libtiff's RGBA of them
+PHOTOMETRIC = [(0, np.uint8), (0, np.uint16), (0, np.int16), (0, np.float32), (0, np.float64),
+               (5, np.uint8)]
 
 
-@pytest.mark.parametrize("photometric,spp", PHOTOMETRIC,
-                         ids=[f"p{p}-s{s}" for p, s in PHOTOMETRIC])
-def test_other_photometric_forms_are_refused(photometric, spp, tmp_path):
-    """PIL or cv2 transform these (inverting min-is-white, converting CMYK
-    and YCbCr) or reject them: the port refuses them, naming the form,
-    rather than return the samples as grey or RGB(A)."""
+@pytest.mark.parametrize("compression", [1, 34925], ids=["raw", "lzma"])
+@pytest.mark.parametrize("photometric,dtype", PHOTOMETRIC,
+                         ids=[f"p{p}-{np.dtype(d).name}" for p, d in PHOTOMETRIC])
+def test_photometric_forms_read_as_pil_and_cv2(photometric, dtype, compression, tmp_path):
     rng = np.random.default_rng(photometric)
-    page = rng.integers(0, 256, (9, 13, spp) if spp > 1 else (9, 13)).astype(np.uint8)
+    pages = _pages(rng, dtype, (9, 13, 4) if photometric == 5 else (9, 13))
+    path = str(tmp_path / "p.tif")
+    with open(path, "wb") as f:
+        f.write(tiff_bytes(pages, compression, photometric=photometric))
+    if dtype in (np.int16, np.float64):  # PIL opens neither
+        _raises_with_pil(imread, path)
+        if compression == 1:
+            _same(imread_gray(path), jax_gray(path))
+        else:
+            _raises_with_pil(imread_gray, path)
+        return
+    _same(imread(path), jax_load(path))
+    _same(imread_gray(path), jax_gray(path))
+    if photometric == 0:
+        want = 255 - np.stack(pages) if dtype == np.uint8 else np.stack(pages)
+        np.testing.assert_array_equal(imread(path), want)
+    if photometric == 5 and compression == 1:  # cv2: (255 - K)(255 - Y) / 255
+        k, y = pages[0][..., 3].astype(int), pages[0][..., 2].astype(int)
+        _same(imread_gray(path), ((255 - k) * (255 - y) // 255).astype(np.uint8))
+
+
+# YCbCr (h, v) subsamplings in data units, and the tags that set the
+# conversion
+YCBCR = [((1, 1), ()), ((2, 1), ()), ((2, 2), ()), ((1, 2), ()), ((4, 1), ()), ((4, 2), ()),
+         ((4, 4), ()), ((2, 2), ((532, 5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                                             (240, 1)]),)),
+         ((1, 1), ((529, 5, [(2126, 10000), (7152, 10000), (722, 10000)]),))]
+
+
+@pytest.mark.parametrize("sub,tags", YCBCR, ids=[f"{h}x{v}-{len(t)}tags" if not t else
+                                                 f"{h}x{v}-tag{t[0][0]}"
+                                                 for (h, v), t in YCBCR])
+def test_ycbcr_tiff_as_libtiff_converts(sub, tags, tmp_path):
+    """Uncompressed YCbCr in data units, converted by libtiff's
+    ``TIFFYCbCrToRGB`` (cv2's RGBA path); PIL misreads the units (its
+    array is not the converted image, or it raises), so ``imread`` gives
+    cv2's RGB too.  The page's 29 columns cut the last unit and make an
+    even number of 4 x 4 units a row: libtiff's scanline size, rounded
+    down, leaves the last unit of an odd-length 4 x 4 row unread."""
+    import cv2
+
+    rng = np.random.default_rng(sub[0] * 5 + sub[1])
+    page = rng.integers(0, 256, (19, 29, 3)).astype(np.uint8)
+    path = str(tmp_path / "y.tif")
+    with open(path, "wb") as f:
+        f.write(tiff_bytes([page], photometric=6, subsampling=sub, rows_per_strip=8,
+                           extra_tags=tags))
+    _same(imread_gray(path), jax_gray(path))
+    _same(imread(path), cv2.imread(path, cv2.IMREAD_UNCHANGED)[..., ::-1])
+    try:
+        pil = jax_load(path)
+    except Exception:
+        return
+    assert not np.array_equal(pil, imread(path))
+
+
+# (photometric, samples a pixel, dtype) that neither reader takes: RGB or
+# grey with the other's sample count, CMYK with an extra sample or 16-bit,
+# 16-bit YCbCr, a transparency mask, CIELab
+PHOTOMETRIC_REFUSED = [(2, 1, np.uint8), (1, 3, np.uint8), (5, 5, np.uint8), (5, 4, np.uint16),
+                       (6, 3, np.uint16), (4, 1, np.uint8), (8, 3, np.uint8)]
+
+
+@pytest.mark.parametrize("photometric,spp,dtype", PHOTOMETRIC_REFUSED,
+                         ids=[f"p{p}-s{s}" + (f"-{np.dtype(d).name}" if (p, s) in ((5, 4), (6, 3))
+                                               else "") for p, s, d in PHOTOMETRIC_REFUSED])
+def test_other_photometric_forms_are_refused(photometric, spp, dtype, tmp_path):
+    """Forms neither PIL nor cv2 reads (or PIL reads as zeros): the port
+    refuses them, naming the form."""
+    rng = np.random.default_rng(photometric)
+    page = _pages(rng, dtype, (9, 13, spp) if spp > 1 else (9, 13), 1)[0]
     path = tmp_path / "p.tif"
     path.write_bytes(tiff_bytes([page], photometric=photometric))
     for read in (imread, imread_gray):
         with pytest.raises(ValueError, match=f"{spp} samples.*photometric {photometric} is not"):
             read(str(path))
+
+
+PLANAR = [(np.uint8, 1, 1), (np.uint8, 8, 2), (np.uint16, 8, 2), (np.uint16, 34925, 2),
+          (np.float32, 8, 3), (np.float32, 50000, 3)]
+
+
+@pytest.mark.parametrize("tile", [None, (16, 16)], ids=["strips", "tiles"])
+@pytest.mark.parametrize("spp", [3, 4])
+@pytest.mark.parametrize("dtype,compression,predictor", PLANAR,
+                         ids=[f"{np.dtype(d).name}-c{c}-p{p}" for d, c, p in PLANAR])
+def test_planes_apart(dtype, compression, predictor, spp, tile, tmp_path):
+    """PlanarConfiguration 2: the strips or tiles of each sample plane in
+    turn, a predictor along each plane's rows.  PIL reads them (8 bits of
+    16-bit colour; no float colour); cv2 reads 8-bit ones through its RGBA
+    path and misreads wider ones (plane 0 taken for the whole pixel):
+    ``imread_gray`` then gives the file's blue plane."""
+    rng = np.random.default_rng(spp)
+    pages = _pages(rng, dtype, (19, 37, spp))
+    path = str(tmp_path / "pl.tif")
+    with open(path, "wb") as f:
+        f.write(tiff_bytes(pages, compression, predictor, tile, None if tile else 5, planar=2,
+                           extra_samples=2 if spp == 4 else None))
+    same_as_contiguous = str(tmp_path / "c.tif")
+    with open(same_as_contiguous, "wb") as f:
+        f.write(tiff_bytes(pages, extra_samples=2 if spp == 4 else None))
+    if dtype == np.float32:
+        _raises_with_pil(imread, path, match="RGBA? of float32 samples")
+    else:
+        _same(imread(path), jax_load(path))
+    if dtype == np.uint8 and compression != 34925:
+        _same(imread_gray(path), jax_gray(path))
+    if compression not in (34925, 50000):
+        _same(imread_gray(path), jax_gray(same_as_contiguous))
+        _same(imread_gray(path), imread_gray(same_as_contiguous))
+
+
+@pytest.mark.parametrize("compression", [34925, 50000])
+def test_lzma_and_zstd_gray_is_pils_channel_0(compression, tmp_path):
+    """cv2 reads no LZMA or ZSTD TIFF, so the JAX package's
+    ``_imread_gray`` takes PIL's array: channel 0 of a colour page is red
+    there, where a Deflate copy's is blue."""
+    page = np.random.default_rng(3).integers(0, 256, (11, 17, 3)).astype(np.uint8)
+    for comp, channel in ((compression, 0), (8, 2)):
+        path = str(tmp_path / f"{comp}.tif")
+        with open(path, "wb") as f:
+            f.write(tiff_bytes([page], comp))
+        _same(imread_gray(path), jax_gray(path))
+        _same(imread_gray(path), page[..., channel])
+
+
+def test_zstd_fixture_is_the_seeded_labels():
+    """The ZSTD stack phase 18 reads on the card (which has no ZSTD
+    encoder): ``chip_smoke.label_volume`` as PIL and the port read it."""
+    import os
+
+    import chip_smoke
+
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), chip_smoke.ZSTD_FIXTURE)
+    want = chip_smoke.label_volume(chip_smoke.ZSTD_SHAPE, chip_smoke.ZSTD_SEED)
+    _same(imread(path), want)
+    _same(jax_load(path), want)
+    _same(imread_gray(path), want[0])
+
+
+@pytest.mark.parametrize("checksum", [False, True], ids=["plain", "checksum"])
+@pytest.mark.parametrize("level", [1, 3, 9, 19])
+def test_zstd_frames_match_zstandard(level, checksum):
+    """The port's ZSTD decoder on zstandard's frames: text, noise, runs and
+    an EM-like uint16 walk, single-shot and streamed (window descriptor, no
+    content size) with strips over 128 KiB, two frames back to back; a
+    frame cut short or with a flipped byte under a checksum does not read
+    back."""
+    import io
+
+    import zstandard
+
+    from empanada_tpu_torch.core import native
+
+    rng = np.random.default_rng(level)
+    walk = np.cumsum(rng.normal(0, 40, 90000)).astype(np.int64).astype(np.uint16).tobytes()
+    datas = [b"", bytes(300000), rng.integers(0, 256, 5000).astype(np.uint8).tobytes(), walk,
+             (b"the quick brown fox %d jumps; " * 9000)[:200000]]
+    for data in datas:
+        cctx = zstandard.ZstdCompressor(level=level, write_checksum=checksum)
+        one = cctx.compress(data)
+        out, got = native.zstd_decode(one, len(data))
+        assert got == len(data) and out.tobytes() == data
+        buf = io.BytesIO()
+        with zstandard.ZstdCompressor(level=level, write_checksum=checksum,
+                                      write_content_size=False).stream_writer(
+                                          buf, closefd=False) as w:
+            for i in range(0, len(data), 70000):
+                w.write(data[i:i + 70000])
+        two = buf.getvalue() + one
+        out, got = native.zstd_decode(two, 2 * len(data))
+        assert got == 2 * len(data) and out.tobytes() == data + data
+        if len(one) > 40:
+            out, got = native.zstd_decode(one[:len(one) // 2], len(data))
+            assert got < len(data) or out.tobytes() != data
+    bad = bytearray(zstandard.ZstdCompressor(level=level, write_checksum=True).compress(walk))
+    bad[len(bad) // 2] ^= 0x40
+    assert native.zstd_decode(bytes(bad), len(walk))[1] == -1
 
 
 # ---- PNG -----------------------------------------------------------------------

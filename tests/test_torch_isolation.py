@@ -1,7 +1,7 @@
 """Isolation of the PyTorch port: every module of empanada_tpu_torch, and
 chip_smoke.py, imports with jax, flax, empanada_tpu, cv2, networkx, PIL,
-zarr, napari and magicgui blocked (the card's machine has none of the last
-six), and the
+zarr, zstandard, napari and magicgui blocked (the card's machine has none
+of the last seven), and the
 port's native host library builds and loads there too, as the command
 line's file and curation commands run; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
@@ -45,7 +45,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "flax", "empanada_tpu", "cv2", "networkx", "PIL", "zarr",
-               "napari", "magicgui")
+               "zstandard", "napari", "magicgui")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -129,26 +129,33 @@ ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "yaml", "empanada_tpu_torch"}
 # the napari adapters' optional GUI packages: only inside a function of
 # empanada_tpu_torch/napari_plugin (a widget factory), never at import time
 GUI_IMPORTS = {"napari", "magicgui"}
+# the TIFF writer's ZSTD encoder: only inside its function, which the tests
+# reach and chip_smoke.py (on a machine without zstandard) never does
+WRITER_IMPORTS = {"zstandard"}
 
 
 def test_port_imports_only_torch_numpy_scipy_yaml():
     """Static check of every import statement in the port (and in
-    chip_smoke.py and the TIFF writer it imports, tests/_tiff_writer.py):
-    the standard library, torch, numpy, scipy, yaml and the port itself;
-    napari and magicgui inside the napari adapters' functions alone."""
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "_tiff_writer.py")]
+    chip_smoke.py and the writers it imports, tests/_tiff_writer.py and
+    tests/_jpeg_writer.py): the standard library, torch, numpy, scipy, yaml
+    and the port itself; napari and magicgui inside the napari adapters'
+    functions alone, zstandard inside the TIFF writer's functions alone."""
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "_tiff_writer.py"),
+             os.path.join(REPO, "tests", "_jpeg_writer.py")]
     for root, _, names in os.walk(os.path.join(REPO, "empanada_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__", "_tiff_writer"}
+    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__", "_tiff_writer",
+                                                                "_jpeg_writer"}
     bad = []
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
-        in_function = set()
-        if os.sep + "napari_plugin" + os.sep in path:
+        in_function, extra = set(), set()
+        if os.sep + "napari_plugin" + os.sep in path or path.endswith("_tiff_writer.py"):
             in_function = {id(n) for fn in ast.walk(tree)
                            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
                            for n in ast.walk(fn)}
+            extra = WRITER_IMPORTS if path.endswith("_tiff_writer.py") else GUI_IMPORTS
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 tops = [a.name.split(".")[0] for a in node.names]
@@ -156,7 +163,7 @@ def test_port_imports_only_torch_numpy_scipy_yaml():
                 tops = [node.module.split(".")[0]]
             else:
                 continue
-            ok = allowed | (GUI_IMPORTS if id(node) in in_function else set())
+            ok = allowed | (extra if id(node) in in_function else set())
             bad += [(os.path.relpath(path, REPO), t) for t in tops if t not in ok]
     assert len(files) >= 35 and not bad, bad
 
