@@ -263,7 +263,24 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     2 through ``api.Engine2d`` beside the uint8 one in 8 alternating
     turns (3 launches each, median ms); the float32 slice 0 of the
     predictor-3 stack refused by ``Engine2d`` before any launch, as the
-    JAX package refuses a float image; ``inputs:`` line; at most 90 s.
+    JAX package refuses a float image; ``inputs:`` line; at most 90 s;
+19. raster: phase 18's volume written with the tests' raster writer
+    (``tests/_raster_writer.py``, ``raster_files``) as a 1024 x 1024 8-bit
+    grey BMP, a 24-bit BMP (slices 0-2), an RLE8 BMP, an RLE TGA and a
+    byte-encoded Sun raster (slice 1 cut to 4 grey levels), a 16-bit raw
+    PGM, a 256 x 256 plain PGM, a GIF of a grey table and an 8 x 1024 x
+    1024 float32 SPIDER stack; each read by ``imread`` and ``imread_gray``
+    and held to the dtype, shape and SHA-256 of the oracles'
+    arrays of the same file (PIL's and cv2's, ``RASTER_SHA256``), decode
+    MB/s and ms of ``imread`` (the faster of two reads); ``python -m
+    empanada_tpu_torch infer2d`` of the BMP and of the 16-bit PGM (PIL's
+    int32) with phase 5's model as a bundle, in two subprocesses side by
+    side, each map equal to ``Engine2d``'s on the array the port read (2
+    refine launches in each, and 2 in each twin); ``infer3d`` of the SPIDER
+    stack refused before any launch (a float volume, as the JAX package
+    refuses it); a ``SingleClassInstanceDataset`` over BMP images and RLE
+    TGA masks equal, item for item, to the one over the same slices as PNG;
+    ``raster:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -4023,6 +4040,270 @@ def inputs_phase(prr, api, cfg, model, card):
     return rec, launches
 
 
+# phase 19: the raster formats the JAX package reads through PIL and cv2
+# (BMP, PNM, GIF, SPIDER, TGA, Sun raster), made from phase 18's seeded
+# volume; its limit, and per form the (dtype, shape, SHA-256) of the
+# oracles' arrays of the same files, PIL 12.1 and cv2 5.0 (tests/_raster_writer.py is
+# deterministic): PIL's (``cli._load_array``, what ``imread`` returns) and
+# cv2's channel 0 (``datasets._imread_gray``, what ``imread_gray`` returns)
+RASTER_LIMIT_S = 60
+RASTER_SHA256 = {
+    "bmp8": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "bmp24": (("uint8", [1024, 1024, 3],
+             "0b51b0c0cf11286d7d3f29d0cf9ec09969bd611cbf23ebe8d4b78d2d689d143d"),
+            ("uint8", [1024, 1024],
+             "e7a04b9bb67aba23e1812cf7cba0eb176696431e466335c781b48c0f8eede678")),
+    "bmp_rle8": (("uint8", [1024, 1024],
+             "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737"),
+            ("uint8", [1024, 1024],
+             "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737")),
+    "pgm16": (("int32", [1024, 1024],
+             "41657125a8318df132c057c5e219c5bfe24d7a245c8d192d94e2e42d3206fcbb"),
+            ("uint16", [1024, 1024],
+             "6625b0340948e8d3f87817877b029f74e65f7ead18186dacf3c06bad63fedbc3")),
+    "pgm_plain": (("uint8", [256, 256],
+             "861920fa35c1e83d3f704d39d556a4e4a1db56fe2cf96e5c7f8eed7b4a24eac4"),
+            ("uint8", [256, 256],
+             "861920fa35c1e83d3f704d39d556a4e4a1db56fe2cf96e5c7f8eed7b4a24eac4")),
+    "gif": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "spider": (("float32", [8, 1024, 1024],
+             "b8d2d35d87813593059ab5719ecc5c8f496695c369556c22906e927af930a9cd"),
+            ("float32", [1024, 1024],
+             "6c1dbcd860fb7e29820b3572f02ec346e16bfe47d2336d2a07ff2328ab6da132")),
+    "tga_rle": (("uint8", [1024, 1024],
+             "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737"),
+            ("uint8", [1024, 1024],
+             "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737")),
+    "sun_rle": (("uint8", [1024, 1024],
+             "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737"),
+            ("uint8", [1024, 1024],
+             "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737"))}
+
+
+def raster_files(vol, vol8):
+    """{form: (file name, its bytes)} of phase 19: slice 0's high bytes as
+    an 8-bit grey BMP, a GIF of a grey table and a 256 x 256 plain PGM;
+    slices 0-2's as a 24-bit BMP; slice 0 as a 16-bit PGM; slices 0-7 /
+    65535 as a float32 SPIDER stack; slice 1's high bytes cut to 4 grey
+    levels (long runs, as a mask's) as an RLE8 BMP, an RLE TGA and a
+    byte-encoded Sun raster."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _raster_writer import bmp_bytes, gif_bytes, pnm_bytes, spider_bytes, sun_bytes, tga_bytes
+
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    levels = (vol8[1] >> 6) * np.uint8(85)
+    stack = [(p / np.float32(65535)).astype(np.float32) for p in vol[:8]]
+    return {"bmp8": ("slice.bmp", bmp_bytes(vol8[0], 8, palette=grey)),
+            "bmp24": ("rgb.bmp", bmp_bytes(np.stack(list(vol8[:3]), -1), 24)),
+            "bmp_rle8": ("rle8.bmp", bmp_bytes(levels, 8, palette=grey, compression=1)),
+            "pgm16": ("slice16.pgm", pnm_bytes(vol[0], "P5", 65535)),
+            "pgm_plain": ("plain.pgm", pnm_bytes(vol8[0][:256, :256], "P2", 255)),
+            "gif": ("slice.gif", gif_bytes([vol8[0]], grey)),
+            "spider": ("stack.spi", spider_bytes(stack)),
+            "tga_rle": ("rle.tga", tga_bytes(levels, 11)),
+            "sun_rle": ("rle.ras", sun_bytes(levels, rle=True))}
+
+
+def raster_digest(a) -> tuple:
+    """(dtype, shape, SHA-256 of the C-ordered samples) of an array."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return str(a.dtype), list(a.shape), hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def raster_dataset_check(vol8, root) -> dict:
+    """A ``SingleClassInstanceDataset`` over 4 BMP images (slices 0-3's high
+    bytes, 512 x 512) and RLE TGA masks (slices 4-7 cut to one grey level,
+    numbered by column quarter) equals the one over the same arrays as PNG
+    (the port's writer), item for item."""
+    import numpy as np
+
+    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
+    from empanada_tpu_torch.data.imwrite import imwrite
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _raster_writer import bmp_bytes, tga_bytes
+
+    slices = vol8[:4, :512, :512]
+    masks = ((vol8[4:8, :512, :512] >> 6) == 1).astype(np.uint8)
+    masks *= (1 + np.arange(512) // 128).astype(np.uint8)[None, None, :]
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    for ext in ("bmp", "png"):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(root, ext, "src", sub))
+    for i, (img, mask) in enumerate(zip(slices, masks)):
+        with open(os.path.join(root, "bmp", "src", "images", f"{i}.bmp"), "wb") as f:
+            f.write(bmp_bytes(img, 8, palette=grey))
+        with open(os.path.join(root, "bmp", "src", "masks", f"{i}.tga"), "wb") as f:
+            f.write(tga_bytes(mask, 11))
+        imwrite(os.path.join(root, "png", "src", "images", f"{i}.png"), img)
+        imwrite(os.path.join(root, "png", "src", "masks", f"{i}.png"), mask)
+    t0 = time.perf_counter()
+    got = SingleClassInstanceDataset(os.path.join(root, "bmp"))
+    want = SingleClassInstanceDataset(os.path.join(root, "png"))
+    same = len(got) == len(want) == len(slices) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in ((got[i], want[i]) for i in range(len(slices))))
+    check(same, "raster: the BMP/TGA dataset's items differ from the PNG one's")
+    return {"items": len(slices), "side": 512, "equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def raster_reads(files, path) -> dict:
+    """Each form read by ``imread`` and ``imread_gray``, held to the oracles'
+    digests (PIL 12.1, cv2 5.0) (``RASTER_SHA256``); ``imread``'s decode MB/s (the
+    faster of two reads) and ms."""
+    from empanada_tpu_torch.data.imread import imread, imread_gray
+
+    rec = {"decode_MB_per_s": {}, "decode_ms": {}}
+    for form, (name, _) in files.items():
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = imread(path(name))
+            best = min(best, time.perf_counter() - t0)
+        digests = [list(raster_digest(got)), list(raster_digest(imread_gray(path(name))))]
+        check([list(d) for d in RASTER_SHA256[form]] == digests,
+              f"raster: {form} read as {digests}, not the oracles' {RASTER_SHA256[form]}")
+        rec["decode_MB_per_s"][form] = got.nbytes / best / 1e6
+        rec["decode_ms"][form] = best * 1e3
+    return rec
+
+
+def raster_phase(prr, api, cfg, model, card):
+    """Phase 19 (module docstring).  Returns (the ``raster:`` record, refine
+    launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.curation.export import _to_saveable
+    from empanada_tpu_torch.data.imread import imread
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    wd = tempfile.mkdtemp(prefix="raster-", dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        # (a) the files, from phase 18's volume, and phase 5's model as a bundle
+        t0 = time.perf_counter()
+        vol = input_volume(INPUT_SHAPE, 180)
+        vol8 = (vol >> 8).astype(np.uint8)
+        files = raster_files(vol, vol8)
+        for name, data in files.values():
+            with open(path(name), "wb") as f:
+                f.write(data)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["file_MB"] = {form: len(data) / 1e6 for form, (_, data) in files.items()}
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+
+        # (b) python -m empanada_tpu_torch infer2d of the BMP and of the
+        # 16-bit PGM (PIL's int32, as the JAX package's command line reads
+        # it), in two subprocesses side by side, printing their refine launches
+        counted_cli = ("import runpy, sys\n"
+                       "from empanada_tpu_torch.ops import pointrend_refine as prr\n"
+                       "sys.argv[0] = 'empanada_tpu_torch'\n"
+                       "try:\n"
+                       "    runpy.run_module('empanada_tpu_torch', run_name='__main__',"
+                       " alter_sys=True)\n"
+                       "finally:\n"
+                       "    print('refine launches:', prr.launches['full'], flush=True)\n")
+        procs, wall, t0 = {}, {}, time.perf_counter()
+        try:
+            for form in ("bmp8", "pgm16"):
+                with open(path(f"{form}.out"), "w") as out, open(path(f"{form}.err"), "w") as err:
+                    procs[form] = subprocess.Popen(
+                        [sys.executable, "-c", counted_cli, "infer2d", path(files[form][0]), "-o",
+                         path(f"{form}_pan.tif"), "--model", path("MitoNet_v1.yaml")], cwd=HERE,
+                        stdout=out, stderr=err)
+
+            # (c) meanwhile, a training folder of BMP images and RLE TGA masks
+            # against the same slices as PNG
+            rec["dataset"] = raster_dataset_check(vol8, path("dataset"))
+
+            while len(wall) < len(procs) and time.perf_counter() - t0 < 150:
+                for key, proc in procs.items():
+                    if key not in wall and proc.poll() is not None:
+                        wall[key] = time.perf_counter() - t0
+                time.sleep(0.02)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+        rec["infer2d"] = {}
+        for form, proc in procs.items():
+            with open(path(f"{form}.out")) as out, open(path(f"{form}.err")) as err:
+                out, err = out.read(), err.read()
+            check(form in wall and proc.returncode == 0,
+                  f"raster: python -m empanada_tpu_torch infer2d ({form}): "
+                  f"{'rc ' + str(proc.returncode) if form in wall else 'over 150 s'} "
+                  f"{err[-2000:]}")
+            lines = out.strip().splitlines()
+            n_cli = int(lines[-1].split(":")[1])
+            image = imread(path(files[form][0]))
+            want, n, secs = counted(prr, lambda: e2.infer(image))
+            got = imread(path(f"{form}_pan.tif"))
+            check(n == 2 and n_cli == 2 and got.dtype == _to_saveable(want).dtype
+                  and np.array_equal(got, want),
+                  f"raster: infer2d ({form}): {n_cli} launches in the command line, {n} in "
+                  f"Engine2d, maps equal {np.array_equal(got, want)}")
+            launches[f"raster_infer2d_cli_{form}"] = n_cli
+            launches[f"raster_engine2d_{form}"] = n
+            rec["infer2d"][form] = {"image": f"{image.dtype}{list(image.shape)}",
+                                    "cli_wall_s": wall[form], "engine_s": secs,
+                                    "refine_launches": n, "cli_refine_launches": n_cli,
+                                    "instances": int((np.unique(want) % 10000 > 0).sum()),
+                                    "equal": True}
+
+        # (d) infer3d of the SPIDER stack (float32): refused before any launch,
+        # as the JAX package's Preprocessor refuses a float image
+        try:
+            _, n, _ = counted(prr, lambda: cli.main([
+                "infer3d", path(files["spider"][0]), "-o", path("spi_{class}.tif"),
+                "--model", path("MitoNet_v1.yaml")]))
+            refused = False
+        except TypeError:
+            refused, n = True, prr.launches["full"]
+        check(refused and n == 0, f"raster: infer3d of the SPIDER stack: refused {refused} "
+                                  f"({n} launches)")
+        rec["infer3d_spider"] = {"refused": True, "launches": n}
+
+        # (e) each form read by both readers against the oracles' digests
+        # (PIL 12.1, cv2 5.0); decode MB/s of imread
+        rec.update(raster_reads(files, path))
+        del vol, vol8, files
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("raster: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= RASTER_LIMIT_S,
+          f"phase 19 took {rec['phase_s']:.1f} s, over its {RASTER_LIMIT_S} s")
+    return rec, launches
+
+
 def _traced(trace, tmp, served, img) -> int:
     """Events of the refine kernel in the Chrome trace of one request."""
     import torch
@@ -4418,6 +4699,14 @@ def main():
     _, launches_18 = inputs_phase(prr, api, cfg, model, card)
     print(f"phase 18 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 19. raster: BMP, PGM, GIF, SPIDER, TGA and Sun raster files read
+    # back against the oracles' digests; infer2d of the BMP and the
+    # 16-bit PGM in subprocesses against Engine2d; the SPIDER stack refused
+    # by infer3d; a BMP/TGA training folder against its PNG twin
+    t0 = time.perf_counter()
+    _, launches_19 = raster_phase(prr, api, cfg, model, card)
+    print(f"phase 19 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -4429,7 +4718,7 @@ def main():
                      + sum(launches_12.values()) + sum(launches_13.values())
                      + sum(launches_14.values()) + sum(launches_15.values())
                      + sum(launches_16.values()) + sum(launches_17.values())
-                     + sum(launches_18.values())),
+                     + sum(launches_18.values()) + sum(launches_19.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -4437,7 +4726,7 @@ def main():
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
-                             **launches_17, **launches_18},
+                             **launches_17, **launches_18, **launches_19},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -2,8 +2,9 @@
 ``empanada_tpu/core/native.py``).
 
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
-kernels) and the decoders of ``data/imread.py``: ``csrc/image_codecs.cpp``
-(TIFF LZW and PackBits), ``csrc/zstd_decode.cpp`` (ZSTD) and
+kernels) and the decoders of ``data/imread.py`` and ``data/raster.py``:
+``csrc/image_codecs.cpp`` (TIFF LZW and PackBits; GIF LZW, BMP RLE8 and
+RLE4, TGA RLE, Sun raster RLE), ``csrc/zstd_decode.cpp`` (ZSTD) and
 ``csrc/jpeg_decode.cpp`` (JPEG), compiled at first use with the host C++
 compiler into ``empanada_tpu_torch/build/`` and named by a hash of the
 sources.  A failed build or load raises: nothing falls back silently.  The numpy formulations
@@ -49,6 +50,10 @@ __all__ = [
     "lzw_decode",
     "packbits_decode",
     "zstd_decode",
+    "gif_lzw_decode",
+    "bmp_rle_decode",
+    "tga_rle_decode",
+    "sun_rle_decode",
     "jpeg_decode",
     "jpeg_info",
 ]
@@ -146,9 +151,15 @@ def load() -> ctypes.CDLL:
         lib.mask_watershed.restype = None
         lib.gray_watershed.argtypes = [vp, vp, i64, vp, i64, vp, i64, vp]
         lib.gray_watershed.restype = None
-        for name in ("lzw_decode", "packbits_decode", "zstd_decode"):
+        for name in ("lzw_decode", "packbits_decode", "zstd_decode", "sun_rle_decode"):
             getattr(lib, name).argtypes = [vp, i64, vp, i64]
             getattr(lib, name).restype = i64
+        lib.gif_lzw_decode.argtypes = [vp, i64, ci, vp, i64]
+        lib.gif_lzw_decode.restype = i64
+        lib.bmp_rle_decode.argtypes = [vp, i64, i64, i64, ci, vp]
+        lib.bmp_rle_decode.restype = i64
+        lib.tga_rle_decode.argtypes = [vp, i64, ci, i64, vp, i64]
+        lib.tga_rle_decode.restype = i64
         lib.jpeg_info.argtypes = [vp, i64, vp, i64, vp, ctypes.c_char_p, i64]
         lib.jpeg_info.restype = ci
         lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, vp, i64, ctypes.c_char_p,
@@ -538,6 +549,42 @@ def zstd_decode(data, size: int) -> tuple:
     """ZSTD (TIFF compression 50000) of one strip or tile, as ``lzw_decode``;
     -2 for a frame that needs a dictionary."""
     return _decode("zstd_decode", data, size)
+
+
+def sun_rle_decode(data, size: int) -> tuple:
+    """Sun raster's byte encoding (type 2) of one image, as ``lzw_decode``."""
+    return _decode("sun_rle_decode", data, size)
+
+
+def gif_lzw_decode(data, min_size: int, size: int) -> tuple:
+    """GIF LZW of one frame's joined sub-blocks at LZW minimum code size
+    ``min_size``: (buffer of ``size`` indices, indices written or -1 on a
+    code the stream cannot hold)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    return out, int(lib.gif_lzw_decode(_ptr(src), len(src), int(min_size), _ptr(out), size))
+
+
+def bmp_rle_decode(data, width: int, height: int, rle4: bool) -> tuple:
+    """BMP RLE8 (or RLE4) of one bitmap: ((height, width) indices in the
+    file's row order, skipped pixels 0; pixels up to the last one drawn or
+    skipped, or -1 on a run or move that leaves its row)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((height, width), np.uint8)
+    return out, int(lib.bmp_rle_decode(_ptr(src), len(src), int(width), int(height),
+                                       int(bool(rle4)), _ptr(out)))
+
+
+def tga_rle_decode(data, bpp: int, row: int, size: int) -> tuple:
+    """TGA RLE of one image of ``bpp``-byte pixels and ``row``-byte rows,
+    as ``lzw_decode``; -1 on a repeated pixel's packet that crosses its
+    row."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    return out, int(lib.tga_rle_decode(_ptr(src), len(src), int(bpp), int(row), _ptr(out), size))
 
 
 def jpeg_info(data, tables=b"") -> tuple:

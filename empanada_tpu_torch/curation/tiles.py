@@ -2,8 +2,8 @@
 ``empanada_tpu/curation/tiles.py``): chop a large 2D image (and a mask)
 into zero-padded ``patch_size``² TIFF tiles with a ``metadata.json``
 sidecar, and stitch tiles back.  ``.npy`` inputs are read through a
-memmap, PNG, TIFF and JPEG ones by ``data.imread.imread`` (every form it
-reads)."""
+memmap, PNG, TIFF, JPEG, BMP, PNM, GIF, SPIDER, TGA and Sun raster ones
+by ``data.imread.imread`` (every form it and ``data/raster.py`` read)."""
 
 from __future__ import annotations
 

@@ -1,7 +1,10 @@
 """Image reading without cv2 or PIL: the PNG, TIFF and JPEG files that
 training folders, curation and the command line hold, decoded with numpy,
 zlib, lzma and the port's host library (``csrc/image_codecs.cpp``: LZW and
-PackBits; ``csrc/zstd_decode.cpp``: ZSTD; ``csrc/jpeg_decode.cpp``: JPEG).
+PackBits; ``csrc/zstd_decode.cpp``: ZSTD; ``csrc/jpeg_decode.cpp``: JPEG);
+and, by ``data/raster.py`` (its docstring gives each oracle's rules), BMP
+and DIB, PBM/PGM/PPM, PFM, PAM, GIF, SPIDER, TGA and Sun raster (their
+RLE and LZW by ``csrc/image_codecs.cpp`` too).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
@@ -64,8 +67,9 @@ upsampling, its YCbCr tables and colour-space rule): grey (H, W), colour
 RGB for ``imread`` and blue for ``imread_gray``.  Neither reader applies
 an EXIF orientation, and neither does the port.
 
-Anything else raises and names the form: other formats (BMP, GIF, WebP,
-...); arithmetic-coded, lossless, hierarchical, 12-bit, 2- and 4-component
+Anything else raises and names the form: other formats (WebP, JPEG 2000,
+SGI, PCX, the other PIL plugins, named by ``data/raster.py``);
+arithmetic-coded, lossless, hierarchical, 12-bit, 2- and 4-component
 (CMYK, YCCK) and DNL JPEG, and progressive JPEG whose scans leave
 coefficients unfinished (libjpeg smooths those); old-style JPEG TIFF
 (compression 6); predictor 3 of integer samples; other photometric
@@ -97,7 +101,8 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # TIFF magic -> (byte order, BigTIFF)
 _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
-_READS = "the port reads PNG, TIFF and JPEG (module docstring of data/imread.py)"
+_READS = ("the port reads PNG, TIFF, JPEG, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA and Sun "
+          "raster (module docstrings of data/imread.py and data/raster.py)")
 
 
 class _Raw:
@@ -109,16 +114,21 @@ class _Raw:
     ExtraSamples value of a TIFF's fourth sample (``extra``; None without
     the tag), whether cv2 decodes the file (``cv2_reads``: not LZMA or ZSTD
     TIFF, where the JAX package's ``_imread_gray`` takes PIL's array) and
-    PIL opens it (``pil_opens``), and ``where`` it was read, for errors."""
+    PIL opens it (``pil_opens``), and ``where`` it was read, for errors.
+    A raster format whose readers' arrays follow no rule here passes them
+    as functions of no arguments (``pil``, ``gray``: ``data/raster.py``)."""
 
     def __init__(self, pixels, kind, depth, where, palette=None, extra=None, cv2_reads=True,
-                 pil_opens=True):
+                 pil_opens=True, pil=None, gray=None):
         self.pixels, self.kind, self.depth, self.where = pixels, kind, depth, where
         self.palette, self.extra = palette, extra
         self.cv2_reads, self.pil_opens = cv2_reads, pil_opens
+        self.pil, self.gray = pil, gray
 
     def as_pil(self) -> np.ndarray:
         px = self.pixels
+        if self.pil is not None and self.pil_opens:
+            return self.pil()
         if not self.pil_opens:
             raise ValueError(f"{self.where}: {self.kind} of {px.dtype} samples, which PIL "
                              f"does not open; {_READS}")
@@ -147,6 +157,8 @@ class _Raw:
 
     def as_cv2_gray(self) -> np.ndarray:
         px = self.pixels
+        if self.gray is not None and self.cv2_reads:
+            return self.gray()
         if not self.cv2_reads:  # PIL's array, channel 0: red where cv2's is blue
             pil = self.as_pil()
             return pil[..., 0] if pil.ndim == 3 else pil
@@ -183,13 +195,15 @@ def _read_file(path: str, first_only: bool = False):
             raise ValueError(f"{path}: {exc}; {_READS}") from None
         return [_Raw(px[..., 0] if px.shape[2] == 1 else px,
                      "grey" if px.shape[2] == 1 else "rgb", 8, path)]
-    raise ValueError(f"{path}: not a PNG, TIFF or JPEG file (starts {data[:8]!r}); {_READS}")
+    from empanada_tpu_torch.data import raster
+
+    return raster.read(data, path, first_only)
 
 
 def imread_gray(path: str) -> np.ndarray:
     """The (H, W) image at ``path`` as cv2 reads it, channel 0 (module
     docstring)."""
-    return _read_file(path, first_only=True)[0].as_cv2_gray()
+    return np.require(_read_file(path, first_only=True)[0].as_cv2_gray(), requirements="W")
 
 
 def imread(path: str) -> np.ndarray:
@@ -198,7 +212,7 @@ def imread(path: str) -> np.ndarray:
     (Z, H, W) for a multipage TIFF or an animated PNG."""
     pages = [raw.as_pil() for raw in _read_file(path)]
     if len(pages) == 1:
-        return pages[0]
+        return np.require(pages[0], requirements="W")  # a raw raster is a view of the file
     if len({p.shape for p in pages}) != 1:
         raise ValueError(f"{path}: its {len(pages)} pages differ in shape")
     return np.stack(pages)  # pages of other dtypes promote, as numpy stacks PIL's

@@ -28,7 +28,7 @@ the CPU at small sizes; every comparison is exact (tolerance 0):
   uncompressed one, raises naming the file, the page and the strip; the
   forms the port does not read (arithmetic, lossless, hierarchical,
   12-bit, CMYK and DNL JPEG; old-style JPEG TIFF, predictor 3 of integer
-  samples; BMP and GIF; the photometric forms and sample counts neither
+  samples; SGI, JPEG 2000 and WebP; the photometric forms and sample counts neither
   reader takes) are refused, naming themselves; ``imread_gray`` reads a
   TIFF's first page alone, as cv2 does; the ZSTD decoder equals
   zstandard's frames at levels 1 to 19, with and without checksums, and
@@ -305,7 +305,8 @@ REFUSED = [("jpeg-sofc9", r"arithmetic-coded JPEG \(SOF9\)"),
            ("jpeg-12bit", "12-bit JPEG"), ("jpeg-dnl", "DNL"),
            ("jpeg-cmyk", r"4-component JPEG \(CMYK or YCCK\)"),
            ("tiff-old-jpeg", r"old-style JPEG \(compression 6\)"),
-           ("gif", "not a PNG, TIFF or JPEG"), ("webp", "not a PNG, TIFF or JPEG")]
+           ("jp2", "a JPEG2000 file, which the port does not read"),
+           ("webp", "a WEBP file, which the port does not read")]
 
 
 def _assert_refused(kind, match, tmp_path):
@@ -318,15 +319,27 @@ def _assert_refused(kind, match, tmp_path):
 
 
 def test_refusals_name_the_format(tmp_path):
-    """A format the port does not read (BMP), and predictor 3 of integer
+    """A format the port does not read (SGI), and predictor 3 of integer
     samples (libtiff's floating-point differencing takes floats only)."""
-    _assert_refused("bmp", "not a PNG, TIFF or JPEG", tmp_path)
+    _assert_refused("sgi", "a SGI file, which the port does not read", tmp_path)
     _assert_refused("tiff-predictor3-uint16", "predictor 3, bits", tmp_path)
 
 
 @pytest.mark.parametrize("kind,match", REFUSED, ids=[k for k, _ in REFUSED])
 def test_forms_that_stay_refused(kind, match, tmp_path):
     _assert_refused(kind, match, tmp_path)
+
+
+@pytest.mark.parametrize("kind", ["gif", "bmp"])
+def test_forms_once_refused_now_read(kind, tmp_path):
+    """GIF and BMP, refused before ``data/raster.py``, read as the JAX
+    package reads them (``tests/test_torch_raster.py`` holds every form)."""
+    arr = np.random.default_rng(11).integers(0, 256, (9, 14)).astype(np.uint8)
+    path = str(tmp_path / f"x.{kind}")
+    Image.fromarray(arr).save(path)
+    for got, want in ((imread(path), jax_load(path)), (imread_gray(path), jax_gray(path))):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_gray_reads_the_first_page_alone(tmp_path):

@@ -3,7 +3,8 @@ chip_smoke.py, imports with jax, flax, empanada_tpu, cv2, networkx, PIL,
 zarr, zstandard, napari and magicgui blocked (the card's machine has none
 of the last seven), and the
 port's native host library builds and loads there too, as the command
-line's file and curation commands run; the port's modules
+line's file and curation commands run and the raster readers read GIF,
+RLE BMP, RLE TGA and RLE Sun raster through its decoders; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
 the entry points default to CUDA and raise, naming device="cpu", when there
 is no GPU, and so does ``python -m empanada_tpu_torch``, naming ``--device
@@ -76,7 +77,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "parallel.multihost", "parallel.spatial", "parallel.data_parallel",
                 "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
                 "utils.progress", "ops.int8_conv", "napari_plugin",
-                "napari_plugin.widgets"):
+                "napari_plugin.widgets", "data.raster"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -104,6 +105,19 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     assert callable(requantize_bundle)
     assert (imread(os.path.join(d, "m", "merged_image.tiff")) == np.where(
         seg == 10002, seg, 0)).all(), out.getvalue()
+    # the raster readers and their host decoders (GIF LZW, BMP RLE, TGA
+    # RLE, Sun raster RLE), with the tests' writer, which imports numpy alone
+    sys.path.insert(0, "tests")
+    from _raster_writer import bmp_bytes, gif_bytes, sun_bytes, tga_bytes
+    from empanada_tpu_torch.data.imread import imread_gray
+    img = (np.arange(35) % 7).astype(np.uint8).reshape(5, 7)
+    pal = np.repeat(np.arange(8)[:, None], 3, 1)
+    for name, data in (("x.gif", gif_bytes([img], pal)),
+                       ("x.bmp", bmp_bytes(img, 8, palette=pal, compression=1)),
+                       ("x.tga", tga_bytes(img, 11)), ("x.ras", sun_bytes(img, rle=True))):
+        open(os.path.join(d, name), "wb").write(data)
+        assert (imread(os.path.join(d, name)) == img).all(), name
+        assert (imread_gray(os.path.join(d, name)) == img).all(), name
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
@@ -135,17 +149,19 @@ WRITER_IMPORTS = {"zstandard"}
 
 
 def test_port_imports_only_torch_numpy_scipy_yaml():
-    """Static check of every import statement in the port (and in
-    chip_smoke.py and the writers it imports, tests/_tiff_writer.py and
-    tests/_jpeg_writer.py): the standard library, torch, numpy, scipy, yaml
-    and the port itself; napari and magicgui inside the napari adapters'
-    functions alone, zstandard inside the TIFF writer's functions alone."""
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "_tiff_writer.py"),
-             os.path.join(REPO, "tests", "_jpeg_writer.py")]
+    """Static check of every import statement in the port (data/raster.py
+    among them) and in chip_smoke.py and the writers it imports
+    (tests/_tiff_writer.py, tests/_jpeg_writer.py, tests/_raster_writer.py):
+    the standard library, torch, numpy, scipy, yaml and the port itself;
+    napari and magicgui inside the napari adapters' functions alone,
+    zstandard inside the TIFF writer's functions alone."""
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", f"_{w}_writer.py") for w in ("tiff", "jpeg", "raster")]
     for root, _, names in os.walk(os.path.join(REPO, "empanada_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert os.path.join(REPO, "empanada_tpu_torch", "data", "raster.py") in files
     allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__", "_tiff_writer",
-                                                                "_jpeg_writer"}
+                                                                "_jpeg_writer", "_raster_writer"}
     bad = []
     for path in files:
         with open(path) as f:
