@@ -281,6 +281,22 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     refuses it); a ``SingleClassInstanceDataset`` over BMP images and RLE
     TGA masks equal, item for item, to the one over the same slices as PNG;
     ``raster:`` line; at most 60 s.
+20. webp: the committed fixtures ``tests/fixtures/webp_*.webp`` (written
+    with PIL by ``tests/make_webp_fixtures.py`` from ``blob_image``'s
+    seeded slices: a 1024 x 1024 lossy slice at quality 75, its lossless
+    label mask, a 512 x 512 lossless slice, a 512 x 512 lossy slice with
+    alpha at alpha_quality 50 and its mask, a 4-frame 256 x 256
+    animation of lossy and lossless sub-frames, blended and not), each
+    read by ``imread`` and ``imread_gray`` and held to the dtype, shape and
+    SHA-256 of the oracles' arrays of the same file (``WEBP_SHA256``),
+    decode MB/s and ms of each reader (the faster of two reads); the lossy
+    slice as ``imread_gray`` reads it through ``api.Engine2d`` with phase
+    5's model (2 refine launches); ``python -m empanada_tpu_torch infer2d``
+    of the same file (PIL's RGB array) refused before any launch, as the
+    JAX package's engine refuses a colour image; a
+    ``SingleClassInstanceDataset`` over the lossy WebP slices and lossless
+    WebP masks equal, item for item, to the one over the same arrays as
+    PNG; ``webp:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -4086,6 +4102,44 @@ RASTER_SHA256 = {
              "0c71cb0c3c5471671fafef4b9628eb2ffe49cbc47119fd417096a1915dcab737"))}
 
 
+# phase 20: WebP, the committed files tests/fixtures/webp_*.webp (the card's
+# machine has no WebP encoder; tests/make_webp_fixtures.py wrote them with
+# PIL from blob_image's seeded slices); its limit, and per form the (dtype,
+# shape, SHA-256) of the oracles' arrays of each file, PIL 12.1 and cv2
+# 5.0 (libwebp 1.6): PIL's (``cli._load_array``, what ``imread`` returns)
+# and cv2's channel 0 (``datasets._imread_gray``, what ``imread_gray``
+# returns)
+WEBP_LIMIT_S = 60
+WEBP_FILES = {"lossy": "webp_slice_lossy.webp", "mask": "webp_mask.webp",
+              "lossless": "webp_slice_lossless.webp", "alpha": "webp_slice_alpha.webp",
+              "mask512": "webp_mask512.webp", "anim": "webp_anim.webp"}
+WEBP_SHA256 = {
+    "lossy": (("uint8", [1024, 1024, 3],
+             "c315cde9b6bea23e82ea0c765e93df11270ec67b2d2672bc160f8675670ad772"),
+            ("uint8", [1024, 1024],
+             "1137c7073250242d2f9dc5be04775eaaff3ed0a7e104b5155418928242719cd3")),
+    "mask": (("uint8", [1024, 1024, 3],
+             "c56709249c54088ef9e57b3e82589111a68c251b195c730240eed55ef1f779b3"),
+            ("uint8", [1024, 1024],
+             "da5d06d0524ac2ceca8b2b5a7f4ad5fc2525fa1ab67f115870fcbd9dee973504")),
+    "lossless": (("uint8", [512, 512, 3],
+             "799f19725203670f483018a961b7540dbfa81efb72f726bda9877bd8da387ff7"),
+            ("uint8", [512, 512],
+             "e9d7a049487fdcf71e8153f43311d621625ea02d32f71b63e47a295c5a818b70")),
+    "alpha": (("uint8", [512, 512, 4],
+             "8bb1caf6ca32e76d8ca9cf09567110a9fd21586bf1cf4cc32cd3bafa734c3e3d"),
+            ("uint8", [512, 512],
+             "648a811e94569ba6ea5d096a189a922f721168fe009a137cdffa9e0094721df0")),
+    "mask512": (("uint8", [512, 512, 3],
+             "04afb5177f3dd7fc2e7f9d9fbee8fca1279c2ace73ccb632a60b4db5fd5e2a8c"),
+            ("uint8", [512, 512],
+             "1f206400cc55c5d325aa76f63e065854e7e9da190bb2f9e01beddde271b95daf")),
+    "anim": (("uint8", [4, 256, 256, 4],
+             "8481210e81d3e6d66d7d7bf5e26405da9fcc6f47fe0aeb62d1d736b03f93a4f6"),
+            ("uint8", [256, 256],
+             "651944ea9fd53f000c53a673af3bebdc210275f578f44d2dd01fd68bce9a6606"))}
+
+
 def raster_files(vol, vol8):
     """{form: (file name, its bytes)} of phase 19: slice 0's high bytes as
     an 8-bit grey BMP, a GIF of a grey table and a 256 x 256 plain PGM;
@@ -4301,6 +4355,127 @@ def raster_phase(prr, api, cfg, model, card):
     print("raster: " + json.dumps(rec), flush=True)
     check(rec["phase_s"] <= RASTER_LIMIT_S,
           f"phase 19 took {rec['phase_s']:.1f} s, over its {RASTER_LIMIT_S} s")
+    return rec, launches
+
+
+def webp_reads(root) -> dict:
+    """Each fixture read by ``imread`` and ``imread_gray``, held to the
+    oracles' digests (PIL 12.1, cv2 5.0) (``WEBP_SHA256``); each reader's
+    decode MB/s (the bytes of its array) and ms, the faster of two reads."""
+    from empanada_tpu_torch.data.imread import imread, imread_gray
+
+    rec = {"file_MB": {}, "decode_MB_per_s": {}, "decode_ms": {}, "gray_MB_per_s": {},
+           "gray_ms": {}}
+    for form, name in WEBP_FILES.items():
+        path = os.path.join(root, name)
+        got = {}
+        for key, read in (("decode", imread), ("gray", imread_gray)):
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got[key] = read(path)
+                best = min(best, time.perf_counter() - t0)
+            rec[f"{key}_MB_per_s"][form] = got[key].nbytes / best / 1e6
+            rec[f"{key}_ms"][form] = best * 1e3
+        digests = [list(raster_digest(got["decode"])), list(raster_digest(got["gray"]))]
+        check([list(d) for d in WEBP_SHA256[form]] == digests,
+              f"webp: {form} read as {digests}, not the oracles' {WEBP_SHA256[form]}")
+        rec["file_MB"][form] = os.path.getsize(path) / 1e6
+    return rec
+
+
+def webp_dataset_check(root, wd) -> dict:
+    """A ``SingleClassInstanceDataset`` over the lossy WebP slices (1024 x
+    1024 and the 512 x 512 one with alpha) and the lossless WebP masks
+    equals the one over the same arrays (``imread_gray``'s, as the dataset
+    reads them) written as PNG, item for item."""
+    import shutil
+
+    import numpy as np
+
+    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
+    from empanada_tpu_torch.data.imread import imread_gray
+    from empanada_tpu_torch.data.imwrite import imwrite
+
+    pairs = (("lossy", "mask"), ("alpha", "mask512"))
+    for ext in ("webp", "png"):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(wd, ext, "src", sub))
+    for i, forms in enumerate(pairs):
+        for sub, form in zip(("images", "masks"), forms):
+            src = os.path.join(root, WEBP_FILES[form])
+            shutil.copy(src, os.path.join(wd, "webp", "src", sub, f"{i}.webp"))
+            imwrite(os.path.join(wd, "png", "src", sub, f"{i}.png"), imread_gray(src))
+    t0 = time.perf_counter()
+    got = SingleClassInstanceDataset(os.path.join(wd, "webp"))
+    want = SingleClassInstanceDataset(os.path.join(wd, "png"))
+    same = len(got) == len(want) == len(pairs) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in ((got[i], want[i]) for i in range(len(pairs))))
+    check(same, "webp: the WebP dataset's items differ from the PNG one's")
+    return {"items": len(pairs), "equal": True, "seconds": time.perf_counter() - t0}
+
+
+def webp_phase(prr, api, cfg, model, card):
+    """Phase 20 (module docstring).  Returns (the ``webp:`` record, refine
+    launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.data.imread import imread_gray
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    root = os.path.join(HERE, "tests", "fixtures")
+    wd = tempfile.mkdtemp(prefix="webp-", dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+    try:
+        # (a) every fixture by both readers against the oracles' digests
+        rec.update(webp_reads(root))
+
+        # (b) the lossy slice as imread_gray gives it through Engine2d
+        image = imread_gray(os.path.join(root, WEBP_FILES["lossy"]))
+        e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+        pan, n, secs = counted(prr, lambda: e2.infer(image))
+        check(n == 2 and pan.shape == image.shape,
+              f"webp: Engine2d on the lossy slice: {n} refine launches, map {pan.shape}")
+        launches["webp_engine2d"] = n
+        rec["engine2d"] = {"image": f"{image.dtype}{list(image.shape)}", "engine_s": secs,
+                           "refine_launches": n,
+                           "instances": int((np.unique(pan) % 10000 > 0).sum())}
+
+        # (c) python -m empanada_tpu_torch infer2d of the .webp: PIL's RGB
+        # array, refused before any launch as the JAX package's engine
+        # refuses a colour image
+        bundle = api.save_model_bundle(os.path.join(wd, "mitonet"), cfg["arch"],
+                                       cfg["model_kwargs"], model)
+        with open(os.path.join(wd, "MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+        try:
+            _, n, _ = counted(prr, lambda: cli.main([
+                "infer2d", os.path.join(root, WEBP_FILES["lossy"]), "-o",
+                os.path.join(wd, "pan.tif"), "--model", os.path.join(wd, "MitoNet_v1.yaml")]))
+            refused = False
+        except ValueError:
+            refused, n = True, prr.launches["full"]
+        check(refused and n == 0, f"webp: infer2d of the RGB WebP: refused {refused} ({n} "
+                                  f"launches)")
+        rec["infer2d_refused"] = {"refused": True, "launches": n}
+
+        # (d) a training folder of WebP slices and masks against its PNG twin
+        rec["dataset"] = webp_dataset_check(root, os.path.join(wd, "dataset"))
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("webp: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= WEBP_LIMIT_S,
+          f"phase 20 took {rec['phase_s']:.1f} s, over its {WEBP_LIMIT_S} s")
     return rec, launches
 
 
@@ -4707,6 +4882,13 @@ def main():
     _, launches_19 = raster_phase(prr, api, cfg, model, card)
     print(f"phase 19 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 20. webp: the committed WebP fixtures read back against the
+    # oracles' digests; the lossy slice through Engine2d; infer2d of the
+    # RGB file refused; a WebP training folder against its PNG twin
+    t0 = time.perf_counter()
+    _, launches_20 = webp_phase(prr, api, cfg, model, card)
+    print(f"phase 20 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -4718,7 +4900,8 @@ def main():
                      + sum(launches_12.values()) + sum(launches_13.values())
                      + sum(launches_14.values()) + sum(launches_15.values())
                      + sum(launches_16.values()) + sum(launches_17.values())
-                     + sum(launches_18.values()) + sum(launches_19.values())),
+                     + sum(launches_18.values()) + sum(launches_19.values())
+                     + sum(launches_20.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -4726,7 +4909,7 @@ def main():
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
-                             **launches_17, **launches_18, **launches_19},
+                             **launches_17, **launches_18, **launches_19, **launches_20},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -4,8 +4,9 @@
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
 kernels) and the decoders of ``data/imread.py`` and ``data/raster.py``:
 ``csrc/image_codecs.cpp`` (TIFF LZW and PackBits; GIF LZW, BMP RLE8 and
-RLE4, TGA RLE, Sun raster RLE), ``csrc/zstd_decode.cpp`` (ZSTD) and
-``csrc/jpeg_decode.cpp`` (JPEG), compiled at first use with the host C++
+RLE4, TGA RLE, Sun raster RLE), ``csrc/zstd_decode.cpp`` (ZSTD),
+``csrc/jpeg_decode.cpp`` (JPEG) and ``csrc/webp_decode.cpp`` (WebP's VP8L,
+VP8 and ALPH), compiled at first use with the host C++
 compiler into ``empanada_tpu_torch/build/`` and named by a hash of the
 sources.  A failed build or load raises: nothing falls back silently.  The numpy formulations
 in the calling modules run only when ``use_native`` is set to False (the
@@ -56,6 +57,9 @@ __all__ = [
     "sun_rle_decode",
     "jpeg_decode",
     "jpeg_info",
+    "webp_info",
+    "webp_decode",
+    "webp_alpha",
 ]
 
 # False routes every caller to its numpy formulation
@@ -63,7 +67,8 @@ use_native = True
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [os.path.join(_PKG, "csrc", name) for name in (
-    "core_kernels.cpp", "image_codecs.cpp", "jpeg_decode.cpp", "zstd_decode.cpp")]
+    "core_kernels.cpp", "image_codecs.cpp", "jpeg_decode.cpp", "webp_decode.cpp",
+    "zstd_decode.cpp")]
 _BUILD = os.path.join(_PKG, "build")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared"]
 
@@ -165,6 +170,14 @@ def load() -> ctypes.CDLL:
         lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, vp, i64, ctypes.c_char_p,
                                     i64]
         lib.jpeg_decode.restype = ci
+        for name in ("webp_vp8l_info", "webp_vp8_info"):
+            getattr(lib, name).argtypes = [vp, i64, vp, ctypes.c_char_p, i64]
+            getattr(lib, name).restype = ci
+        for name in ("webp_vp8l_decode", "webp_vp8_decode"):
+            getattr(lib, name).argtypes = [vp, i64, vp, i64, vp, ctypes.c_char_p, i64]
+            getattr(lib, name).restype = ci
+        lib.webp_alph_decode.argtypes = [vp, i64, i64, i64, vp, ctypes.c_char_p, i64]
+        lib.webp_alph_decode.restype = ci
         _LIB = lib
         return lib
 
@@ -618,5 +631,54 @@ def jpeg_decode(data, tables=b"", color: int = 0, sampling=(0, 0)) -> np.ndarray
     err = ctypes.create_string_buffer(256)
     if lib.jpeg_decode(_ptr(tab), len(tab), _ptr(src), len(src), int(color), int(sampling[0]),
                        int(sampling[1]), _ptr(out), out.size, err, 256):
+        raise ValueError(err.value.decode())
+    return out
+
+
+_WEBP = {"VP8L": "webp_vp8l", "VP8 ": "webp_vp8"}
+
+
+def webp_info(tag: str, data) -> tuple:
+    """(width, height, alpha hint) of the payload ``data`` of a ``VP8L`` or
+    ``VP8 `` chunk (the hint 0 for VP8), from its headers alone: VP8L's
+    transforms and prefix codes, VP8's frame header and first partition's
+    header, which must be able to hold the frame's macroblocks.  A form the
+    decoder refuses raises ValueError with the reason."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if getattr(lib, _WEBP[tag] + "_info")(_ptr(src), len(src), _ptr(info), err, 256):
+        raise ValueError(err.value.decode())
+    return tuple(int(v) for v in info)
+
+
+def webp_decode(tag: str, data, stats: np.ndarray | None = None) -> np.ndarray:
+    """The (H, W, 4) RGBA samples of a ``VP8L`` or ``VP8 `` chunk's payload
+    (VP8: alpha 255), as libwebp decodes them; raises ValueError as
+    ``webp_info``.  ``stats``, an int64 array of 8, receives what the
+    stream used (``csrc/webp_decode.cpp``; the tests' coverage)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    w, h, _ = webp_info(tag, data)
+    out = np.empty((h, w, 4), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if stats is not None and (stats.dtype != np.int64 or stats.size < 8
+                              or not stats.flags.c_contiguous):
+        raise ValueError("stats must be a C-contiguous int64 array of 8 or more")
+    if getattr(lib, _WEBP[tag] + "_decode")(_ptr(src), len(src), _ptr(out), out.size,
+                                            None if stats is None else _ptr(stats), err, 256):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def webp_alpha(data, width: int, height: int) -> np.ndarray:
+    """The (height, width) alpha plane of an ALPH chunk's payload: raw or
+    VP8L-compressed, then unfiltered; raises ValueError with the reason."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if lib.webp_alph_decode(_ptr(src), len(src), int(width), int(height), _ptr(out), err, 256):
         raise ValueError(err.value.decode())
     return out

@@ -4,7 +4,10 @@ zlib, lzma and the port's host library (``csrc/image_codecs.cpp``: LZW and
 PackBits; ``csrc/zstd_decode.cpp``: ZSTD; ``csrc/jpeg_decode.cpp``: JPEG);
 and, by ``data/raster.py`` (its docstring gives each oracle's rules), BMP
 and DIB, PBM/PGM/PPM, PFM, PAM, GIF, SPIDER, TGA and Sun raster (their
-RLE and LZW by ``csrc/image_codecs.cpp`` too).
+RLE and LZW by ``csrc/image_codecs.cpp`` too), and by ``data/webp.py``
+WebP: lossless, lossy, lossy with alpha and animated (its VP8L, VP8 and
+ALPH by ``csrc/webp_decode.cpp``; ``imread`` PIL's RGB or RGBA, frames
+stacked, ``imread_gray`` cv2's blue of frame 0).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
@@ -67,8 +70,9 @@ upsampling, its YCbCr tables and colour-space rule): grey (H, W), colour
 RGB for ``imread`` and blue for ``imread_gray``.  Neither reader applies
 an EXIF orientation, and neither does the port.
 
-Anything else raises and names the form: other formats (WebP, JPEG 2000,
-SGI, PCX, the other PIL plugins, named by ``data/raster.py``);
+Anything else raises and names the form: other formats (JPEG 2000, SGI,
+PCX, the other PIL plugins, named by ``data/raster.py``; the WebP forms
+``data/webp.py`` names);
 arithmetic-coded, lossless, hierarchical, 12-bit, 2- and 4-component
 (CMYK, YCCK) and DNL JPEG, and progressive JPEG whose scans leave
 coefficients unfinished (libjpeg smooths those); old-style JPEG TIFF
@@ -101,8 +105,9 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # TIFF magic -> (byte order, BigTIFF)
 _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
-_READS = ("the port reads PNG, TIFF, JPEG, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA and Sun "
-          "raster (module docstrings of data/imread.py and data/raster.py)")
+_READS = ("the port reads PNG, TIFF, JPEG, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
+          "raster and WebP (module docstrings of data/imread.py, data/raster.py and "
+          "data/webp.py)")
 
 
 class _Raw:

@@ -3,6 +3,9 @@ through PIL and cv2: BMP and DIB, PBM/PGM/PPM, PFM and PAM, GIF, SPIDER,
 TGA and Sun raster, parsed with numpy; their RLE and LZW streams are
 decoded by the port's host library (``csrc/image_codecs.cpp``).
 
+WebP, which PIL takes for one after TGA (RIFF, WEBP and a first chunk of
+VP8, VP8L or VP8X, as its ``_accept``), is read by ``data/webp.py``.
+
 ``read(data, name, first_only)`` gives ``data/imread.py``'s ``_Raw`` of
 each image, so that ``imread`` returns PIL's array (``Image.open``,
 frames stacked) and ``imread_gray`` cv2's channel 0
@@ -81,6 +84,7 @@ import struct
 import numpy as np
 
 from empanada_tpu_torch.core import native
+from empanada_tpu_torch.data import webp
 from empanada_tpu_torch.data.imread import _READS, _Raw
 
 __all__ = ["identify", "read"]
@@ -136,7 +140,8 @@ _BEFORE_SPIDER = (
 )
 # after TGA
 _AFTER_TGA = (
-    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"
+     and d[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
     ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\0\0" or d[:4] == b"\1\0\0\0"),
     ("XBM", lambda d: d[:64].lstrip().startswith(b"#define")),
     ("XPM", lambda d: d[:9] == b"/* XPM */"),
@@ -174,10 +179,10 @@ def read(data: bytes, name: str, first_only: bool = False) -> list:
         raise ValueError(f"{name}: not a file of a format the port reads (starts "
                          f"{data[:8]!r}); {_READS}")
     reader = {"BMP": _bmp, "DIB": _bmp, "PNM": _pnm, "GIF": _gif, "SPIDER": _spider,
-              "TGA": _tga, "SUN": _sun}.get(fmt)
+              "TGA": _tga, "SUN": _sun, "WEBP": webp.read}.get(fmt)
     if reader is None:
         raise ValueError(f"{name}: a {fmt} file, which the port does not read; {_READS}")
-    if reader in (_gif, _spider):  # the formats of several images
+    if reader in (_gif, _spider, webp.read):  # the formats of several images
         return reader(data, name, first_only)
     return reader(data, name)
 

@@ -293,6 +293,11 @@ def _refused(kind, tmp_path):
         return "x.tif", data
     if kind == "tiff-predictor3-uint16":
         return "x.tif", tiff_bytes([np.zeros((8, 8), np.uint16)], 8, predictor=3)
+    if kind.startswith("webp-"):  # a VP8 frame tag libwebp refuses: an inter frame, profile 4
+        Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "v.webp", quality=80)
+        data = bytearray((tmp_path / "v.webp").read_bytes())
+        data[20] |= 1 if kind == "webp-inter" else 4 << 1
+        return "x.webp", data
     Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / f"x.{kind}")
     return f"x.{kind}", (tmp_path / f"x.{kind}").read_bytes()
 
@@ -306,7 +311,7 @@ REFUSED = [("jpeg-sofc9", r"arithmetic-coded JPEG \(SOF9\)"),
            ("jpeg-cmyk", r"4-component JPEG \(CMYK or YCCK\)"),
            ("tiff-old-jpeg", r"old-style JPEG \(compression 6\)"),
            ("jp2", "a JPEG2000 file, which the port does not read"),
-           ("webp", "a WEBP file, which the port does not read")]
+           ("webp-inter", "VP8 inter frame"), ("webp-profile4", "VP8 frame of profile 4")]
 
 
 def _assert_refused(kind, match, tmp_path):

@@ -77,7 +77,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "parallel.multihost", "parallel.spatial", "parallel.data_parallel",
                 "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
                 "utils.progress", "ops.int8_conv", "napari_plugin",
-                "napari_plugin.widgets", "data.raster"):
+                "napari_plugin.widgets", "data.raster", "data.webp"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
