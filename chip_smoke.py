@@ -297,6 +297,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     ``SingleClassInstanceDataset`` over the lossy WebP slices and lossless
     WebP masks equal, item for item, to the one over the same arrays as
     PNG; ``webp:`` line; at most 60 s.
+21. jp2: the committed fixtures ``tests/fixtures/jp2_*`` (written with PIL
+    by ``tests/make_jp2_fixtures.py`` from ``blob_image``'s seeded slices:
+    a 1024 x 1024 8-bit slice in the 9/7 wavelet at rate 20, a 1024 x 1024
+    12-bit slice in 16-bit samples, lossless, a 512 x 512 RGB file through
+    the ICT, a 768 x 640 slice of 256 x 256 tiles in RPCL order with
+    precincts and three layers, a 256 x 256 RGB codestream (``.j2k``)
+    through the RCT, and the two slices' lossless label masks), each read
+    by ``imread`` and ``imread_gray`` and held to the dtype, shape and
+    SHA-256 of the oracles' arrays of the same file (``JP2_SHA256``),
+    decode MB/s and ms of each reader (the faster of two reads); the 9/7
+    slice as ``imread_gray`` reads it through ``api.Engine2d`` with phase
+    5's model (2 refine launches); ``python -m empanada_tpu_torch infer2d``
+    of the 16-bit and of the 9/7 slice in two subprocesses side by side,
+    each map equal to ``Engine2d``'s on the array ``imread`` gives (2
+    refine launches in each, and 2 in each twin); ``infer3d`` of the 9/7
+    slice refused before any launch (one image, a 2-D array, as the JAX
+    package refuses it); a ``SingleClassInstanceDataset`` over the two
+    slices and their JP2 masks equal, item for item, to the one over the
+    same arrays as PNG; ``jp2:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -3810,6 +3829,82 @@ ZSTD_FIXTURE = os.path.join("tests", "fixtures", "zstd_labels.tif")
 ZSTD_SHAPE, ZSTD_SEED = (8, 1024, 1024), 7
 
 
+# python -m empanada_tpu_torch as runpy runs it, printing its refine
+# launches at exit
+COUNTED_CLI = ("import runpy, sys\n"
+               "from empanada_tpu_torch.ops import pointrend_refine as prr\n"
+               "sys.argv[0] = 'empanada_tpu_torch'\n"
+               "try:\n"
+               "    runpy.run_module('empanada_tpu_torch', run_name='__main__', alter_sys=True)\n"
+               "finally:\n"
+               "    print('refine launches:', prr.launches['full'], flush=True)\n")
+
+
+def cli_runs(runs, wd, tag, meanwhile=None) -> dict:
+    """``python -m empanada_tpu_torch`` with each of ``runs``' argument
+    lists in a subprocess of its own, all side by side (their output in
+    ``wd``), while ``meanwhile()`` runs in this process; {key: (its output
+    lines, its refine launches, its wall s from the start of all to its own
+    exit, polled)}, each checked to exit 0 within 150 s."""
+    procs, wall, t0 = {}, {}, time.perf_counter()
+    try:
+        for key, args in runs.items():
+            with open(os.path.join(wd, f"{key}.out"), "w") as out, \
+                    open(os.path.join(wd, f"{key}.err"), "w") as err:
+                procs[key] = subprocess.Popen([sys.executable, "-c", COUNTED_CLI, *args],
+                                              cwd=HERE, stdout=out, stderr=err)
+        if meanwhile is not None:
+            meanwhile()
+        while len(wall) < len(procs) and time.perf_counter() - t0 < 150:
+            for key, proc in procs.items():
+                if key not in wall and proc.poll() is not None:
+                    wall[key] = time.perf_counter() - t0
+            time.sleep(0.02)
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    done = {}
+    for key, proc in procs.items():
+        with open(os.path.join(wd, f"{key}.out")) as out, \
+                open(os.path.join(wd, f"{key}.err")) as err:
+            out, err = out.read(), err.read()
+        check(key in wall and proc.returncode == 0,
+              f"{tag}: python -m empanada_tpu_torch {runs[key][0]} ({key}): "
+              f"{'rc ' + str(proc.returncode) if key in wall else 'over 150 s'} "
+              f"{err[-2000:]}")
+        lines = out.strip().splitlines()
+        done[key] = (lines, int(lines[-1].split(":")[1]), wall[key])
+    return done
+
+
+def infer2d_held(prr, e2, done, images, maps, tag) -> tuple:
+    """Each ``infer2d`` command line's map (``maps[key]``) against
+    ``Engine2d``'s on the array ``imread`` gives of its image
+    (``images[key]``), 2 refine launches in each: ({key: record}, {launch
+    path: launches})."""
+    import numpy as np
+
+    from empanada_tpu_torch.curation.export import _to_saveable
+    from empanada_tpu_torch.data.imread import imread
+
+    rec, launches = {}, {}
+    for key, (_, n_cli, wall) in done.items():
+        image = imread(images[key])
+        want, n, secs = counted(prr, lambda: e2.infer(image))
+        got = imread(maps[key])
+        check(n == 2 and n_cli == 2 and got.dtype == _to_saveable(want).dtype
+              and np.array_equal(got, want),
+              f"{tag}: infer2d ({key}): {n_cli} launches in the command line, {n} in "
+              f"Engine2d, maps equal {np.array_equal(got, want)}")
+        launches[f"{tag}_infer2d_cli_{key}"] = n_cli
+        launches[f"{tag}_engine2d_{key}"] = n
+        rec[key] = {"image": f"{image.dtype}{list(image.shape)}", "cli_wall_s": wall,
+                    "engine_s": secs, "refine_launches": n, "cli_refine_launches": n_cli,
+                    "instances": int((np.unique(want) % 10000 > 0).sum()), "equal": True}
+    return rec, launches
+
+
 def input_volume(shape, seed):
     """Seeded EM-like uint16 volume, made in bulk: dark blobs (a coarse
     random field, smoothed by repetition) on a bright background with
@@ -3945,43 +4040,11 @@ def inputs_phase(prr, api, cfg, model, card):
         bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
         with open(path("MitoNet_v1.yaml"), "w") as f:
             yaml.safe_dump(dict(cfg, model=bundle), f)
-        counted_cli = ("import runpy, sys\n"
-                       "from empanada_tpu_torch.ops import pointrend_refine as prr\n"
-                       "sys.argv[0] = 'empanada_tpu_torch'\n"
-                       "try:\n"
-                       "    runpy.run_module('empanada_tpu_torch', run_name='__main__',"
-                       " alter_sys=True)\n"
-                       "finally:\n"
-                       "    print('refine launches:', prr.launches['full'], flush=True)\n")
-        runs = {"scale2": ["vol.tif", "--downsampling", "2", "-o", path("seg_{class}.tif")],
-                "jpeg": ["jpeg.tif", "-o", path("segj_{class}.tif")]}
-        t0 = time.perf_counter()
-        procs, wall = {}, {}
-        try:
-            for key, args in runs.items():
-                with open(path(f"{key}.out"), "w") as out, open(path(f"{key}.err"), "w") as err:
-                    procs[key] = subprocess.Popen(
-                        [sys.executable, "-c", counted_cli, "infer3d", path(args[0]), *args[1:],
-                         "--model", path("MitoNet_v1.yaml")], cwd=HERE, stdout=out, stderr=err)
-            while len(wall) < len(procs) and time.perf_counter() - t0 < 150:
-                for key, proc in procs.items():
-                    if key not in wall and proc.poll() is not None:
-                        wall[key] = time.perf_counter() - t0
-                time.sleep(0.02)
-        finally:
-            for proc in procs.values():
-                proc.kill()
-                proc.wait()
-        cli = {}
-        for key, proc in procs.items():
-            with open(path(f"{key}.out")) as out, open(path(f"{key}.err")) as err:
-                out, err = out.read(), err.read()
-            check(key in wall and proc.returncode == 0,
-                  f"inputs: python -m empanada_tpu_torch infer3d ({key}): "
-                  f"{'rc ' + str(proc.returncode) if key in wall else 'over 150 s'} "
-                  f"{err[-2000:]}")
-            lines = out.strip().splitlines()
-            cli[key] = (lines, int(lines[-1].split(":")[1]), wall[key])
+        runs = {"scale2": ["infer3d", path("vol.tif"), "--downsampling", "2", "-o",
+                           path("seg_{class}.tif"), "--model", path("MitoNet_v1.yaml")],
+                "jpeg": ["infer3d", path("jpeg.tif"), "-o", path("segj_{class}.tif"),
+                         "--model", path("MitoNet_v1.yaml")]}
+        cli = cli_runs(runs, wd, "inputs")
 
         # (d) the same sweeps in this process: Engine3d at scale 2 on the
         # numpy volume, and at scale 1 on imread's array of the JPEG stack
@@ -4246,8 +4309,6 @@ def raster_phase(prr, api, cfg, model, card):
     import yaml
 
     from empanada_tpu_torch import cli
-    from empanada_tpu_torch.curation.export import _to_saveable
-    from empanada_tpu_torch.data.imread import imread
 
     t_phase = time.perf_counter()
     rec, launches = {"card": card}, {}
@@ -4273,62 +4334,21 @@ def raster_phase(prr, api, cfg, model, card):
 
         # (b) python -m empanada_tpu_torch infer2d of the BMP and of the
         # 16-bit PGM (PIL's int32, as the JAX package's command line reads
-        # it), in two subprocesses side by side, printing their refine launches
-        counted_cli = ("import runpy, sys\n"
-                       "from empanada_tpu_torch.ops import pointrend_refine as prr\n"
-                       "sys.argv[0] = 'empanada_tpu_torch'\n"
-                       "try:\n"
-                       "    runpy.run_module('empanada_tpu_torch', run_name='__main__',"
-                       " alter_sys=True)\n"
-                       "finally:\n"
-                       "    print('refine launches:', prr.launches['full'], flush=True)\n")
-        procs, wall, t0 = {}, {}, time.perf_counter()
-        try:
-            for form in ("bmp8", "pgm16"):
-                with open(path(f"{form}.out"), "w") as out, open(path(f"{form}.err"), "w") as err:
-                    procs[form] = subprocess.Popen(
-                        [sys.executable, "-c", counted_cli, "infer2d", path(files[form][0]), "-o",
-                         path(f"{form}_pan.tif"), "--model", path("MitoNet_v1.yaml")], cwd=HERE,
-                        stdout=out, stderr=err)
-
-            # (c) meanwhile, a training folder of BMP images and RLE TGA masks
-            # against the same slices as PNG
+        # it), in two subprocesses side by side, and (c) meanwhile a training
+        # folder of BMP images and RLE TGA masks against the same slices as
+        # PNG
+        def dataset():
             rec["dataset"] = raster_dataset_check(vol8, path("dataset"))
 
-            while len(wall) < len(procs) and time.perf_counter() - t0 < 150:
-                for key, proc in procs.items():
-                    if key not in wall and proc.poll() is not None:
-                        wall[key] = time.perf_counter() - t0
-                time.sleep(0.02)
-        finally:
-            for proc in procs.values():
-                proc.kill()
-                proc.wait()
+        forms = ("bmp8", "pgm16")
+        done = cli_runs({form: ["infer2d", path(files[form][0]), "-o", path(f"{form}_pan.tif"),
+                                "--model", path("MitoNet_v1.yaml")] for form in forms},
+                        wd, "raster", dataset)
         e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
-        rec["infer2d"] = {}
-        for form, proc in procs.items():
-            with open(path(f"{form}.out")) as out, open(path(f"{form}.err")) as err:
-                out, err = out.read(), err.read()
-            check(form in wall and proc.returncode == 0,
-                  f"raster: python -m empanada_tpu_torch infer2d ({form}): "
-                  f"{'rc ' + str(proc.returncode) if form in wall else 'over 150 s'} "
-                  f"{err[-2000:]}")
-            lines = out.strip().splitlines()
-            n_cli = int(lines[-1].split(":")[1])
-            image = imread(path(files[form][0]))
-            want, n, secs = counted(prr, lambda: e2.infer(image))
-            got = imread(path(f"{form}_pan.tif"))
-            check(n == 2 and n_cli == 2 and got.dtype == _to_saveable(want).dtype
-                  and np.array_equal(got, want),
-                  f"raster: infer2d ({form}): {n_cli} launches in the command line, {n} in "
-                  f"Engine2d, maps equal {np.array_equal(got, want)}")
-            launches[f"raster_infer2d_cli_{form}"] = n_cli
-            launches[f"raster_engine2d_{form}"] = n
-            rec["infer2d"][form] = {"image": f"{image.dtype}{list(image.shape)}",
-                                    "cli_wall_s": wall[form], "engine_s": secs,
-                                    "refine_launches": n, "cli_refine_launches": n_cli,
-                                    "instances": int((np.unique(want) % 10000 > 0).sum()),
-                                    "equal": True}
+        rec["infer2d"], held = infer2d_held(
+            prr, e2, done, {form: path(files[form][0]) for form in forms},
+            {form: path(f"{form}_pan.tif") for form in forms}, "raster")
+        launches.update(held)
 
         # (d) infer3d of the SPIDER stack (float32): refused before any launch,
         # as the JAX package's Preprocessor refuses a float image
@@ -4476,6 +4496,186 @@ def webp_phase(prr, api, cfg, model, card):
     print("webp: " + json.dumps(rec), flush=True)
     check(rec["phase_s"] <= WEBP_LIMIT_S,
           f"phase 20 took {rec['phase_s']:.1f} s, over its {WEBP_LIMIT_S} s")
+    return rec, launches
+
+
+# phase 21: JPEG 2000, the committed files tests/fixtures/jp2_* (the card's
+# machine has no JPEG 2000 encoder; tests/make_jp2_fixtures.py wrote them
+# with PIL from blob_image's seeded slices); its limit, and per form the
+# (dtype, shape, SHA-256) of the oracles' arrays of each file, PIL 12.1 and
+# cv2 5.0 (OpenJPEG 2.5): PIL's (``cli._load_array``, what ``imread``
+# returns) and cv2's channel 0 (``datasets._imread_gray``, what
+# ``imread_gray`` returns)
+JP2_LIMIT_S = 60
+JP2_FILES = {"slice97": "jp2_slice97.jp2", "slice16": "jp2_slice16.jp2", "rgb": "jp2_rgb.jp2",
+             "tiled": "jp2_tiled.jp2", "j2k": "jp2_rgb.j2k", "mask": "jp2_mask.jp2",
+             "mask_tiled": "jp2_mask_tiled.jp2"}
+JP2_SHA256 = {
+    "slice97": (("uint8", [1024, 1024],
+             "40153447237bf44ae07115ce1981905b518e7c8b974796788055cfb55a867545"),
+            ("uint8", [1024, 1024],
+             "40153447237bf44ae07115ce1981905b518e7c8b974796788055cfb55a867545")),
+    "slice16": (("uint16", [1024, 1024],
+             "756b6b72801795763fa8d9c2cac35228442c847ef7bf9d00f6ea364ecbce066d"),
+            ("uint16", [1024, 1024],
+             "756b6b72801795763fa8d9c2cac35228442c847ef7bf9d00f6ea364ecbce066d")),
+    "rgb": (("uint8", [512, 512, 3],
+             "dbae66bdb4f462bcd08b3b46c2395b0576f6a99f756a17d35e5291d7c163d327"),
+            ("uint8", [512, 512],
+             "8c7277ea688ea2c94a97cd4469c96c97d89654fa905581a86ca44e135447de39")),
+    "tiled": (("uint8", [768, 640],
+             "a8dec6abab49ec19a4b02c80fa9dbc190e4cb448c3eeae6583b9d54fe3cf1fe2"),
+            ("uint8", [768, 640],
+             "a8dec6abab49ec19a4b02c80fa9dbc190e4cb448c3eeae6583b9d54fe3cf1fe2")),
+    "j2k": (("uint8", [256, 256, 3],
+             "692be7bf58ff4f1a6aa32de550be52de2d5d9d476623b7d0f05772712924acc5"),
+            ("uint8", [256, 256],
+             "afd15cadcd08ba929ad53e730c6ff11393fa041ad1d1d6847e6246d178715d18")),
+    "mask": (("uint8", [1024, 1024],
+             "dbe31c90b81023a76950494021c91210758ff9cea7d0b209cf3a4e0a900d0b3f"),
+            ("uint8", [1024, 1024],
+             "dbe31c90b81023a76950494021c91210758ff9cea7d0b209cf3a4e0a900d0b3f")),
+    "mask_tiled": (("uint8", [768, 640],
+             "1ea876f0b751f1a9eb696794c2d59ef9e12387685e468e370cc6090ce32c3023"),
+            ("uint8", [768, 640],
+             "1ea876f0b751f1a9eb696794c2d59ef9e12387685e468e370cc6090ce32c3023"))}
+
+
+def jp2_reads(root) -> dict:
+    """Each fixture read by ``imread`` and ``imread_gray``, held to the
+    oracles' digests (PIL 12.1, cv2 5.0) (``JP2_SHA256``); each reader's
+    decode MB/s (the bytes of its array) and ms, the faster of two reads."""
+    from empanada_tpu_torch.data.imread import imread, imread_gray
+
+    rec = {"file_MB": {}, "decode_MB_per_s": {}, "decode_ms": {}, "gray_MB_per_s": {},
+           "gray_ms": {}}
+    for form, name in JP2_FILES.items():
+        path = os.path.join(root, name)
+        got = {}
+        for key, read in (("decode", imread), ("gray", imread_gray)):
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got[key] = read(path)
+                best = min(best, time.perf_counter() - t0)
+            rec[f"{key}_MB_per_s"][form] = got[key].nbytes / best / 1e6
+            rec[f"{key}_ms"][form] = best * 1e3
+        digests = [list(raster_digest(got["decode"])), list(raster_digest(got["gray"]))]
+        check([list(d) for d in JP2_SHA256[form]] == digests,
+              f"jp2: {form} read as {digests}, not the oracles' {JP2_SHA256[form]}")
+        rec["file_MB"][form] = os.path.getsize(path) / 1e6
+    return rec
+
+
+def jp2_dataset_check(root, wd) -> dict:
+    """A ``SingleClassInstanceDataset`` over the 9/7 slice and the tiled RPCL
+    slice with their lossless JP2 masks equals the one over the same arrays
+    (``imread_gray``'s, as the dataset reads them) written as PNG, item for
+    item."""
+    import shutil
+
+    import numpy as np
+
+    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
+    from empanada_tpu_torch.data.imread import imread_gray
+    from empanada_tpu_torch.data.imwrite import imwrite
+
+    pairs = (("slice97", "mask"), ("tiled", "mask_tiled"))
+    for ext in ("jp2", "png"):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(wd, ext, "src", sub))
+    for i, forms in enumerate(pairs):
+        for sub, form in zip(("images", "masks"), forms):
+            src = os.path.join(root, JP2_FILES[form])
+            shutil.copy(src, os.path.join(wd, "jp2", "src", sub, f"{i}.jp2"))
+            imwrite(os.path.join(wd, "png", "src", sub, f"{i}.png"), imread_gray(src))
+    t0 = time.perf_counter()
+    got = SingleClassInstanceDataset(os.path.join(wd, "jp2"))
+    want = SingleClassInstanceDataset(os.path.join(wd, "png"))
+    same = len(got) == len(want) == len(pairs) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in ((got[i], want[i]) for i in range(len(pairs))))
+    check(same, "jp2: the JP2 dataset's items differ from the PNG one's")
+    return {"items": len(pairs), "equal": True, "seconds": time.perf_counter() - t0}
+
+
+def jp2_phase(prr, api, cfg, model, card):
+    """Phase 21 (module docstring).  Returns (the ``jp2:`` record, refine
+    launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.data.imread import imread_gray
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    root = os.path.join(HERE, "tests", "fixtures")
+    wd = tempfile.mkdtemp(prefix="jp2-", dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+
+        # (a) python -m empanada_tpu_torch infer2d of the 16-bit lossless
+        # slice and of the 8-bit 9/7 one, in two subprocesses side by side,
+        # and (b) meanwhile every fixture by both readers against the
+        # oracles' digests and a training folder of JP2 slices and masks
+        # against its PNG twin
+        def reads():
+            rec.update(jp2_reads(root))
+            rec["dataset"] = jp2_dataset_check(root, path("dataset"))
+
+        forms = ("slice16", "slice97")
+        done = cli_runs({form: ["infer2d", os.path.join(root, JP2_FILES[form]), "-o",
+                                path(f"{form}_pan.tif"), "--model", path("MitoNet_v1.yaml")]
+                         for form in forms}, wd, "jp2", reads)
+
+        # (c) the 9/7 slice as imread_gray gives it through Engine2d, and
+        # the command line's maps against Engine2d's on the arrays imread
+        # gives (PIL's, as the JAX package's command line reads them)
+        e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+        image = imread_gray(os.path.join(root, JP2_FILES["slice97"]))
+        pan, n, secs = counted(prr, lambda: e2.infer(image))
+        check(n == 2 and pan.shape == image.shape,
+              f"jp2: Engine2d on the 9/7 slice: {n} refine launches, map {pan.shape}")
+        launches["jp2_engine2d"] = n
+        rec["engine2d"] = {"image": f"{image.dtype}{list(image.shape)}", "engine_s": secs,
+                           "refine_launches": n,
+                           "instances": int((np.unique(pan) % 10000 > 0).sum())}
+        rec["infer2d"], held = infer2d_held(
+            prr, e2, done, {form: os.path.join(root, JP2_FILES[form]) for form in forms},
+            {form: path(f"{form}_pan.tif") for form in forms}, "jp2")
+        launches.update(held)
+
+        # (d) infer3d of a .jp2: one image (PIL's n_frames is 1), a 2-D array
+        # where a volume is wanted, refused before any launch as the JAX
+        # package's command line refuses it
+        try:
+            _, n, _ = counted(prr, lambda: cli.main([
+                "infer3d", os.path.join(root, JP2_FILES["slice97"]), "-o",
+                path("vol_{class}.tif"), "--model", path("MitoNet_v1.yaml")]))
+            refused = False
+        except ValueError:
+            refused, n = True, prr.launches["full"]
+        check(refused and n == 0, f"jp2: infer3d of a .jp2: refused {refused} ({n} launches)")
+        rec["infer3d_refused"] = {"refused": True, "launches": n}
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("jp2: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= JP2_LIMIT_S,
+          f"phase 21 took {rec['phase_s']:.1f} s, over its {JP2_LIMIT_S} s")
     return rec, launches
 
 
@@ -4889,6 +5089,14 @@ def main():
     _, launches_20 = webp_phase(prr, api, cfg, model, card)
     print(f"phase 20 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 21. jp2: the committed JPEG 2000 fixtures read back against the
+    # oracles' digests; the 9/7 slice through Engine2d; infer2d of the
+    # 16-bit lossless and the 9/7 slices in subprocesses against Engine2d;
+    # infer3d of a .jp2 refused; a JP2 training folder against its PNG twin
+    t0 = time.perf_counter()
+    _, launches_21 = jp2_phase(prr, api, cfg, model, card)
+    print(f"phase 21 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -4901,7 +5109,7 @@ def main():
                      + sum(launches_14.values()) + sum(launches_15.values())
                      + sum(launches_16.values()) + sum(launches_17.values())
                      + sum(launches_18.values()) + sum(launches_19.values())
-                     + sum(launches_20.values())),
+                     + sum(launches_20.values()) + sum(launches_21.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -4909,7 +5117,8 @@ def main():
                              "volume_xy_resumed": launches_resume,
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
-                             **launches_17, **launches_18, **launches_19, **launches_20},
+                             **launches_17, **launches_18, **launches_19, **launches_20,
+                             **launches_21},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -5,12 +5,16 @@ The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
 kernels) and the decoders of ``data/imread.py`` and ``data/raster.py``:
 ``csrc/image_codecs.cpp`` (TIFF LZW and PackBits; GIF LZW, BMP RLE8 and
 RLE4, TGA RLE, Sun raster RLE), ``csrc/zstd_decode.cpp`` (ZSTD),
-``csrc/jpeg_decode.cpp`` (JPEG) and ``csrc/webp_decode.cpp`` (WebP's VP8L,
-VP8 and ALPH), compiled at first use with the host C++
-compiler into ``empanada_tpu_torch/build/`` and named by a hash of the
-sources.  A failed build or load raises: nothing falls back silently.  The numpy formulations
-in the calling modules run only when ``use_native`` is set to False (the
-tests hold both paths to the JAX package); the decoders have none.
+``csrc/jpeg_decode.cpp`` (JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L,
+VP8 and ALPH) and ``csrc/j2k_decode.cpp`` (JPEG 2000 codestreams),
+compiled at first use with the host C++ compiler into
+``empanada_tpu_torch/build/`` and named by a hash of the sources and
+flags.  No floating-point contraction is allowed (``-ffp-contract=off``),
+so that the JPEG 2000 decoder's float32 wavelet and colour transforms
+round as OpenJPEG's do on any host.  A failed build or load raises:
+nothing falls back silently.  The numpy formulations in the calling
+modules run only when ``use_native`` is set to False (the tests hold both
+paths to the JAX package); the decoders have none.
 
 Every array handed to C is a named int64 (or the stated dtype) C-contiguous
 local that lives until the call returns; no pointer is taken from a
@@ -60,6 +64,9 @@ __all__ = [
     "webp_info",
     "webp_decode",
     "webp_alpha",
+    "j2k_info",
+    "j2k_decode",
+    "j2k_tables",
 ]
 
 # False routes every caller to its numpy formulation
@@ -68,16 +75,16 @@ use_native = True
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [os.path.join(_PKG, "csrc", name) for name in (
     "core_kernels.cpp", "image_codecs.cpp", "jpeg_decode.cpp", "webp_decode.cpp",
-    "zstd_decode.cpp")]
+    "zstd_decode.cpp", "j2k_decode.cpp")]
 _BUILD = os.path.join(_PKG, "build")
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared"]
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared", "-ffp-contract=off"]
 
 _LIB = None
 _lock = threading.Lock()
 
 
 def _compile() -> str:
-    digest = hashlib.sha256()
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     for src in _SRCS:
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -178,6 +185,12 @@ def load() -> ctypes.CDLL:
             getattr(lib, name).restype = ci
         lib.webp_alph_decode.argtypes = [vp, i64, i64, i64, vp, ctypes.c_char_p, i64]
         lib.webp_alph_decode.restype = ci
+        lib.j2k_info.argtypes = [vp, i64, vp, ctypes.c_char_p, i64]
+        lib.j2k_info.restype = ci
+        lib.j2k_decode.argtypes = [vp, i64, vp, i64, vp, ctypes.c_char_p, i64]
+        lib.j2k_decode.restype = ci
+        lib.j2k_tables.argtypes = [vp, i64]
+        lib.j2k_tables.restype = i64
         _LIB = lib
         return lib
 
@@ -682,3 +695,63 @@ def webp_alpha(data, width: int, height: int) -> np.ndarray:
     if lib.webp_alph_decode(_ptr(src), len(src), int(width), int(height), _ptr(out), err, 256):
         raise ValueError(err.value.decode())
     return out
+
+
+# what ``j2k_decode``'s stats count, in the order of csrc/j2k_decode.cpp's Stat
+J2K_STATS = ("progressions", "run modes", "5/3", "9/7", "RCT", "ICT", "cut short", "multi-layer",
+             "tile offset", "subsampled", "SOP", "tiles")
+
+
+def j2k_info(data) -> dict:
+    """The headers of the JPEG 2000 codestream ``data`` (its SIZ, and every
+    main-header and tile-part marker checked, nothing decoded): ``area``
+    (x0, y0, x1, y1), ``rsiz``, ``tiles`` (grid x0, y0, width, height,
+    across, down) and ``comps``, a dict of each component's ``prec``,
+    ``sgnd``, ``dx``, ``dy`` and ``area`` (x0, y0, width, height).  A form
+    the decoder refuses raises ValueError with the reason."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(44, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.j2k_info(_ptr(src), len(src), _ptr(info), err, 256):
+        raise ValueError(err.value.decode())
+    v = [int(x) for x in info]
+    comps = [dict(prec=v[12 + 8 * c], sgnd=v[13 + 8 * c], dx=v[14 + 8 * c], dy=v[15 + 8 * c],
+                  area=tuple(v[16 + 8 * c:20 + 8 * c])) for c in range(v[4])]
+    return dict(area=tuple(v[:4]), rsiz=v[5], tiles=tuple(v[6:12]), comps=comps)
+
+
+def j2k_decode(data, stats: np.ndarray | None = None) -> list:
+    """Each component of the JPEG 2000 codestream ``data`` as OpenJPEG
+    decodes it: a (height, width) plane of its area, of the samples'
+    two's-complement bits (uint8 where every precision is up to 8 bits, else
+    uint16), as OpenJPEG's tile data holds them; raises ValueError as
+    ``j2k_info``.  ``stats``, an int64 array of ``len(J2K_STATS)``,
+    receives what the stream used (the tests' coverage)."""
+    lib = load()
+    head = j2k_info(data)
+    wide = max(c["prec"] for c in head["comps"]) > 8
+    sizes = [c["area"][2] * c["area"][3] for c in head["comps"]]
+    out = np.empty(sum(sizes), np.uint16 if wide else np.uint8)
+    src = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if stats is not None and (stats.dtype != np.int64 or stats.size < len(J2K_STATS)
+                              or not stats.flags.c_contiguous):
+        raise ValueError(f"stats must be a C-contiguous int64 array of {len(J2K_STATS)} or more")
+    if lib.j2k_decode(_ptr(src), len(src), _ptr(out), out.nbytes,
+                      None if stats is None else _ptr(stats), err, 256):
+        raise ValueError(err.value.decode())
+    planes, at = [], 0
+    for c, n in zip(head["comps"], sizes):
+        planes.append(out[at:at + n].reshape(c["area"][3], c["area"][2]))
+        at += n
+    return planes
+
+
+def j2k_tables() -> bytes:
+    """The JPEG 2000 decoder's constant tables (``csrc/j2k_decode.cpp``'s
+    ``j2k_tables``), for the tests to find in the installed libopenjp2."""
+    lib = load()
+    out = np.zeros(8192, np.uint8)
+    n = int(lib.j2k_tables(_ptr(out), out.size))
+    return out[:n].tobytes()

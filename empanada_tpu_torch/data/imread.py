@@ -4,10 +4,15 @@ zlib, lzma and the port's host library (``csrc/image_codecs.cpp``: LZW and
 PackBits; ``csrc/zstd_decode.cpp``: ZSTD; ``csrc/jpeg_decode.cpp``: JPEG);
 and, by ``data/raster.py`` (its docstring gives each oracle's rules), BMP
 and DIB, PBM/PGM/PPM, PFM, PAM, GIF, SPIDER, TGA and Sun raster (their
-RLE and LZW by ``csrc/image_codecs.cpp`` too), and by ``data/webp.py``
+RLE and LZW by ``csrc/image_codecs.cpp`` too), by ``data/webp.py``
 WebP: lossless, lossy, lossy with alpha and animated (its VP8L, VP8 and
 ALPH by ``csrc/webp_decode.cpp``; ``imread`` PIL's RGB or RGBA, frames
-stacked, ``imread_gray`` cv2's blue of frame 0).
+stacked, ``imread_gray`` cv2's blue of frame 0), and by
+``data/jpeg2000.py`` JPEG 2000: JP2 files and ``.j2k`` codestreams,
+reversible and irreversible, tiled, layered, in any progression order
+(the codestream by ``csrc/j2k_decode.cpp``, as OpenJPEG decodes it;
+``imread`` PIL's L, I;16, LA, RGB or RGBA, ``imread_gray`` cv2's grey or
+blue, PIL's where cv2 reads nothing).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
@@ -70,9 +75,12 @@ upsampling, its YCbCr tables and colour-space rule): grey (H, W), colour
 RGB for ``imread`` and blue for ``imread_gray``.  Neither reader applies
 an EXIF orientation, and neither does the port.
 
-Anything else raises and names the form: other formats (JPEG 2000, SGI,
-PCX, the other PIL plugins, named by ``data/raster.py``; the WebP forms
-``data/webp.py`` names);
+Anything else raises and names the form: other formats (SGI, PCX, the
+other PIL plugins, named by ``data/raster.py``; the WebP forms
+``data/webp.py`` names and the JPEG 2000 forms ``data/jpeg2000.py``
+names: palettes, sYCC and ICC colour, code-block styles other than the
+default, RGN, POC, PPM and PPT markers, HTJ2K and Part 2, precisions other
+than 8 and 16 bits);
 arithmetic-coded, lossless, hierarchical, 12-bit, 2- and 4-component
 (CMYK, YCCK) and DNL JPEG, and progressive JPEG whose scans leave
 coefficients unfinished (libjpeg smooths those); old-style JPEG TIFF
@@ -106,8 +114,8 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
 _READS = ("the port reads PNG, TIFF, JPEG, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
-          "raster and WebP (module docstrings of data/imread.py, data/raster.py and "
-          "data/webp.py)")
+          "raster, WebP and JPEG 2000 (module docstrings of data/imread.py, data/raster.py, "
+          "data/webp.py and data/jpeg2000.py)")
 
 
 class _Raw:

@@ -1,10 +1,14 @@
 """The raster formats beyond PNG, TIFF and JPEG that the JAX package reads
 through PIL and cv2: BMP and DIB, PBM/PGM/PPM, PFM and PAM, GIF, SPIDER,
 TGA and Sun raster, parsed with numpy; their RLE and LZW streams are
-decoded by the port's host library (``csrc/image_codecs.cpp``).
+decoded by the port's host library (``csrc/image_codecs.cpp``).  Of PIL's
+other plugins the port reads WebP and JPEG 2000 (below) and refuses the
+rest by name (SGI, PCX, QOI, ICO, XBM, ...).
 
 WebP, which PIL takes for one after TGA (RIFF, WEBP and a first chunk of
-VP8, VP8L or VP8X, as its ``_accept``), is read by ``data/webp.py``.
+VP8, VP8L or VP8X, as its ``_accept``), is read by ``data/webp.py``, and
+JPEG 2000 (a JP2 file's signature box, or a codestream's SOC and SIZ
+markers) by ``data/jpeg2000.py``.
 
 ``read(data, name, first_only)`` gives ``data/imread.py``'s ``_Raw`` of
 each image, so that ``imread`` returns PIL's array (``Image.open``,
@@ -84,7 +88,7 @@ import struct
 import numpy as np
 
 from empanada_tpu_torch.core import native
-from empanada_tpu_torch.data import webp
+from empanada_tpu_torch.data import jpeg2000, webp
 from empanada_tpu_torch.data.imread import _READS, _Raw
 
 __all__ = ["identify", "read"]
@@ -106,7 +110,7 @@ def _u16(d: bytes, at: int = 0, end: str = "<") -> int:
 
 # PIL's plugins in the order of PIL.Image.ID (Image.init()) up to SPIDER,
 # each with its check of the file's first bytes; the port reads BMP, DIB,
-# GIF and PPM of them (PNG, JPEG and TIFF never reach here)
+# GIF, JPEG2000 and PPM of them (PNG, JPEG and TIFF never reach here)
 _BEFORE_SPIDER = (
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
@@ -179,10 +183,10 @@ def read(data: bytes, name: str, first_only: bool = False) -> list:
         raise ValueError(f"{name}: not a file of a format the port reads (starts "
                          f"{data[:8]!r}); {_READS}")
     reader = {"BMP": _bmp, "DIB": _bmp, "PNM": _pnm, "GIF": _gif, "SPIDER": _spider,
-              "TGA": _tga, "SUN": _sun, "WEBP": webp.read}.get(fmt)
+              "TGA": _tga, "SUN": _sun, "WEBP": webp.read, "JPEG2000": jpeg2000.read}.get(fmt)
     if reader is None:
         raise ValueError(f"{name}: a {fmt} file, which the port does not read; {_READS}")
-    if reader in (_gif, _spider, webp.read):  # the formats of several images
+    if reader in (_gif, _spider, webp.read, jpeg2000.read):  # readers of both oracles' rules
         return reader(data, name, first_only)
     return reader(data, name)
 

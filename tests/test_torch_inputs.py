@@ -52,6 +52,7 @@ from PIL import Image
 
 import empanada_tpu.data.augment as JA
 import empanada_tpu.data.datasets as JD
+from _jp2_writer import box, codestream_of, jp2
 from _tiff_writer import lzw_encode, packbits_encode, tiff_bytes
 from _torch_port import SMALL_PR, jax_init, one_torch_thread, port_model  # noqa: F401
 from empanada_tpu import api as jax_api
@@ -293,6 +294,12 @@ def _refused(kind, tmp_path):
         return "x.tif", data
     if kind == "tiff-predictor3-uint16":
         return "x.tif", tiff_bytes([np.zeros((8, 8), np.uint16)], 8, predictor=3)
+    if kind == "jp2":  # the port reads JPEG 2000: a JP2 of a palette, which it refuses
+        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "p.jp2")
+        palette = (box(b"pclr", struct.pack(">HB", 2, 3) + bytes([7, 7, 7]) + bytes(6))
+                   + box(b"cmap", struct.pack(">HBB", 0, 1, 0) * 3))
+        return "x.jp2", jp2(codestream_of((tmp_path / "p.jp2").read_bytes()), 8, 8, 3, 7, 16,
+                            header_extra=palette)
     if kind.startswith("webp-"):  # a VP8 frame tag libwebp refuses: an inter frame, profile 4
         Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "v.webp", quality=80)
         data = bytearray((tmp_path / "v.webp").read_bytes())
@@ -310,7 +317,7 @@ REFUSED = [("jpeg-sofc9", r"arithmetic-coded JPEG \(SOF9\)"),
            ("jpeg-12bit", "12-bit JPEG"), ("jpeg-dnl", "DNL"),
            ("jpeg-cmyk", r"4-component JPEG \(CMYK or YCCK\)"),
            ("tiff-old-jpeg", r"old-style JPEG \(compression 6\)"),
-           ("jp2", "a JPEG2000 file, which the port does not read"),
+           ("jp2", r"a palette \(pclr and cmap boxes\), which the port does not read"),
            ("webp-inter", "VP8 inter frame"), ("webp-profile4", "VP8 frame of profile 4")]
 
 

@@ -4,7 +4,7 @@ zarr, zstandard, napari and magicgui blocked (the card's machine has none
 of the last seven), and the
 port's native host library builds and loads there too, as the command
 line's file and curation commands run and the raster readers read GIF,
-RLE BMP, RLE TGA and RLE Sun raster through its decoders; the port's modules
+RLE BMP, RLE TGA and RLE Sun raster, and JPEG 2000, through its decoders; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
 the entry points default to CUDA and raise, naming device="cpu", when there
 is no GPU, and so does ``python -m empanada_tpu_torch``, naming ``--device
@@ -77,7 +77,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "parallel.multihost", "parallel.spatial", "parallel.data_parallel",
                 "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
                 "utils.progress", "ops.int8_conv", "napari_plugin",
-                "napari_plugin.widgets", "data.raster", "data.webp"):
+                "napari_plugin.widgets", "data.raster", "data.webp", "data.jpeg2000"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -118,6 +118,12 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
         open(os.path.join(d, name), "wb").write(data)
         assert (imread(os.path.join(d, name)) == img).all(), name
         assert (imread_gray(os.path.join(d, name)) == img).all(), name
+    # the JPEG 2000 decoder: two of phase 21's committed fixtures, to the
+    # oracles' digests
+    for form in ("j2k", "tiled"):
+        name = os.path.join("tests", "fixtures", chip_smoke.JP2_FILES[form])
+        got = [list(chip_smoke.raster_digest(read(name))) for read in (imread, imread_gray)]
+        assert got == [list(w) for w in chip_smoke.JP2_SHA256[form]], form
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from _jp2_writer import box, codestream_of, jp2
 from _raster_writer import (
     bmp_bytes,
     bmp_rle_row,
@@ -740,12 +741,21 @@ def _other_format(kind):
         buf = io.BytesIO()
         Image.fromarray(arr).save(buf, "ICO")
         return buf.getvalue()
-    if kind == "jpeg2000":
-        return b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a" + bytes(32)
+    if kind == "jpeg2000":  # the port reads JPEG 2000: a form of it that it refuses, a palette
+        buf = io.BytesIO()
+        Image.fromarray(np.dstack([arr] * 3)).save(buf, "JPEG2000")
+        palette = (box(b"pclr", struct.pack(">HB", 2, 3) + bytes([7, 7, 7]) + bytes(6))
+                   + box(b"cmap", struct.pack(">HBB", 0, 1, 0) * 3))
+        return jp2(codestream_of(buf.getvalue()), 8, 8, 3, 7, 16, header_extra=palette)
     buf = io.BytesIO()
     im = Image.fromarray(arr).convert({"qoi": "RGB", "xbm": "1"}.get(kind, "L"))
     im.save(buf, {"sgi": "SGI", "pcx": "PCX", "qoi": "QOI", "xbm": "XBM"}[kind])
     return buf.getvalue()
+
+
+# what a refusal names where it is not the format: the form of a format the
+# port reads
+_REFUSED_FORM = {"JPEG2000": r"a palette \(pclr and cmap boxes\), which the port does not read"}
 
 
 @pytest.mark.parametrize("kind,name", [("ico", "ICO"), ("jpeg2000", "JPEG2000"),
@@ -754,8 +764,9 @@ def _other_format(kind):
 def test_formats_still_refused_name_themselves(kind, name, tmp_path):
     path = _file(tmp_path, f"x.{kind}", _other_format(kind))
     assert raster.identify(open(path, "rb").read()) == name
+    match = _REFUSED_FORM.get(name, f"a {name} file, which the port does not read")
     for read in (imread, imread_gray):
-        with pytest.raises(ValueError, match=f"a {name} file, which the port does not read"):
+        with pytest.raises(ValueError, match=match):
             read(path)
 
 
