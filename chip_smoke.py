@@ -316,6 +316,27 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     package refuses it); a ``SingleClassInstanceDataset`` over the two
     slices and their JP2 masks equal, item for item, to the one over the
     same arrays as PNG; ``jp2:`` line; at most 60 s.
+22. plugins: phase 18's volume written with the tests' writers
+    (``tests/_raster_writer.py``, ``plugins_files``) as a 1024 x 1024 RLE
+    SGI slice at 16 bits and one at 8, an RGB PCX (slices 0-2), a DCX of 4
+    slices, an RGB QOI, an IM ``L 16`` slice, an IM of 4 grey frames, an
+    XBM and an MSP version 2 mask, a Radiance HDR of slice 0 / 65535 in the
+    new RLE, and a grey and a colour MPO of 2 pictures (the tests' JPEG
+    writer at quality 90); each read by ``imread`` and ``imread_gray`` and
+    held to the dtype, shape and SHA-256 of the oracles' arrays of the same
+    file (PIL 12.1's and cv2 5.0's, ``PLUGINS_SHA256``; ``imread`` of the
+    HDR raises, as PIL opens none), each reader's decode MB/s and ms (the
+    faster of two reads); ``python -m empanada_tpu_torch infer2d`` of the
+    8-bit SGI slice and of the IM ``L 16`` slice with phase 5's model as a
+    bundle, in two subprocesses side by side, each map equal to
+    ``Engine2d``'s on the array ``imread`` gives (2 refine launches in each,
+    and 2 in each twin); ``infer3d`` of the DCX stack in this process, its
+    class TIFF equal to ``api.Engine3d`` + ``stack_postprocessing`` on
+    ``imread``'s array (2 launches a slice in both); ``infer3d`` of the
+    colour MPO refused before any launch (a colour slice, as the JAX
+    package's ``VolumeDataset`` refuses it); a ``SingleClassInstanceDataset``
+    over SGI images and PCX masks equal, item for item, to the one over the
+    same arrays as PNG; ``plugins:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -4203,6 +4224,64 @@ WEBP_SHA256 = {
              "651944ea9fd53f000c53a673af3bebdc210275f578f44d2dd01fd68bce9a6606"))}
 
 
+# phase 22: the last of PIL's plugins (SGI, PCX, DCX, QOI, IM, XBM, MSP),
+# cv2's Radiance HDR and multi-picture JPEG, made from phase 18's seeded
+# volume; its limit, and per form the (dtype, shape, SHA-256) of the
+# oracles' arrays of the same files, PIL 12.1 and cv2 5.0 (the tests'
+# writers are deterministic): PIL's (``cli._load_array``, what ``imread``
+# returns; None where PIL raises) and cv2's channel 0, else PIL's
+# (``datasets._imread_gray``, what ``imread_gray`` returns)
+PLUGINS_LIMIT_S = 60
+PLUGINS_SHA256 = {
+    "sgi16": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "sgi8": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "pcx_rgb": (("uint8", [1024, 1024, 3],
+             "0b51b0c0cf11286d7d3f29d0cf9ec09969bd611cbf23ebe8d4b78d2d689d143d"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "dcx": (("uint8", [4, 1024, 1024],
+             "467c7fc89cc54f3af3b633fc335bc839de94bdf2f7d9223be28b4cdfe4c1c26f"),
+            ("uint8", [1024, 1024],
+             "7ee7a0bdbe74ffdde86c845f012658a068ddaec13a3b704e3b73fd33870f2c24")),
+    "qoi": (("uint8", [1024, 1024, 3],
+             "0b51b0c0cf11286d7d3f29d0cf9ec09969bd611cbf23ebe8d4b78d2d689d143d"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "im16": (("uint16", [1024, 1024],
+             "6625b0340948e8d3f87817877b029f74e65f7ead18186dacf3c06bad63fedbc3"),
+            ("uint16", [1024, 1024],
+             "6625b0340948e8d3f87817877b029f74e65f7ead18186dacf3c06bad63fedbc3")),
+    "im_frames": (("uint8", [4, 1024, 1024],
+             "8e3ec4af6c880a8b8ecd649d98fff44e811433c6dce8f538a18acdff1a4677fd"),
+            ("uint8", [1024, 1024],
+             "68cc620aeb3c5518cd27f193753fdd34d37afc0363a0c36aff506dafb30f0680")),
+    "xbm": (("bool", [1024, 1024],
+             "290a65f486d6ea6cabfd3e8d5054f9270ca918e8bf892feaebeefae7770739f0"),
+            ("bool", [1024, 1024],
+             "290a65f486d6ea6cabfd3e8d5054f9270ca918e8bf892feaebeefae7770739f0")),
+    "msp": (("bool", [1024, 1024],
+             "290a65f486d6ea6cabfd3e8d5054f9270ca918e8bf892feaebeefae7770739f0"),
+            ("bool", [1024, 1024],
+             "290a65f486d6ea6cabfd3e8d5054f9270ca918e8bf892feaebeefae7770739f0")),
+    "hdr": (None,
+            ("float32", [1024, 1024],
+             "7dc472d1acf729b48afe953e74a834c01b7bf188b3443358e775a8fc3f75dec5")),
+    "mpo_grey": (("uint8", [2, 1024, 1024],
+             "48415156780740d9908a8bd7e1d53c094baa1638e516bc33b3fbf6075a9652da"),
+            ("uint8", [1024, 1024],
+             "9c5fc998290bb09925f5c8348e330937a0db2a43e348f21540ad6ae5cc3c4745")),
+    "mpo_rgb": (("uint8", [2, 1024, 1024, 3],
+             "bc8c270da209ae1e9e3df30bf6e078d534c275692a0cb4dfccc8844b1f0e167b"),
+            ("uint8", [1024, 1024],
+             "74893c1ef434973303c9020639a3f8216d66158d5d0373db79f2298d74d023d1"))}
+
+
 def raster_files(vol, vol8):
     """{form: (file name, its bytes)} of phase 19: slice 0's high bytes as
     an 8-bit grey BMP, a GIF of a grey table and a 256 x 256 plain PGM;
@@ -4230,13 +4309,14 @@ def raster_files(vol, vol8):
 
 
 def raster_digest(a) -> tuple:
-    """(dtype, shape, SHA-256 of the C-ordered samples) of an array."""
+    """(dtype, shape, SHA-256 of the C-ordered samples) of an array; a bool
+    array's samples as 0 and 1 (PIL's arrays of mode 1 hold 255 for True)."""
     import hashlib
 
     import numpy as np
 
-    a = np.ascontiguousarray(a)
-    return str(a.dtype), list(a.shape), hashlib.sha256(a.tobytes()).hexdigest()
+    samples = np.ascontiguousarray(a.astype(np.uint8) if a.dtype == bool else a)
+    return str(a.dtype), list(a.shape), hashlib.sha256(samples.tobytes()).hexdigest()
 
 
 def raster_dataset_check(vol8, root) -> dict:
@@ -4679,6 +4759,229 @@ def jp2_phase(prr, api, cfg, model, card):
     return rec, launches
 
 
+def plugins_files(vol, vol8):
+    """{form: (file name, its bytes)} of phase 22: slice 0 as a 16-bit and
+    its high bytes as an 8-bit RLE SGI; slices 0-2's high bytes as an RGB
+    PCX and an RGB QOI; slices 4-7's as a DCX of grey PCX pages; slice 0
+    as an IM ``L 16``; slices 8-11's high bytes as an IM of 4 grey frames;
+    slice 1's high bytes cut to one grey level (a mask) as an XBM and an
+    MSP version 2; slice 0 / 65535 as a Radiance HDR in the new RLE;
+    slices 0 and 1 as a grey MPO and slices 0-2 and 1-3 as a colour one."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _jpeg_writer import jpeg_bytes
+    from _raster_writer import (
+        dcx_bytes,
+        hdr_bytes,
+        im_bytes,
+        mpo_bytes,
+        msp_bytes,
+        pcx_bytes,
+        qoi_bytes,
+        rgbe_of,
+        sgi_bytes,
+        xbm_bytes,
+    )
+
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    rgb = np.stack(list(vol8[:3]), -1)
+    mask = (vol8[1] >> 6) == 1
+    q = INPUT_JPEG_QUALITY
+    return {"sgi16": ("slice16.sgi", sgi_bytes(vol[0], 2, rle=True)),
+            "sgi8": ("slice.sgi", sgi_bytes(vol8[0], 1, rle=True)),
+            "pcx_rgb": ("rgb.pcx", pcx_bytes(rgb)),
+            "dcx": ("stack.dcx", dcx_bytes([pcx_bytes(p, palette=grey) for p in vol8[4:8]])),
+            "qoi": ("rgb.qoi", qoi_bytes(rgb)),
+            "im16": ("slice16.im", im_bytes(vol[0], "L 16", rawmode="I;16")),
+            "im_frames": ("frames.im", im_bytes(list(vol8[8:12]), "Greyscale", rawmode="L")),
+            "xbm": ("mask.xbm", xbm_bytes(mask)),
+            "msp": ("mask.msp", msp_bytes(mask, 2)),
+            "hdr": ("slice.hdr", hdr_bytes(rgbe_of(np.dstack([vol[0] / 65535.0] * 3)))),
+            "mpo_grey": ("grey.mpo", mpo_bytes([jpeg_bytes(vol8[0], q), jpeg_bytes(vol8[1], q)])),
+            "mpo_rgb": ("rgb.mpo", mpo_bytes([jpeg_bytes(rgb, q),
+                                              jpeg_bytes(np.stack(list(vol8[1:4]), -1), q)]))}
+
+
+def plugins_reads(files, path) -> dict:
+    """Each form read by ``imread`` and ``imread_gray``, held to the
+    oracles' digests (PIL 12.1, cv2 5.0) (``PLUGINS_SHA256``; ``imread``
+    raises where PIL does); each reader's decode MB/s (the bytes of its
+    array) and ms, the faster of two reads."""
+    from empanada_tpu_torch.data.imread import imread, imread_gray
+
+    rec = {"file_MB": {}, "decode_MB_per_s": {}, "decode_ms": {}, "gray_MB_per_s": {},
+           "gray_ms": {}}
+    for form, (name, data) in files.items():
+        digests = []
+        for key, read in (("decode", imread), ("gray", imread_gray)):
+            best, got = float("inf"), None
+            for _ in range(2):
+                t0 = time.perf_counter()
+                try:
+                    got = read(path(name))
+                except ValueError:
+                    got = None
+                best = min(best, time.perf_counter() - t0)
+            digests.append(None if got is None else list(raster_digest(got)))
+            if got is not None:
+                rec[f"{key}_MB_per_s"][form] = got.nbytes / best / 1e6
+                rec[f"{key}_ms"][form] = best * 1e3
+        want = [None if d is None else list(d) for d in PLUGINS_SHA256[form]]
+        check(want == digests, f"plugins: {form} read as {digests}, not the oracles' {want}")
+        rec["file_MB"][form] = len(data) / 1e6
+    return rec
+
+
+def plugins_dataset_check(vol8, root) -> dict:
+    """A ``SingleClassInstanceDataset`` over 4 RLE SGI images (slices 0-3's
+    high bytes, 512 x 512) and PCX masks (slices 4-7 cut to one grey level,
+    numbered by column quarter) equals the one over the same arrays as PNG
+    (the port's writer), item for item."""
+    import numpy as np
+
+    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
+    from empanada_tpu_torch.data.imwrite import imwrite
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _raster_writer import pcx_bytes, sgi_bytes
+
+    slices = vol8[:4, :512, :512]
+    masks = ((vol8[4:8, :512, :512] >> 6) == 1).astype(np.uint8)
+    masks *= (1 + np.arange(512) // 128).astype(np.uint8)[None, None, :]
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    for ext in ("sgi", "png"):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(root, ext, "src", sub))
+    for i, (img, mask) in enumerate(zip(slices, masks)):
+        with open(os.path.join(root, "sgi", "src", "images", f"{i}.sgi"), "wb") as f:
+            f.write(sgi_bytes(img, rle=True))
+        with open(os.path.join(root, "sgi", "src", "masks", f"{i}.pcx"), "wb") as f:
+            f.write(pcx_bytes(mask, palette=grey))
+        imwrite(os.path.join(root, "png", "src", "images", f"{i}.png"), img)
+        imwrite(os.path.join(root, "png", "src", "masks", f"{i}.png"), mask)
+    t0 = time.perf_counter()
+    got = SingleClassInstanceDataset(os.path.join(root, "sgi"))
+    want = SingleClassInstanceDataset(os.path.join(root, "png"))
+    same = len(got) == len(want) == len(slices) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in ((got[i], want[i]) for i in range(len(slices))))
+    check(same, "plugins: the SGI/PCX dataset's items differ from the PNG one's")
+    return {"items": len(slices), "side": 512, "equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def plugins_phase(prr, api, cfg, model, card):
+    """Phase 22 (module docstring).  Returns (the ``plugins:`` record,
+    refine launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import cli
+    from empanada_tpu_torch.data.imread import imread
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    wd = tempfile.mkdtemp(prefix="plugins-",
+                          dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        # (a) the files, from phase 18's volume, and phase 5's model as a
+        # bundle: the two the command lines read first
+        t0 = time.perf_counter()
+        vol = input_volume(INPUT_SHAPE, 180)[:12]
+        vol8 = (vol >> 8).astype(np.uint8)
+        files = plugins_files(vol, vol8)
+        forms = ("sgi8", "im16")
+
+        def write(keys):
+            for key in keys:
+                name, data = files[key]
+                with open(path(name), "wb") as f:
+                    f.write(data)
+        write(forms)
+        rec["write_s"] = time.perf_counter() - t0
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+
+        # (b) python -m empanada_tpu_torch infer2d of the 8-bit SGI slice and
+        # of the IM L 16 slice (PIL's uint16, as the JAX package's command
+        # line reads it), in two subprocesses side by side; meanwhile in
+        # this process (c) the other files, every form by both readers
+        # against the oracles' digests, a training folder of SGI images and
+        # PCX masks against its PNG twin, and (d) infer3d of the DCX stack
+        # against Engine3d and stack_postprocessing on imread's array, and
+        # infer3d of the colour MPO refused before any launch
+        def meanwhile():
+            write([key for key in files if key not in forms])
+            rec.update(plugins_reads(files, path))
+            rec["dataset"] = plugins_dataset_check(vol8, path("dataset"))
+            stack = imread(path(files["dcx"][0]))
+            z = stack.shape[0]
+            # an extent of 1 slice kept: the default 5 would empty a 4-slice stack
+            (_, n_cli, cli_s) = counted(prr, lambda: cli.main([
+                "infer3d", path(files["dcx"][0]), "-o", path("dcx_{class}.tif"),
+                "--model", path("MitoNet_v1.yaml"), "--min-extent", "1"]))
+            kw3 = dict(label_divisor=10000, median_kernel_size=3, nms_threshold=0.1,
+                       nms_kernel=3, confidence_thr=0.3, min_size=500, min_extent=1)
+            e3 = api.Engine3d(cfg, model=model, **kw3)
+            (_, trackers), n_3d, sweep_s = counted(prr, lambda: e3.infer_on_axis(stack, "xy"))
+            outs = list(api.stack_postprocessing({"xy": trackers}, None, cfg,
+                                                 label_divisor=10000, min_size=500,
+                                                 min_extent=1))
+            same = bool(np.array_equal(imread(path("dcx_mito.tif")), outs[0][0]))
+            check(n_cli == 2 * z and n_3d == 2 * z and same and len(outs[0][2]) > 0,
+                  f"plugins: infer3d of the DCX stack: {n_cli} launches in the command line, "
+                  f"{n_3d} in Engine3d for {z} slices, stacks equal {same}, "
+                  f"{len(outs[0][2])} instances")
+            launches["plugins_infer3d_cli_dcx"] = n_cli
+            launches["plugins_engine3d_dcx"] = n_3d
+            rec["infer3d_dcx"] = {"stack": f"{stack.dtype}{list(stack.shape)}", "cli_s": cli_s,
+                                  "engine_s": sweep_s, "refine_launches": n_3d,
+                                  "cli_refine_launches": n_cli, "instances": len(outs[0][2]),
+                                  "equal": True}
+            try:
+                _, n, _ = counted(prr, lambda: cli.main([
+                    "infer3d", path(files["mpo_rgb"][0]), "-o", path("mpo_{class}.tif"),
+                    "--model", path("MitoNet_v1.yaml")]))
+                refused = False
+            except ValueError:
+                refused, n = True, prr.launches["full"]
+            check(refused and n == 0,
+                  f"plugins: infer3d of the colour MPO: refused {refused} ({n} launches)")
+            rec["infer3d_mpo_rgb"] = {"refused": True, "launches": n}
+
+        done = cli_runs({form: ["infer2d", path(files[form][0]), "-o", path(f"{form}_pan.tif"),
+                                "--model", path("MitoNet_v1.yaml")] for form in forms},
+                        wd, "plugins", meanwhile)
+
+        # (e) Engine2d at full width on the arrays imread gives of the two
+        # slices, each map against its command line twin's
+        e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+        rec["infer2d"], held = infer2d_held(
+            prr, e2, done, {form: path(files[form][0]) for form in forms},
+            {form: path(f"{form}_pan.tif") for form in forms}, "plugins")
+        launches.update(held)
+        del vol, vol8, files
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("plugins: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= PLUGINS_LIMIT_S,
+          f"phase 22 took {rec['phase_s']:.1f} s, over its {PLUGINS_LIMIT_S} s")
+    return rec, launches
+
+
 def _traced(trace, tmp, served, img) -> int:
     """Events of the refine kernel in the Chrome trace of one request."""
     import torch
@@ -5097,6 +5400,15 @@ def main():
     _, launches_21 = jp2_phase(prr, api, cfg, model, card)
     print(f"phase 21 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 22. plugins: SGI, PCX, DCX, QOI, IM, XBM, MSP, HDR and MPO files
+    # read back against the oracles' digests; infer2d of the SGI and the
+    # IM L 16 slices in subprocesses against Engine2d; infer3d of the DCX
+    # stack against Engine3d, of the colour MPO refused; an SGI/PCX
+    # training folder against its PNG twin
+    t0 = time.perf_counter()
+    _, launches_22 = plugins_phase(prr, api, cfg, model, card)
+    print(f"phase 22 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -5109,7 +5421,8 @@ def main():
                      + sum(launches_14.values()) + sum(launches_15.values())
                      + sum(launches_16.values()) + sum(launches_17.values())
                      + sum(launches_18.values()) + sum(launches_19.values())
-                     + sum(launches_20.values()) + sum(launches_21.values())),
+                     + sum(launches_20.values()) + sum(launches_21.values())
+                     + sum(launches_22.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -5118,7 +5431,7 @@ def main():
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
                              **launches_17, **launches_18, **launches_19, **launches_20,
-                             **launches_21},
+                             **launches_21, **launches_22},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

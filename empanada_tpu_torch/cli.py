@@ -22,9 +22,11 @@ dtype the PointRend refine kernel takes; on the CPU in float32, as the JAX
 package's command line runs.  Images are read as ``.npy``, PNG (every
 colour type and depth, interlaced or not), TIFF (classic and BigTIFF,
 strips or tiles, uncompressed, LZW, Deflate, PackBits, LZMA, ZSTD or JPEG),
-JPEG (``data/imread.py``), BMP, PBM/PGM/PPM, PFM, GIF, SPIDER, TGA, Sun
-raster (``data/raster.py``) or WebP (``data/webp.py``; PIL's arrays, as
-the JAX package's command line reads them),
+JPEG and multi-picture JPEG (``data/imread.py``), BMP, PBM/PGM/PPM, PFM,
+GIF, SPIDER, TGA, Sun raster (``data/raster.py``), WebP (``data/webp.py``),
+JPEG 2000 (``data/jpeg2000.py``), SGI, PCX, DCX, QOI, IM, XBM or MSP
+(``data/plugins.py``; PIL's arrays, as the JAX package's command line
+reads them),
 written as ``.npy``, PNG or uncompressed TIFF (``data/imwrite.py``), and
 volumes are also read from chunked stores; ``--downsampling`` takes every
 dtype the JAX package's cv2 resizes.  ``models export --quantize`` and

@@ -2,10 +2,11 @@
 ``empanada_tpu/core/native.py``).
 
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
-kernels) and the decoders of ``data/imread.py`` and ``data/raster.py``:
-``csrc/image_codecs.cpp`` (TIFF LZW and PackBits; GIF LZW, BMP RLE8 and
-RLE4, TGA RLE, Sun raster RLE), ``csrc/zstd_decode.cpp`` (ZSTD),
-``csrc/jpeg_decode.cpp`` (JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L,
+kernels) and the decoders of ``data/imread.py``, ``data/raster.py`` and
+``data/plugins.py``: ``csrc/image_codecs.cpp`` (TIFF LZW and PackBits;
+GIF LZW, BMP RLE8 and RLE4, TGA RLE, Sun raster RLE; SGI RLE, PCX RLE,
+QOI, MSP version 2 rows, Radiance HDR scanlines),
+``csrc/zstd_decode.cpp`` (ZSTD), ``csrc/jpeg_decode.cpp`` (JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L,
 VP8 and ALPH) and ``csrc/j2k_decode.cpp`` (JPEG 2000 codestreams),
 compiled at first use with the host C++ compiler into
 ``empanada_tpu_torch/build/`` and named by a hash of the sources and
@@ -59,6 +60,11 @@ __all__ = [
     "bmp_rle_decode",
     "tga_rle_decode",
     "sun_rle_decode",
+    "sgi_rle_decode",
+    "pcx_rle_decode",
+    "qoi_decode",
+    "msp_decode",
+    "hdr_rle_decode",
     "jpeg_decode",
     "jpeg_info",
     "webp_info",
@@ -172,6 +178,16 @@ def load() -> ctypes.CDLL:
         lib.bmp_rle_decode.restype = i64
         lib.tga_rle_decode.argtypes = [vp, i64, ci, i64, vp, i64]
         lib.tga_rle_decode.restype = i64
+        lib.sgi_rle_decode.argtypes = [vp, i64, vp, vp, i64, i64, ci, ci, vp, vp]
+        lib.sgi_rle_decode.restype = i64
+        lib.pcx_rle_decode.argtypes = [vp, i64, i64, i64, vp]
+        lib.pcx_rle_decode.restype = i64
+        lib.qoi_decode.argtypes = [vp, i64, i64, vp]
+        lib.qoi_decode.restype = i64
+        lib.msp_decode.argtypes = [vp, i64, vp, i64, i64, vp, i64]
+        lib.msp_decode.restype = i64
+        lib.hdr_rle_decode.argtypes = [vp, i64, i64, i64, vp, vp]
+        lib.hdr_rle_decode.restype = ci
         lib.jpeg_info.argtypes = [vp, i64, vp, i64, vp, ctypes.c_char_p, i64]
         lib.jpeg_info.restype = ci
         lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, vp, i64, ctypes.c_char_p,
@@ -611,6 +627,65 @@ def tga_rle_decode(data, bpp: int, row: int, size: int) -> tuple:
     src = np.frombuffer(data, np.uint8)
     out = np.empty(size, np.uint8)
     return out, int(lib.tga_rle_decode(_ptr(src), len(src), int(bpp), int(row), _ptr(out), size))
+
+
+def sgi_rle_decode(data, starts, lengths, width: int, height: int, bands: int,
+                   bpc: int) -> tuple:
+    """SGI RLE as PIL reads it (``csrc/image_codecs.cpp``): ``data`` the
+    file after its 512-byte header, ``starts`` and ``lengths`` its tables
+    (row + channel * height): ((height, width * bands * bpc) bytes in the
+    file's row order, rows not reached 0; the rows read, or -1 where PIL
+    refuses the data)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    st = np.ascontiguousarray(starts, np.uint32)
+    ln = np.ascontiguousarray(lengths, np.uint32)
+    row = np.empty(width * bands * bpc, np.uint8)
+    out = np.zeros((height, width * bands * bpc), np.uint8)
+    return out, int(lib.sgi_rle_decode(_ptr(src), len(src), _ptr(st), _ptr(ln), int(width),
+                                       int(height), int(bands), int(bpc), _ptr(row), _ptr(out)))
+
+
+def pcx_rle_decode(data, row_bytes: int, rows: int) -> tuple:
+    """PCX RLE into ``rows`` rows of ``row_bytes``: (buffer, bytes written or
+    -1 on a run that crosses its row)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(row_bytes * rows, np.uint8)
+    return out, int(lib.pcx_rle_decode(_ptr(src), len(src), int(row_bytes), int(rows),
+                                       _ptr(out)))
+
+
+def qoi_decode(data, pixels: int) -> tuple:
+    """A QOI op stream as PIL reads it: ((pixels, 4) RGBA, pixels written;
+    fewer when an op is cut short or the stream ends)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((pixels, 4), np.uint8)
+    return out, int(lib.qoi_decode(_ptr(src), len(src), int(pixels), _ptr(out)))
+
+
+def msp_decode(data, rowmap, stride: int, size: int) -> tuple:
+    """MSP version 2 rows (``data`` the file after its row map ``rowmap``)
+    as PIL joins them: (buffer of ``size`` bytes, bytes written or -1 where
+    PIL refuses a row)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    rm = np.ascontiguousarray(rowmap, np.uint16)
+    out = np.zeros(size, np.uint8)
+    return out, int(lib.msp_decode(_ptr(src), len(src), _ptr(rm), len(rm), int(stride),
+                                   _ptr(out), size))
+
+
+def hdr_rle_decode(data, width: int, height: int) -> tuple:
+    """Radiance HDR scanlines as cv2 reads them: ((height, width, 4) RGBE,
+    0, -1 when the data ends first or -2 for a damaged scanline)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((height, width, 4), np.uint8)
+    line = np.empty(4 * width, np.uint8)
+    return out, int(lib.hdr_rle_decode(_ptr(src), len(src), int(width), int(height), _ptr(out),
+                                       _ptr(line)))
 
 
 def jpeg_info(data, tables=b"") -> tuple:

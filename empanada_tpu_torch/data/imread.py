@@ -12,12 +12,16 @@ stacked, ``imread_gray`` cv2's blue of frame 0), and by
 reversible and irreversible, tiled, layered, in any progression order
 (the codestream by ``csrc/j2k_decode.cpp``, as OpenJPEG decodes it;
 ``imread`` PIL's L, I;16, LA, RGB or RGBA, ``imread_gray`` cv2's grey or
-blue, PIL's where cv2 reads nothing).
+blue, PIL's where cv2 reads nothing), and by ``data/plugins.py`` SGI, PCX
+and DCX, QOI, IM, XBM, MSP (PIL's arrays for both readers: cv2 reads none
+of them) and Radiance HDR (cv2's alone: ``imread`` raises, as PIL opens
+none; the RLE and op streams by ``csrc/image_codecs.cpp``).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
-pages stacked: a multipage TIFF (the IFD chain) or an animated PNG is
-(Z, H, W).  ``imread_gray(path)`` returns what the JAX package's
-``_imread_gray`` returns (``cv2.imread(path, IMREAD_UNCHANGED)``, then
+pages stacked: a multipage TIFF (the IFD chain), an animated PNG or a
+multi-picture JPEG (MPO) is (Z, H, W) or (Z, H, W, C).
+``imread_gray(path)`` returns what the JAX package's ``_imread_gray``
+returns (``cv2.imread(path, IMREAD_UNCHANGED)``, then
 channel 0 of a colour image; PIL's array where cv2 reads nothing: an LZMA
 or ZSTD TIFF, whose channel 0 is then red).  cv2 orders colour channels
 BGR, so its channel 0 is blue: the last colour channel of the file's RGB.
@@ -73,10 +77,15 @@ any integral sampling factors, restart intervals; decoded as
 libjpeg-turbo decodes it for both readers (the islow IDCT, fancy
 upsampling, its YCbCr tables and colour-space rule): grey (H, W), colour
 RGB for ``imread`` and blue for ``imread_gray``.  Neither reader applies
-an EXIF orientation, and neither does the port.
+an EXIF orientation, and neither does the port.  A multi-picture JPEG
+(MPO: an APP2 ``MPF`` index of more than one picture) is each picture
+stacked for ``imread``, found where PIL's ``jpeg_factory`` and
+``MpoImagePlugin`` find them (``_mpo_offsets``), and the first alone for
+``imread_gray``, as cv2 reads it; pictures of different shapes raise, as
+``np.stack`` of PIL's frames does.
 
-Anything else raises and names the form: other formats (SGI, PCX, the
-other PIL plugins, named by ``data/raster.py``; the WebP forms
+Anything else raises and names the form: other formats (PSD, DDS, ICNS,
+FITS and the other PIL plugins, named by ``data/raster.py``; the WebP forms
 ``data/webp.py`` names and the JPEG 2000 forms ``data/jpeg2000.py``
 names: palettes, sYCC and ICC colour, code-block styles other than the
 default, RGN, POC, PPM and PPT markers, HTJ2K and Part 2, precisions other
@@ -113,9 +122,18 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # TIFF magic -> (byte order, BigTIFF)
 _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
-_READS = ("the port reads PNG, TIFF, JPEG, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
-          "raster, WebP and JPEG 2000 (module docstrings of data/imread.py, data/raster.py, "
-          "data/webp.py and data/jpeg2000.py)")
+_READS = ("the port reads PNG, TIFF, JPEG and MPO, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
+          "raster, WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM, MSP and Radiance HDR (module "
+          "docstrings of data/imread.py, data/raster.py, data/webp.py, data/jpeg2000.py and "
+          "data/plugins.py)")
+
+
+def _bound(name: str, what: str, size: int, avail: int) -> None:
+    """Refuse, before allocating, ``what`` of ``size`` bytes (or pixels)
+    where the file can hold no more than ``avail``."""
+    if size > avail:
+        raise ValueError(f"{name}: {what} needs {size}, and the file can hold {avail}; "
+                         f"the file is cut or its header damaged")
 
 
 class _Raw:
@@ -202,15 +220,103 @@ def _read_file(path: str, first_only: bool = False):
     if data[:4] in _TIFF_MAGIC:
         return _tiff_raw(data, path, first_only)
     if data[:2] == b"\xff\xd8":
-        try:
-            px = native.jpeg_decode(data)
-        except ValueError as exc:
-            raise ValueError(f"{path}: {exc}; {_READS}") from None
-        return [_Raw(px[..., 0] if px.shape[2] == 1 else px,
-                     "grey" if px.shape[2] == 1 else "rgb", 8, path)]
+        return _jpeg_raw(data, path, first_only)
     from empanada_tpu_torch.data import raster
 
     return raster.read(data, path, first_only)
+
+
+def _jpeg_raw(data: bytes, name: str, first_only: bool = False) -> list:
+    """The pictures of a JPEG as ``_Raw``: its one image, or each picture
+    of a multi-picture file (MPO) as PIL finds them (``_mpo_offsets``)."""
+    offsets = None if first_only else _mpo_offsets(data, name)
+    out = []
+    for k, at in enumerate(offsets or [0]):
+        where = f"{name}: MPO picture {k}" if offsets else name
+        if data[at:at + 3] != b"\xff\xd8\xff":
+            raise ValueError(f"{where}: no JPEG at byte {at}")
+        try:
+            px = native.jpeg_decode(data[at:] if at else data)
+        except ValueError as exc:
+            raise ValueError(f"{where}: {exc}; {_READS}") from None
+        out.append(_Raw(px[..., 0] if px.shape[2] == 1 else px,
+                        "grey" if px.shape[2] == 1 else "rgb", 8, where))
+    return out
+
+
+# the TIFF headers PIL takes (TiffImagePlugin.PREFIXES) and the types of a
+# whole number (BYTE, SHORT, LONG, SBYTE, SSHORT, SLONG, LONG8, SLONG8)
+# with their sizes
+_TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
+                  b"II\x2b\x00")
+_IFD_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+              16: 8, 17: 8, 18: 8}
+_IFD_INTS = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}
+
+
+def _mpo_offsets(data: bytes, name: str):
+    """The byte offsets of a multi-picture JPEG's pictures as PIL's
+    ``jpeg_factory`` and ``MpoImagePlugin`` find them, or None for a plain
+    JPEG: the last APP2 ``MPF\\0`` segment before the first scan holds a
+    TIFF header and an IFD whose NumberOfImages (0xB001) is over 1 and whose
+    MPEntry (0xB002) gives each picture's DataOffset, counted from the byte
+    after ``MPF\\0`` (0 for the first: the file).  A file with an APP1
+    holding ``hdrgm:Version="`` (Ultra HDR), or an index PIL cannot read
+    (it warns and reads a plain JPEG), is one JPEG; an MPEntry shorter than
+    its pictures raises, as PIL then opens nothing."""
+    pos, mp, at, ultra = 2, None, 0, False
+    while pos + 4 <= len(data):  # the segments before the first scan
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker == 0xFF or marker == 0x01 or 0xD0 <= marker <= 0xD8:
+            pos += 1 if marker == 0xFF else 2
+            continue
+        if marker in (0xDA, 0xD9):
+            break
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        body = data[pos + 4:pos + 2 + length]
+        if marker == 0xE2 and body[:4] == b"MPF\0":
+            mp, at = body[4:], pos + 8
+        ultra |= marker == 0xE1 and b' hdrgm:Version="' in body
+        pos += 2 + length
+    if mp is None or mp[:4] not in _TIFF_PREFIXES or mp[2] == 0x2B or len(mp) < 8:
+        return None
+    ifd_end = ">" if mp[:2] == b"MM" else "<"
+    entry_end = ">" if mp[:4] == b"MM\x00\x2a" else "<"
+    tags = {}
+    (ifd,) = struct.unpack_from(ifd_end + "I", mp, 4)
+    if ifd + 2 <= len(mp):
+        (count,) = struct.unpack_from(ifd_end + "H", mp, ifd)
+        for i in range(count):
+            e = ifd + 2 + 12 * i
+            if e + 12 > len(mp):
+                break  # PIL stops at a cut directory, keeping the tags read
+            tag, typ, n = struct.unpack_from(ifd_end + "HHI", mp, e)
+            size = n * _IFD_SIZES.get(typ, 0)
+            if not size:
+                continue
+            value = e + 8
+            if size > 4:
+                (value,) = struct.unpack_from(ifd_end + "I", mp, e + 8)
+                if value + size > len(mp):
+                    break
+            tags[tag] = (typ, mp[value:value + size])
+    number, entries = tags.get(0xB001), tags.get(0xB002)
+    if number is None or number[0] not in _IFD_INTS or entries is None or entries[0] != 7:
+        return None
+    (count,) = struct.unpack_from(ifd_end + _IFD_INTS[number[0]], number[1])
+    offsets = [0]
+    for k in range(count):
+        if 16 * k + 16 > len(entries[1]):
+            raise ValueError(f"{name}: an MPO index of {count} pictures with entries for "
+                             f"{k}, which PIL does not open; {_READS}")
+        attr, _, offset, _, _ = struct.unpack_from(entry_end + "IIIHH", entries[1], 16 * k)
+        if (attr >> 24) & 7:  # not a JPEG picture: PIL reads the file as one
+            return None
+        offsets.append(offset + at)
+    return None if count <= 1 or ultra else offsets[:1] + offsets[2:]
 
 
 def imread_gray(path: str) -> np.ndarray:

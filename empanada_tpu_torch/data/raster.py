@@ -2,13 +2,17 @@
 through PIL and cv2: BMP and DIB, PBM/PGM/PPM, PFM and PAM, GIF, SPIDER,
 TGA and Sun raster, parsed with numpy; their RLE and LZW streams are
 decoded by the port's host library (``csrc/image_codecs.cpp``).  Of PIL's
-other plugins the port reads WebP and JPEG 2000 (below) and refuses the
-rest by name (SGI, PCX, QOI, ICO, XBM, ...).
+other plugins the port reads WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM
+and MSP (below) and refuses the rest by name (PSD, DDS, ICNS, FITS, ICO,
+XPM, ...).
 
 WebP, which PIL takes for one after TGA (RIFF, WEBP and a first chunk of
-VP8, VP8L or VP8X, as its ``_accept``), is read by ``data/webp.py``, and
+VP8, VP8L or VP8X, as its ``_accept``), is read by ``data/webp.py``,
 JPEG 2000 (a JP2 file's signature box, or a codestream's SOC and SIZ
-markers) by ``data/jpeg2000.py``.
+markers) by ``data/jpeg2000.py``, and SGI, PCX, DCX, QOI, IM (which has
+no check of its own: PIL tries its text header after ICO), XBM and MSP,
+and cv2's Radiance HDR (``#?RGBE`` or ``#?RADIANCE``), by
+``data/plugins.py``.
 
 ``read(data, name, first_only)`` gives ``data/imread.py``'s ``_Raw`` of
 each image, so that ``imread`` returns PIL's array (``Image.open``,
@@ -88,8 +92,8 @@ import struct
 import numpy as np
 
 from empanada_tpu_torch.core import native
-from empanada_tpu_torch.data import jpeg2000, webp
-from empanada_tpu_torch.data.imread import _READS, _Raw
+from empanada_tpu_torch.data import jpeg2000, plugins, webp
+from empanada_tpu_torch.data.imread import _READS, _Raw, _bound
 
 __all__ = ["identify", "read"]
 
@@ -106,6 +110,16 @@ def _u32(d: bytes, at: int = 0, end: str = "<") -> int:
 
 def _u16(d: bytes, at: int = 0, end: str = "<") -> int:
     return struct.unpack_from(end + "H", d, at)[0] if len(d) >= at + 2 else -1
+
+
+def _im_accept(data: bytes) -> bool:
+    """Whether PIL's IM plugin, which has no check of its own, takes the
+    file by its text header (a header it raises on is taken: the reader
+    raises, naming the file)."""
+    try:
+        return plugins.im_header(data) is not None
+    except ValueError:
+        return True
 
 
 # PIL's plugins in the order of PIL.Image.ID (Image.init()) up to SPIDER,
@@ -133,6 +147,7 @@ _BEFORE_SPIDER = (
      or d[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
     ("ICNS", lambda d: d[:4] == b"icns"),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0"),
+    ("IM", _im_accept),
     ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\4"),
     ("MPEG", lambda d: d[:4] == b"\0\0\1\xb3"),
     ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
@@ -147,7 +162,7 @@ _AFTER_TGA = (
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"
      and d[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
     ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\0\0" or d[:4] == b"\1\0\0\0"),
-    ("XBM", lambda d: d[:64].lstrip().startswith(b"#define")),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define")),  # PIL's 16-byte prefix
     ("XPM", lambda d: d[:9] == b"/* XPM */"),
     ("XVTHUMB", lambda d: d[:6] == b"P7 332"),
 )
@@ -155,8 +170,8 @@ _AFTER_TGA = (
 
 def identify(data: bytes) -> str | None:
     """The format PIL's ``Image.open`` takes ``data`` for, by its plugins'
-    checks in their order; a PAM or colour PFM (cv2's alone) is "PNM";
-    None for none."""
+    checks in their order; a PAM or colour PFM (cv2's alone) is "PNM", a
+    Radiance HDR (cv2's alone) "HDR"; None for none."""
     for name, accept in _BEFORE_SPIDER:
         if accept(data):
             return "PNM" if name == "PPM" else name
@@ -172,7 +187,7 @@ def identify(data: bytes) -> str | None:
     for name, accept in _AFTER_TGA:
         if accept(data):
             return name
-    return None
+    return "HDR" if plugins.is_hdr(data) else None
 
 
 def read(data: bytes, name: str, first_only: bool = False) -> list:
@@ -183,20 +198,13 @@ def read(data: bytes, name: str, first_only: bool = False) -> list:
         raise ValueError(f"{name}: not a file of a format the port reads (starts "
                          f"{data[:8]!r}); {_READS}")
     reader = {"BMP": _bmp, "DIB": _bmp, "PNM": _pnm, "GIF": _gif, "SPIDER": _spider,
-              "TGA": _tga, "SUN": _sun, "WEBP": webp.read, "JPEG2000": jpeg2000.read}.get(fmt)
+              "TGA": _tga, "SUN": _sun, "WEBP": webp.read, "JPEG2000": jpeg2000.read,
+              **plugins.READERS}.get(fmt)
     if reader is None:
         raise ValueError(f"{name}: a {fmt} file, which the port does not read; {_READS}")
-    if reader in (_gif, _spider, webp.read, jpeg2000.read):  # readers of both oracles' rules
-        return reader(data, name, first_only)
-    return reader(data, name)
-
-
-def _bound(name: str, what: str, size: int, avail: int) -> None:
-    """Refuse, before allocating, ``what`` of ``size`` bytes (or pixels)
-    where the file can hold no more than ``avail``."""
-    if size > avail:
-        raise ValueError(f"{name}: {what} needs {size}, and the file can hold {avail}; "
-                         f"the file is cut or its header damaged")
+    if reader in (_bmp, _pnm, _tga, _sun):  # readers of one image take no first_only
+        return reader(data, name)
+    return reader(data, name, first_only)
 
 
 def _luma(b, g, r) -> np.ndarray:

@@ -1,14 +1,16 @@
 """A seeded baseline JPEG writer in numpy, for the port's JPEG tests and
-for phase 18 of chip_smoke.py (whose machine has no PIL): grey 8-bit
-images, the standard quantisation table scaled to a quality as the IJG
-library scales it, the separable 8 x 8 DCT, the standard
+for phases 18 and 22 of chip_smoke.py (whose machine has no PIL): 8-bit
+grey images, and three-component ones (each component 1 x 1, with the
+luminance tables), the standard quantisation table scaled to a quality as
+the IJG library scales it, the separable 8 x 8 DCT, the standard
 Huffman tables (ITU T.81 Annex K), and the Huffman coding of every block
 at once (symbols, then their bits, in vectors).
 
-``jpeg_bytes(grey, quality)`` is a whole ``.jpg`` (JFIF); with
-``tables=False`` it is an abbreviated stream without DQT and DHT, whose
-tables ``jpeg_tables(quality)`` holds: the form of a JPEG strip or tile of
-a TIFF (compression 7) and of its JPEGTables tag."""
+``jpeg_bytes(pixels, quality)`` is a whole ``.jpg`` (JFIF: three
+components are Y, Cb and Cr to a decoder); with ``tables=False`` it is an
+abbreviated stream without DQT and DHT, whose tables
+``jpeg_tables(quality)`` holds: the form of a JPEG strip or tile of a TIFF
+(compression 7) and of its JPEGTables tag."""
 
 import struct
 
@@ -89,16 +91,19 @@ def _size(v):
     return out
 
 
-def _scan(grey: np.ndarray, quality: int) -> bytes:
-    """The entropy-coded data of one grey image (bytes stuffed, padded with
-    one bits)."""
-    h, w = grey.shape
+def _scan(planes: np.ndarray, quality: int) -> bytes:
+    """The entropy-coded data of an (H, W, C) image, its C components'
+    blocks interleaved a block each (bytes stuffed, padded with one
+    bits)."""
+    h, w, c = planes.shape
     ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
-    px = np.empty((ph, pw), np.float64)
-    px[:h, :w] = grey
+    px = np.empty((ph, pw, c), np.float64)
+    px[:h, :w] = planes
     px[h:, :w] = px[h - 1:h, :w]  # pad by replicating the edge, as encoders do
     px[:, w:] = px[:, w - 1:w]
-    blocks = (px - 128).reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+    # (block, component, 8, 8): the blocks in the scan's order
+    blocks = (px - 128).reshape(ph // 8, 8, pw // 8, 8, c).transpose(0, 2, 4, 1, 3).reshape(
+        -1, 8, 8)
     # the separable DCT, each sum taken term by term (elementwise products
     # and sums round the same on every machine, as a BLAS product need not)
     rows = sum(blocks[:, :, y, None] * _DCT[:, y] for y in range(8))
@@ -106,8 +111,9 @@ def _scan(grey: np.ndarray, quality: int) -> bytes:
     q = np.rint(coef / quant_table(quality)).astype(np.int64)[:, _ZIGZAG]
     n = len(q)
     # one entry per code: (sort key, code bits, length); a Huffman code and
-    # its value's bits make one entry
-    dc = np.diff(q[:, 0], prepend=0)
+    # its value's bits make one entry; each component predicts its DC from
+    # its own previous block
+    dc = np.diff(q[:, 0].reshape(-1, c), axis=0, prepend=0).reshape(-1)
     s = _size(dc)
     keys = [np.arange(n) * 256]
     codes = [(_DC_CODE[s] << s) | (np.where(dc < 0, dc + (1 << s) - 1, dc) & ((1 << s) - 1))]
@@ -146,16 +152,20 @@ def _scan(grey: np.ndarray, quality: int) -> bytes:
     return np.insert(data, ff + 1, 0).tobytes()
 
 
-def jpeg_bytes(grey: np.ndarray, quality: int = 75, tables: bool = True) -> bytes:
-    """A baseline JPEG of the (H, W) uint8 image ``grey`` at ``quality``:
-    a JFIF file, or (``tables`` False) an abbreviated stream whose tables
-    are ``jpeg_tables(quality)``."""
-    grey = np.asarray(grey, np.uint8)
-    h, w = grey.shape
+def jpeg_bytes(pixels: np.ndarray, quality: int = 75, tables: bool = True) -> bytes:
+    """A baseline JPEG of the (H, W) or (H, W, 3) uint8 image ``pixels``
+    at ``quality`` (three components: Y, Cb and Cr as they stand): a JFIF
+    file, or (``tables`` False) an abbreviated stream whose tables are
+    ``jpeg_tables(quality)``."""
+    pixels = np.asarray(pixels, np.uint8)
+    planes = pixels[..., None] if pixels.ndim == 2 else pixels
+    h, w, c = planes.shape
     out = b"\xff\xd8"
     if tables:
         out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
         out += jpeg_tables(quality)[2:-2]
-    out += _segment(0xC0, struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0]))
-    out += _segment(0xDA, bytes([1, 1, 0x00, 0, 63, 0]))
-    return out + _scan(grey, quality) + b"\xff\xd9"
+    out += _segment(0xC0, struct.pack(">BHHB", 8, h, w, c)
+                    + b"".join(bytes([k + 1, 0x11, 0]) for k in range(c)))
+    out += _segment(0xDA, bytes([c]) + b"".join(bytes([k + 1, 0x00]) for k in range(c))
+                    + bytes([0, 63, 0]))
+    return out + _scan(planes, quality) + b"\xff\xd9"

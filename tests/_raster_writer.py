@@ -424,3 +424,444 @@ def sun_bytes(pixels: np.ndarray, depth: int = None, palette=None, rle: bool = F
     ftype = 2 if rle else (3 if rgb_order else 1)
     return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ftype,
                        1 if cmap else 0, len(cmap)) + cmap + body
+
+
+# ----- SGI ---------------------------------------------------------------------
+
+
+def _packets(values: np.ndarray, min_run: int, max_run: int, max_lit: int):
+    """(run, start, length) of the packets of an RLE of ``values``: each
+    run of ``min_run`` or more equal values in pieces of at most
+    ``max_run``, the values between them in literals of at most
+    ``max_lit``; found in vectors, so that only packets are looped over."""
+    n = len(values)
+    if not n:
+        return
+    starts = np.flatnonzero(np.r_[True, values[1:] != values[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    is_run = lens >= min_run
+    # a literal stretch starts at a short run after a long one (or first)
+    opens = ~is_run & np.r_[True, is_run[:-1]]
+    keep = is_run | opens
+    ends = np.r_[starts[keep][1:], n]
+    for run, start, end in zip(is_run[keep].tolist(), starts[keep].tolist(), ends.tolist()):
+        step = max_run if run else max_lit
+        for at in range(start, end, step):
+            yield run, at, min(step, end - at)
+
+
+def sgi_rle_row(values: np.ndarray, bpc: int = 1) -> bytes:
+    """One row of one channel as SGI RLE: runs of 3 or more as run packets
+    (count, value), the rest as copy packets (0x80 | count, values), at
+    most 127 samples a packet, then a 0 packet; with ``bpc`` 2 each packet
+    header is a 16-bit word and each value 16 bits, big-endian."""
+    values = np.asarray(values).astype(">u2" if bpc == 2 else np.uint8)
+    word = (lambda v: struct.pack(">H", int(v))) if bpc == 2 else (lambda v: bytes((int(v),)))
+    out = bytearray()
+    for run, at, n in _packets(values, 3, 127, 127):
+        out += word(n) + values[at:at + 1].tobytes() if run else \
+            word(0x80 | n) + values[at:at + n].tobytes()
+    return bytes(out + word(0))
+
+
+def sgi_bytes(pixels: np.ndarray, bpc: int = 1, rle: bool = False, dimension: int = None,
+              rows=None) -> bytes:
+    """An SGI image of (H, W) or (H, W, C) ``pixels`` (C 3 or 4; uint8 at
+    ``bpc`` 1, uint16 at 2): a 512-byte header, then each channel's rows
+    bottom-up, raw (big-endian samples) or RLE (``rle``: the start and
+    length tables, row by row of each channel, then the rows);
+    ``dimension`` defaults to 1 for one row of grey, 2 for grey, 3 for
+    colour; ``rows`` (RLE): {(file row, channel): bytes} replacing those
+    rows' packets, for crafted ones."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    z = 1 if px.ndim == 2 else px.shape[2]
+    planes = px.reshape(h, w, z)[::-1].transpose(2, 0, 1)  # (channel, file row, column)
+    if dimension is None:
+        dimension = 3 if z > 1 else (1 if h == 1 else 2)
+    head = struct.pack(">hBBHHHHll4s80sl404s", 474, int(rle), bpc, dimension, w, h, z, 0,
+                       255 if bpc == 1 else 65535, b"", b"sgi", 0, b"")
+    dtype = ">u2" if bpc == 2 else np.uint8
+    if not rle:
+        return head + planes.astype(dtype).tobytes()
+    rows = rows or {}
+    data = [rows.get((r, c)) or sgi_rle_row(planes[c, r], bpc) for c in range(z)
+            for r in range(h)]
+    at = 512 + 8 * z * h
+    starts = np.cumsum([at] + [len(d) for d in data[:-1]])
+    return (head + np.asarray(starts, ">u4").tobytes()
+            + np.asarray([len(d) for d in data], ">u4").tobytes() + b"".join(data))
+
+
+# ----- PCX and DCX -------------------------------------------------------------
+
+
+def pcx_rle(line: bytes) -> bytes:
+    """PCX RLE of one scanline: runs of 2 or more (and any byte of the top
+    two bits set) as (0xC0 | count, value), at most 63 a run; other bytes
+    as they stand."""
+    return _pcx_rle_lines(np.frombuffer(line, np.uint8)[None])
+
+
+def _pcx_rle_lines(lines: np.ndarray) -> bytes:
+    """``pcx_rle`` of each row of (rows, bytes) ``lines``, in vectors: runs
+    break at each row's end."""
+    flat = lines.ravel()
+    cut = np.r_[True, flat[1:] != flat[:-1]]
+    cut[::lines.shape[1]] = True
+    starts = np.flatnonzero(cut)
+    lens = np.diff(np.r_[starts, len(flat)])
+    pieces = (lens + 62) // 63
+    run = np.repeat(np.arange(len(lens)), pieces)
+    k = np.arange(len(run)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    size = np.where(k == pieces[run] - 1, lens[run] - 63 * (pieces[run] - 1), 63)
+    v = flat[starts][run]
+    single = (size == 1) & (v < 0xC0)
+    out = np.stack([np.where(single, v, 0xC0 | size), v], -1).astype(np.uint8)
+    return out[np.arange(2) < np.where(single, 1, 2)[:, None]].tobytes()
+
+
+def pcx_bytes(pixels: np.ndarray, planes: int = None, palette=None, version: int = 5,
+              stride: int = None, body: bytes = None) -> bytes:
+    """A PCX of (H, W) bool (1 bit, 1 plane), (H, W) indices in ``planes``
+    2 or 4 bit planes (``palette`` (16, 3) in the header), (H, W) uint8
+    (8 bits, 1 plane; ``palette`` (256, 3) appended after a 12 byte) or (H,
+    W, 3) RGB (3 planes of 8 bits); each scanline (every plane's ``stride``
+    bytes, by default the row's bytes rounded up to even) RLE-encoded;
+    ``body``: the encoded data as given, for crafted ones."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    if px.dtype == bool:
+        bits, planes, raw = 1, 1, np.packbits(px, axis=1)[None]
+    elif planes in (2, 4):
+        bits = 1
+        raw = np.stack([np.packbits((px >> p) & 1, axis=1) for p in range(planes)])
+    else:
+        bits, planes = 8, 1 if px.ndim == 2 else 3
+        raw = px.reshape(h, w, planes).transpose(2, 0, 1)
+    if stride is None:
+        stride = (w * bits + 7) // 8
+        stride += stride % 2
+    lines = np.zeros((h, planes, stride), np.uint8)
+    lines[:, :, :raw.shape[2]] = raw.transpose(1, 0, 2)[:, :, :stride]
+    if body is None:
+        body = _pcx_rle_lines(lines.reshape(h, -1))
+    head_pal = np.zeros((16, 3), np.uint8)
+    if palette is not None and bits == 1:
+        head_pal[:len(palette)] = np.asarray(palette, np.uint8).reshape(-1, 3)[:16]
+    head = struct.pack("<BBBBHHHHHH48sBBHHHH54s", 10, version, 1, bits, 0, 0, w - 1, h - 1,
+                       72, 72, head_pal.tobytes(), 0, planes, stride, 1, 0, 0, b"")
+    tail = b""
+    if palette is not None and bits == 8:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(palette)] = np.asarray(palette, np.uint8).reshape(-1, 3)
+        tail = b"\x0c" + pal.tobytes()
+    return head + body + tail
+
+
+def dcx_bytes(pages) -> bytes:
+    """A DCX of the PCX files ``pages``: its magic, the pages' offsets (a
+    0 after the last, 1024 entries in all), then the pages."""
+    at = 4 + 4 * 1024
+    offsets = np.zeros(1024, "<u4")
+    for k, page in enumerate(pages):
+        offsets[k] = at
+        at += len(page)
+    return struct.pack("<I", 0x3ADE68B1) + offsets.tobytes() + b"".join(pages)
+
+
+# ----- QOI ---------------------------------------------------------------------
+
+
+def qoi_ops(pixels: np.ndarray) -> bytes:
+    """The QOI op stream of (H, W, 3 or 4) uint8 ``pixels``, as the
+    format's reference encoder writes it, in vectors: a run of pixels equal
+    to the one before as RUN ops (at most 62 each), a pixel found at its
+    hash in the table of the 64 last seen as INDEX, else DIFF, LUMA or RGB
+    when its alpha is the one before's, else RGBA."""
+    h, w, c = pixels.shape
+    px = np.full((h * w, 4), 255, np.uint8)
+    px[:, :c] = pixels.reshape(-1, c)
+    prev = np.concatenate([[[0, 0, 0, 255]], px[:-1]]).astype(np.uint8)
+    same = (px == prev).all(1)
+    n = len(px)
+    # each op: (pixel position, order within it, up to 5 bytes, length)
+    keys, sub, body, size = [], [], [], []
+    # runs: maximal spans of pixels equal to the one before
+    edges = np.diff(np.concatenate([[0], same.astype(np.int8), [0]]))
+    for s, e in zip(np.flatnonzero(edges == 1).tolist(), np.flatnonzero(edges == -1).tolist()):
+        for k, at in enumerate(range(s, e, 62)):
+            keys.append(s)
+            sub.append(k)
+            body.append([0xC0 | (min(62, e - at) - 1), 0, 0, 0, 0])
+            size.append(1)
+    t = np.flatnonzero(~same)
+    v = px[t].astype(np.int64)
+    hv = (v[:, 0] * 3 + v[:, 1] * 5 + v[:, 2] * 7 + v[:, 3] * 11) % 64
+    # the table slot's pixel: the last pixel before of the same hash that
+    # was not a run's, or (0, 0, 0, 0)
+    order = np.argsort(hv, kind="stable")
+    before = np.full(len(t), -1)
+    same_slot = hv[order][1:] == hv[order][:-1]
+    before[order[1:][same_slot]] = order[:-1][same_slot]
+    slot = np.where(before[:, None] >= 0, v[np.maximum(before, 0)], 0)
+    index = (slot == v).all(1)
+    p = prev[t].astype(np.int64)
+    d = ((v - p + 128) % 256) - 128
+    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
+    alpha_same = d[:, 3] == 0
+    diff = alpha_same & (np.abs(d[:, :3] + 0.5) < 2).all(1)
+    luma = alpha_same & (dg >= -32) & (dg <= 31) & (np.abs(dr - dg + 0.5) < 8) \
+        & (np.abs(db - dg + 0.5) < 8)
+    ops = np.zeros((len(t), 5), np.int64)
+    lens = np.zeros(len(t), np.int64)
+    rgba = ~index & ~alpha_same
+    rgb = ~index & alpha_same & ~diff & ~luma
+    lu = ~index & luma & ~diff
+    di = ~index & diff
+    ops[index, 0], lens[index] = hv[index], 1
+    ops[di, 0] = 0x40 | (dr[di] + 2) << 4 | (dg[di] + 2) << 2 | (db[di] + 2)
+    lens[di] = 1
+    ops[lu, 0], ops[lu, 1] = 0x80 | (dg[lu] + 32), (dr[lu] - dg[lu] + 8) << 4 | (
+        db[lu] - dg[lu] + 8)
+    lens[lu] = 2
+    ops[rgb, 0], ops[rgb, 1:4], lens[rgb] = 0xFE, v[rgb, :3], 4
+    ops[rgba, 0], ops[rgba, 1:5], lens[rgba] = 0xFF, v[rgba], 5
+    keys = np.concatenate([np.asarray(keys, np.int64), t])
+    sub = np.concatenate([np.asarray(sub, np.int64), np.zeros(len(t), np.int64)])
+    body = np.concatenate([np.asarray(body, np.int64).reshape(-1, 5), ops])
+    size = np.concatenate([np.asarray(size, np.int64), lens])
+    order = np.lexsort((sub, keys))
+    body, size = body[order], size[order]
+    return body[np.arange(5) < size[:, None]].astype(np.uint8).tobytes() if n else b""
+
+
+def qoi_bytes(pixels: np.ndarray = None, ops: bytes = None, size=None, channels: int = None,
+              colorspace: int = 0) -> bytes:
+    """A QOI of (H, W, 3 or 4) uint8 ``pixels`` (``qoi_ops``), or of the op
+    stream ``ops`` as given for an image of ``size`` (W, H) and
+    ``channels``; the 8-byte end marker last."""
+    if ops is None:
+        h, w, channels = pixels.shape
+        size, ops = (w, h), qoi_ops(pixels)
+    return b"qoif" + struct.pack(">IIBB", size[0], size[1], channels, colorspace) + ops \
+        + b"\x00" * 7 + b"\x01"
+
+
+# ----- IM (LabEye IFUNC) ---------------------------------------------------------
+
+
+def im_pack(pixels: np.ndarray, rawmode: str) -> np.ndarray:
+    """The (H, row bytes) rows of an IM image in the image's row order for
+    PIL's raw mode ``rawmode``: "1" (bits, most significant first), "L",
+    "P", "P;2", "P;4" (indices packed), "RGB" (interleaved), "<bands>;L"
+    (each band's row in turn: "LA;L", "RGB;L", "RGBA;L", ...), "I;16",
+    "I;16L", "I;16B", "I;32S", "F;8", "F;8S", "F;16", "F;16S", "F;32",
+    "F;32S", "F;32F" (the samples in their type, little-endian but B)."""
+    px = np.asarray(pixels)
+    h = px.shape[0]
+    if rawmode == "1":
+        return np.packbits(px.astype(bool), axis=1)
+    if rawmode in ("P;2", "P;4"):
+        bits = int(rawmode[2])
+        per = 8 // bits
+        idx = np.zeros((h, -(-px.shape[1] // per) * per), np.uint8)
+        idx[:, :px.shape[1]] = px
+        out = np.zeros((h, idx.shape[1] // per), np.uint8)
+        for k in range(per):
+            out |= idx[:, k::per] << (8 - bits * (k + 1))
+        return out
+    if rawmode.endswith(";L"):
+        return np.ascontiguousarray(px.transpose(0, 2, 1)).astype(np.uint8).reshape(h, -1)
+    dtype = {"I;16": "<u2", "I;16L": "<u2", "I;16B": ">u2", "I;32S": "<i4", "F;8": "u1",
+             "F;8S": "i1", "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4", "F;32S": "<i4",
+             "F;32F": "<f4"}.get(rawmode, "u1")
+    return px.astype(dtype).view(np.uint8).reshape(h, -1)
+
+
+def im_bytes(frames, image_type: str, size=None, lut=None, n_frames: int = None,
+             lines: bytes = b"", rawmode: str = None) -> bytes:
+    """An IM file: its text header (``Image type: <image_type> image``, a
+    name, ``Image size (x*y)``, ``File size (no of images)`` (``n_frames``,
+    by default the frames'), ``Lut: 1`` with a ``lut`` (256, 3), then
+    ``lines`` as given), NULs to byte 511 and a 0x1A; the LUT's three
+    planes; then each frame's rows bottom-up, packed for ``rawmode`` by
+    ``im_pack`` (a frame of bytes as given)."""
+    frames = frames if isinstance(frames, list) else [frames]
+    first = frames[0]
+    if size is None:
+        size = (first.shape[1], first.shape[0])
+    head = (f"Image type: {image_type} image\r\nName: x.im\r\n"
+            f"Image size (x*y): {size[0]}*{size[1]}\r\n"
+            f"File size (no of images): {len(frames) if n_frames is None else n_frames}\r\n"
+            ).encode()
+    if lut is not None:
+        head += b"Lut: 1\r\n"
+    head += lines
+    head += b"\x00" * (511 - len(head)) + b"\x1a"
+    if lut is not None:
+        head += np.asarray(lut, np.uint8).reshape(256, 3).T.tobytes()
+    body = b"".join(f if isinstance(f, bytes) else im_pack(f, rawmode)[::-1].tobytes()
+                    for f in frames)
+    return head + body
+
+
+# ----- XBM and MSP -------------------------------------------------------------
+
+
+def xbm_bytes(bits: np.ndarray, hotspot=None, name: str = "im", per_line: int = 12,
+              upper: bool = False) -> bytes:
+    """An X11 bitmap of (H, W) bool ``bits``: its width and height (and
+    ``hotspot`` (x, y)) #defines, then the rows' bytes, least significant
+    bit first, as C hex literals, ``per_line`` to a line."""
+    h, w = bits.shape
+    head = f"#define {name}_width {w}\n#define {name}_height {h}\n"
+    if hotspot is not None:
+        head += f"#define {name}_x_hot {hotspot[0]}\n#define {name}_y_hot {hotspot[1]}\n"
+    data = np.packbits(bits.astype(np.uint8), axis=1, bitorder="little").ravel()
+    fmt = "0x{:02X}" if upper else "0x{:02x}"
+    cells = [fmt.format(v) for v in data.tolist()]
+    rows = [", ".join(cells[k:k + per_line]) for k in range(0, len(cells), per_line)]
+    return (head + f"static char {name}_bits[] = {{\n" + ",\n".join(rows) + "\n};\n").encode()
+
+
+def msp_rle_row(row: bytes) -> bytes:
+    """One MSP version 2 row: runs of 3 or more bytes as (0, count,
+    value), the rest as (count, bytes), at most 255 a packet."""
+    arr = np.frombuffer(row, np.uint8)
+    out = bytearray()
+    for run, at, n in _packets(arr, 3, 255, 255):
+        out += bytes((0, n, arr[at])) if run else bytes((n,)) + arr[at:at + n].tobytes()
+    return bytes(out)
+
+
+def msp_bytes(bits: np.ndarray, version: int = 1, rows=None) -> bytes:
+    """A Windows Paint file of (H, W) bool ``bits`` (True a set bit):
+    version 1 (``DanM``, the rows as they stand) or 2 (``LinS``: a map of
+    each row's encoded length, then the rows, ``msp_rle_row``; a row of
+    set bits alone as length 0); its header's 16 words XOR to 0; ``rows``:
+    {row: encoded bytes} replacing those rows, for crafted ones."""
+    h, w = bits.shape
+    packed = np.packbits(bits.astype(np.uint8), axis=1)
+    header = [0] * 16
+    header[0:2] = struct.unpack("<HH", b"DanM" if version == 1 else b"LinS")
+    header[2:10] = [w, h, 1, 1, 1, 1, w, h]
+    for v in header[:12]:
+        header[12] ^= v
+    head = struct.pack("<16H", *header)
+    if version == 1:
+        return head + packed.tobytes()
+    rows = rows or {}
+    data = [rows.get(r, b"" if (packed[r] == 255).all() else msp_rle_row(packed[r].tobytes()))
+            for r in range(h)]
+    return head + struct.pack(f"<{h}H", *map(len, data)) + b"".join(data)
+
+
+# ----- Radiance HDR ------------------------------------------------------------
+
+
+def rgbe_of(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 4) RGBE bytes of (H, W, 3) float RGB: the largest sample's
+    binary exponent e, each sample's mantissa v * 256 / 2^e truncated; 0
+    where the largest is under 1e-32."""
+    rgb = np.asarray(rgb, np.float64)
+    top = rgb.max(-1)
+    mant, exp = np.frexp(top)
+    scale = np.where(top < 1e-32, 0, mant * 256 / np.where(top < 1e-32, 1, top))
+    out = np.zeros(rgb.shape[:2] + (4,), np.uint8)
+    out[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    out[..., 3] = np.where(top < 1e-32, 0, exp + 128)
+    return out
+
+
+def hdr_scanline(line: np.ndarray) -> bytes:
+    """One scanline of (W, 4) RGBE in Radiance's new RLE: 2, 2, W high
+    and low byte, then each of the four channels in turn as runs of 4 or
+    more (128 + count, value; at most 127) and literals (count, values; at
+    most 128)."""
+    w = len(line)
+    out = bytearray((2, 2, w >> 8, w & 255))
+    for c in range(4):
+        v = np.ascontiguousarray(line[:, c], np.uint8)
+        for run, at, n in _packets(v, 4, 127, 128):
+            out += bytes((128 + n, v[at])) if run else bytes((n,)) + v[at:at + n].tobytes()
+    return bytes(out)
+
+
+def hdr_bytes(rgbe: np.ndarray, rle: str = "new", header: bytes = None,
+              resolution: bytes = None) -> bytes:
+    """A Radiance HDR of (H, W, 4) RGBE bytes: ``header`` (default
+    ``#?RADIANCE`` and ``FORMAT=32-bit_rle_rgbe``, then the blank line),
+    the ``resolution`` line (default ``-Y H +X W``), then the scanlines:
+    ``rle`` "new" (``hdr_scanline``), "flat" (the bytes as they stand) or
+    "old" (Radiance's old RLE: a pixel, then 1, 1, 1, count for each run
+    of it, counts of later bytes shifted 8 bits more)."""
+    h, w = rgbe.shape[:2]
+    if header is None:
+        header = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+    if resolution is None:
+        resolution = b"-Y %d +X %d\n" % (h, w)
+    if rle == "new":
+        body = b"".join(hdr_scanline(line) for line in rgbe)
+    elif rle == "flat":
+        body = np.ascontiguousarray(rgbe, np.uint8).tobytes()
+    else:
+        out = bytearray()
+        flat = np.ascontiguousarray(rgbe, np.uint8).reshape(-1, 4)
+        keys = flat.view(">u4").ravel()
+        for s, n in _rle_runs(keys):
+            out += flat[s].tobytes()
+            n -= 1
+            while n:
+                out += bytes((1, 1, 1, n & 255))
+                n >>= 8
+        body = bytes(out)
+    return header + resolution + body
+
+
+# ----- MPO ---------------------------------------------------------------------
+
+
+def mpo_bytes(jpegs, big: bool = False, formats=None, count: int = None,
+              ultra_hdr: bool = False, offsets=None) -> bytes:
+    """A multi-picture JPEG of the JPEG files ``jpegs``: the first with an
+    APP2 ``MPF`` segment after its SOI (a TIFF header, little-endian or
+    ``big``, and an IFD of MPFVersion, NumberOfImages (``count``, by
+    default the pictures') and MPEntry: each picture's attribute (its
+    ``formats`` (ImageDataFormat) in bits 24-26, 0 JPEG), size and offset
+    from the byte after ``MPF\\0``, 0 for the first; ``offsets`` as given),
+    then the others after it; ``ultra_hdr``: an APP1 with an
+    ``hdrgm:Version`` attribute before it."""
+    end = ">" if big else "<"
+    n = len(jpegs)
+    count = n if count is None else count
+    formats = formats or [0] * n
+    ifd_at = 8
+    entries_at = ifd_at + 2 + 3 * 12 + 4
+    mp_len = entries_at + 16 * n
+    xmp = b""
+    if ultra_hdr:
+        body = (b"http://ns.adobe.com/xap/1.0/\x00<x:xmpmeta>"
+                b'<rdf:Description hdrgm:Version="1.0"/></x:xmpmeta>')
+        xmp = struct.pack(">HH", 0xFFE1, len(body) + 2) + body
+    app2_len = 2 + 4 + mp_len
+    base = 2 + len(xmp) + 2 + 2 + 4  # the byte after MPF\0 in the first picture
+    first_size = len(jpegs[0]) + 2 + app2_len + len(xmp)
+    at, entries = first_size, b""
+    for k, jpeg in enumerate(jpegs):
+        attr = (formats[k] << 24) | (0x030000 if k == 0 else 0x020002)
+        size = first_size if k == 0 else len(jpeg)
+        offset = 0 if k == 0 else at - base
+        if offsets is not None:
+            offset = offsets[k]
+        entries += struct.pack(end + "IIIHH", attr, size, offset, 0, 0)
+        if k:
+            at += len(jpeg)
+    ifd = struct.pack(end + "H", 3)
+    ifd += struct.pack(end + "HHI4s", 0xB000, 7, 4, b"0100")
+    ifd += struct.pack(end + "HHII", 0xB001, 4, 1, count)
+    ifd += struct.pack(end + "HHII", 0xB002, 7, 16 * n, entries_at)
+    ifd += struct.pack(end + "I", 0)
+    tiff = (b"MM\x00*" if big else b"II*\x00") + struct.pack(end + "I", ifd_at) + ifd + entries
+    app2 = struct.pack(">HH", 0xFFE2, app2_len) + b"MPF\x00" + tiff
+    return b"\xff\xd8" + xmp + app2 + jpegs[0][2:] + b"".join(jpegs[1:])

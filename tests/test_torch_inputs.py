@@ -28,7 +28,7 @@ the CPU at small sizes; every comparison is exact (tolerance 0):
   uncompressed one, raises naming the file, the page and the strip; the
   forms the port does not read (arithmetic, lossless, hierarchical,
   12-bit, CMYK and DNL JPEG; old-style JPEG TIFF, predictor 3 of integer
-  samples; SGI, JPEG 2000 and WebP; the photometric forms and sample counts neither
+  samples; DDS, JPEG 2000 and WebP; the photometric forms and sample counts neither
   reader takes) are refused, naming themselves; ``imread_gray`` reads a
   TIFF's first page alone, as cv2 does; the ZSTD decoder equals
   zstandard's frames at levels 1 to 19, with and without checksums, and
@@ -331,9 +331,9 @@ def _assert_refused(kind, match, tmp_path):
 
 
 def test_refusals_name_the_format(tmp_path):
-    """A format the port does not read (SGI), and predictor 3 of integer
+    """A format the port does not read (DDS), and predictor 3 of integer
     samples (libtiff's floating-point differencing takes floats only)."""
-    _assert_refused("sgi", "a SGI file, which the port does not read", tmp_path)
+    _assert_refused("dds", "a DDS file, which the port does not read", tmp_path)
     _assert_refused("tiff-predictor3-uint16", "predictor 3, bits", tmp_path)
 
 
@@ -342,10 +342,12 @@ def test_forms_that_stay_refused(kind, match, tmp_path):
     _assert_refused(kind, match, tmp_path)
 
 
-@pytest.mark.parametrize("kind", ["gif", "bmp"])
+@pytest.mark.parametrize("kind", ["gif", "bmp", "sgi", "pcx"])
 def test_forms_once_refused_now_read(kind, tmp_path):
-    """GIF and BMP, refused before ``data/raster.py``, read as the JAX
-    package reads them (``tests/test_torch_raster.py`` holds every form)."""
+    """GIF and BMP, refused before ``data/raster.py``, and SGI and PCX,
+    refused before ``data/plugins.py``, read as the JAX package reads them
+    (``tests/test_torch_raster.py`` and ``tests/test_torch_plugins.py``
+    hold every form)."""
     arr = np.random.default_rng(11).integers(0, 256, (9, 14)).astype(np.uint8)
     path = str(tmp_path / f"x.{kind}")
     Image.fromarray(arr).save(path)

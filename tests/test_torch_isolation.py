@@ -4,7 +4,8 @@ zarr, zstandard, napari and magicgui blocked (the card's machine has none
 of the last seven), and the
 port's native host library builds and loads there too, as the command
 line's file and curation commands run and the raster readers read GIF,
-RLE BMP, RLE TGA and RLE Sun raster, and JPEG 2000, through its decoders; the port's modules
+RLE BMP, RLE TGA and RLE Sun raster, JPEG 2000, SGI RLE, PCX, QOI, MSP,
+Radiance HDR and a multi-picture JPEG, through its decoders; the port's modules
 import nothing beyond the standard library, torch, numpy, scipy and yaml;
 the entry points default to CUDA and raise, naming device="cpu", when there
 is no GPU, and so does ``python -m empanada_tpu_torch``, naming ``--device
@@ -77,7 +78,8 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "parallel.multihost", "parallel.spatial", "parallel.data_parallel",
                 "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
                 "utils.progress", "ops.int8_conv", "napari_plugin",
-                "napari_plugin.widgets", "data.raster", "data.webp", "data.jpeg2000"):
+                "napari_plugin.widgets", "data.raster", "data.webp", "data.jpeg2000",
+                "data.plugins"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -118,6 +120,19 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
         open(os.path.join(d, name), "wb").write(data)
         assert (imread(os.path.join(d, name)) == img).all(), name
         assert (imread_gray(os.path.join(d, name)) == img).all(), name
+    # data/plugins.py's formats and an MPO, with the tests' writers
+    from _jpeg_writer import jpeg_bytes
+    from _raster_writer import hdr_bytes, mpo_bytes, msp_bytes, pcx_bytes, qoi_bytes, sgi_bytes
+    rgb = np.dstack([img * 30, img, 255 - img]).astype(np.uint8)
+    for name, data, want in (
+            ("x.sgi", sgi_bytes(img, rle=True), img), ("x.pcx", pcx_bytes(rgb), rgb),
+            ("x.qoi", qoi_bytes(rgb), rgb), ("x.msp", msp_bytes(img > 3, 2), img > 3),
+            ("x.jpg", mpo_bytes([jpeg_bytes(img), jpeg_bytes(img)]), None)):
+        open(os.path.join(d, name), "wb").write(data)
+        got = imread(os.path.join(d, name))
+        assert (got.shape == (2, 5, 7)) if want is None else (got == want).all(), name
+    open(os.path.join(d, "x.hdr"), "wb").write(hdr_bytes(np.full((5, 9, 4), 137, np.uint8)))
+    assert (imread_gray(os.path.join(d, "x.hdr")) == np.float32(274)).all()  # 137 * 2^1
     # the JPEG 2000 decoder: two of phase 21's committed fixtures, to the
     # oracles' digests
     for form in ("j2k", "tiled"):

@@ -26,7 +26,9 @@ sample, or both raising, on the same file:
 - damaged GIF LZW, BMP RLE8 and RLE4, TGA RLE and Sun byte-encoded data
   raise naming the file (and the GIF frame); a header claiming 65535 x
   65535 on a file of a few bytes is refused before any buffer is
-  allocated; the formats the port does not read raise naming themselves;
+  allocated (and so is one of 13000 x 13000, under PIL's pixel limit, in
+  each format of ``data/plugins.py``); the formats the port does not read
+  raise naming themselves;
   the writer's encoders round-trip through the host library's decoders.
 """
 
@@ -710,17 +712,42 @@ def _oversized(fmt):
         return struct.pack("<BBBHHBHHHHBB", 0, 0, 3, 0, 0, 0, 0, 0, big, big, 8, 0) + bytes(16)
     if fmt == "tga-rle":
         return struct.pack("<BBBHHBHHHHBB", 0, 0, 11, 0, 0, 0, 0, 0, big, big, 8, 0) + bytes(16)
-    return struct.pack(">8I", 0x59A66A95, big, big, 8, 0, 2 if fmt == "sun-rle" else 1, 0, 0) \
-        + bytes(16)
+    if fmt.startswith("sun"):
+        return struct.pack(">8I", 0x59A66A95, big, big, 8, 0, 2 if fmt == "sun-rle" else 1, 0,
+                           0) + bytes(16)
+    # data/plugins.py's formats: 13000 x 13000, under PIL's pixel limit
+    side = 13000
+    if fmt in ("sgi", "sgi-rle"):
+        return struct.pack(">hBBHHHH", 474, fmt == "sgi-rle", 1, 2, side, side, 1) + bytes(600)
+    if fmt in ("pcx", "dcx"):
+        pcx = struct.pack("<BBBBHHHH", 10, 5, 1, 8, 0, 0, side - 1, side - 1) + bytes(53) \
+            + struct.pack("<BH", 1, side) + bytes(60) + bytes(672)
+        return pcx if fmt == "pcx" else struct.pack("<II", 0x3ADE68B1, 4104) + bytes(4096) + pcx
+    if fmt == "qoi":
+        return b"qoif" + struct.pack(">IIBB", side, side, 3, 0) + bytes(16)
+    if fmt == "im":
+        return b"Image type: Greyscale image\r\nImage size (x*y): 13000*13000\r\n\0\x1a" \
+            + bytes(16)
+    if fmt == "xbm":
+        return b"#define a_width 13000\n#define a_height 13000\nstatic char a_bits[] = {0x00};"
+    if fmt in ("msp", "msp-v2"):
+        words = list(struct.unpack("<HH", b"DanM" if fmt == "msp" else b"LinS")) + [
+            side, side] + [0] * 12
+        for v in words[:12]:
+            words[12] ^= v
+        return struct.pack("<16H", *words) + bytes(16)
+    return b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 13000 +X 13000\n" + bytes(16)
 
 
 OVERSIZED = ["bmp", "bmp-rle", "pgm", "pgm-plain", "pfm", "pam", "gif", "spider", "tga",
-             "tga-rle", "sun", "sun-rle"]
+             "tga-rle", "sun", "sun-rle", "sgi", "sgi-rle", "pcx", "dcx", "qoi", "im", "xbm",
+             "msp", "msp-v2", "hdr"]
 
 
 @pytest.mark.parametrize("fmt", OVERSIZED)
 def test_oversized_header_is_refused_before_allocating(fmt, tmp_path):
-    """A header claiming 65535 x 65535 on a file of a few dozen bytes
+    """A header claiming 65535 x 65535 (13000 x 13000 in the formats of
+    data/plugins.py) on a file of a few dozen bytes
     raises before any buffer of its size is allocated (the peak traced
     allocation stays under 1 MiB)."""
     path = _file(tmp_path, "x.img", _oversized(fmt))
@@ -747,10 +774,14 @@ def _other_format(kind):
         palette = (box(b"pclr", struct.pack(">HB", 2, 3) + bytes([7, 7, 7]) + bytes(6))
                    + box(b"cmap", struct.pack(">HBB", 0, 1, 0) * 3))
         return jp2(codestream_of(buf.getvalue()), 8, 8, 3, 7, 16, header_extra=palette)
-    buf = io.BytesIO()
-    im = Image.fromarray(arr).convert({"qoi": "RGB", "xbm": "1"}.get(kind, "L"))
-    im.save(buf, {"sgi": "SGI", "pcx": "PCX", "qoi": "QOI", "xbm": "XBM"}[kind])
-    return buf.getvalue()
+    if kind == "dds":
+        buf = io.BytesIO()
+        Image.fromarray(np.dstack([arr] * 3)).save(buf, "DDS")
+        return buf.getvalue()
+    # the others by their first bytes: PSD's signature and version, an
+    # ICNS's magic and length, a FITS primary header
+    return {"psd": b"8BPS\0\1" + bytes(20), "icns": b"icns" + struct.pack(">I", 8),
+            "fits": b"SIMPLE  =                    T" + b" " * 50}[kind]
 
 
 # what a refusal names where it is not the format: the form of a format the
@@ -759,8 +790,8 @@ _REFUSED_FORM = {"JPEG2000": r"a palette \(pclr and cmap boxes\), which the port
 
 
 @pytest.mark.parametrize("kind,name", [("ico", "ICO"), ("jpeg2000", "JPEG2000"),
-                                       ("sgi", "SGI"), ("pcx", "PCX"), ("qoi", "QOI"),
-                                       ("xbm", "XBM")])
+                                       ("psd", "PSD"), ("dds", "DDS"), ("icns", "ICNS"),
+                                       ("fits", "FITS")])
 def test_formats_still_refused_name_themselves(kind, name, tmp_path):
     path = _file(tmp_path, f"x.{kind}", _other_format(kind))
     assert raster.identify(open(path, "rb").read()) == name
