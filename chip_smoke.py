@@ -337,6 +337,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     package's ``VolumeDataset`` refuses it); a ``SingleClassInstanceDataset``
     over SGI images and PCX masks equal, item for item, to the one over the
     same arrays as PNG; ``plugins:`` line; at most 60 s.
+23. icons: phase 18's volume written with the tests' writers
+    (``icons_files``) as an 8-bit grey PackBits PSD of slice 0, a raw RGB
+    PSD of slices 0-2, a PSD of two layers, an ICO with a PNG member (slice
+    0) and one with a 32-bit DIB member, a CUR, an XPM mask, an ICNS of an
+    ``it32`` member and its ``t8mk`` mask, an IM ``L*4`` slice, and C15's
+    JPEGs: quality-100 files of the tests' JPEG writer (grey, colour,
+    progressive) with patched quantisation tables (237, 128, 60), one with
+    stray bytes before its scan and an EOI inside it, one cut without its
+    EOI; each read by ``imread`` and ``imread_gray`` and held to the dtype,
+    shape and SHA-256 of the oracles' arrays of the same file (PIL 12.1's
+    and cv2 5.0's, ``PSD_ICO_SHA256``; None where the JAX reader raises:
+    the two-layer PSD's ``imread``, the cut JPEG's), each reader's decode
+    MB/s and ms (the faster of two reads); ``python -m empanada_tpu_torch
+    infer2d`` of the grey PSD and of the PNG ICO with phase 5's model as a
+    bundle, in one batch of two subprocesses side by side, each map equal
+    to ``Engine2d``'s on the array ``imread`` gives (2 refine launches in
+    each, and 2 in each twin); ``infer3d`` of the two-layer PSD refused
+    before any launch (PIL numbers PSD layers from 1: the JAX package's
+    reader raises); ``icons:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -4803,11 +4822,12 @@ def plugins_files(vol, vol8):
                                               jpeg_bytes(np.stack(list(vol8[1:4]), -1), q)]))}
 
 
-def plugins_reads(files, path) -> dict:
+def plugins_reads(files, path, table=None, tag="plugins") -> dict:
     """Each form read by ``imread`` and ``imread_gray``, held to the
-    oracles' digests (PIL 12.1, cv2 5.0) (``PLUGINS_SHA256``; ``imread``
-    raises where PIL does); each reader's decode MB/s (the bytes of its
-    array) and ms, the faster of two reads."""
+    oracles' digests (PIL 12.1, cv2 5.0) in ``table`` (``PLUGINS_SHA256``,
+    phase 23's ``PSD_ICO_SHA256``; a reader raises where its oracle does);
+    each reader's decode MB/s (the bytes of its array) and ms, the faster
+    of two reads."""
     from empanada_tpu_torch.data.imread import imread, imread_gray
 
     rec = {"file_MB": {}, "decode_MB_per_s": {}, "decode_ms": {}, "gray_MB_per_s": {},
@@ -4827,8 +4847,8 @@ def plugins_reads(files, path) -> dict:
             if got is not None:
                 rec[f"{key}_MB_per_s"][form] = got.nbytes / best / 1e6
                 rec[f"{key}_ms"][form] = best * 1e3
-        want = [None if d is None else list(d) for d in PLUGINS_SHA256[form]]
-        check(want == digests, f"plugins: {form} read as {digests}, not the oracles' {want}")
+        want = [None if d is None else list(d) for d in (table or PLUGINS_SHA256)[form]]
+        check(want == digests, f"{tag}: {form} read as {digests}, not the oracles' {want}")
         rec["file_MB"][form] = len(data) / 1e6
     return rec
 
@@ -4979,6 +4999,211 @@ def plugins_phase(prr, api, cfg, model, card):
     print("plugins: " + json.dumps(rec), flush=True)
     check(rec["phase_s"] <= PLUGINS_LIMIT_S,
           f"phase 22 took {rec['phase_s']:.1f} s, over its {PLUGINS_LIMIT_S} s")
+    return rec, launches
+
+
+# phase 23: XPM, ICO, CUR, PSD, ICNS, IM L*4 and C15's JPEGs, made from
+# phase 18's seeded volume; its limit, and per form the (dtype, shape,
+# SHA-256) of the oracles' arrays of the same files, PIL 12.1 and cv2 5.0,
+# as PLUGINS_SHA256 holds them (regenerate: write ``icons_files(vol, vol8)``
+# on a machine with PIL 12.1 and cv2 5.0 and take ``raster_digest`` of
+# ``cli._load_array`` and ``datasets._imread_gray`` of each, None where the
+# reader raises;
+# ``plugins_reads(files, path, PSD_ICO_SHA256, "icons")`` then checks them)
+ICONS_LIMIT_S = 60
+PSD_ICO_SHA256 = {
+    "psd_grey": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "psd_rgb": (("uint8", [1024, 1024, 3],
+             "0b51b0c0cf11286d7d3f29d0cf9ec09969bd611cbf23ebe8d4b78d2d689d143d"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "psd_layers": (None,
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "ico_png": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "ico_dib32": (("uint8", [256, 256, 4],
+             "018e453e922592e67ecd3e857038547b55d4c65d1a3acbf4428dc80059864d46"),
+            ("uint8", [256, 256],
+             "861920fa35c1e83d3f704d39d556a4e4a1db56fe2cf96e5c7f8eed7b4a24eac4")),
+    "cur": (("uint8", [256, 256],
+             "861920fa35c1e83d3f704d39d556a4e4a1db56fe2cf96e5c7f8eed7b4a24eac4"),
+            ("uint8", [256, 256],
+             "861920fa35c1e83d3f704d39d556a4e4a1db56fe2cf96e5c7f8eed7b4a24eac4")),
+    "xpm_mask": (("uint8", [1024, 1024],
+             "290a65f486d6ea6cabfd3e8d5054f9270ca918e8bf892feaebeefae7770739f0"),
+            ("uint8", [1024, 1024],
+             "290a65f486d6ea6cabfd3e8d5054f9270ca918e8bf892feaebeefae7770739f0")),
+    "icns_it32": (("uint8", [128, 128, 4],
+             "a0a09a0ad2ebdf86cebb68274d81f1c5a4472f63b0a305d5b41c0e306f6caa2c"),
+            ("uint8", [128, 128],
+             "f7551ed9992770381028186f5a7f20290d802e6f41e19fe55cb1286ba192d43f")),
+    "im_l4": (("float32", [1024, 1024],
+             "20837c502d469588fc5cdd56e88b74512d0bc46d7a9ba4f8d78a13e773655eda"),
+            ("float32", [1024, 1024],
+             "20837c502d469588fc5cdd56e88b74512d0bc46d7a9ba4f8d78a13e773655eda")),
+    "jpeg_dqt_grey": (("uint8", [1024, 1024],
+             "0dcbbaaa1d1a480a6f40a83e767d1a8c535b3db1daf36480868968fd73d377dd"),
+            ("uint8", [1024, 1024],
+             "0dcbbaaa1d1a480a6f40a83e767d1a8c535b3db1daf36480868968fd73d377dd")),
+    "jpeg_dqt_rgb": (("uint8", [1024, 1024, 3],
+             "6549a3a42c2e6fe2d4e59b9fcf4ceac177a1f0dae7f1247d2a27dcb209b709ce"),
+            ("uint8", [1024, 1024],
+             "84806dd190c3787a522a27a45487ce63dced0c4874c37bba7b683ea373b3097e")),
+    "jpeg_dqt_progressive": (("uint8", [1024, 1024],
+             "e28d8247a4869c6b8f919e1641646b2cd28299ec55f0f6e6e2ba5c0057dafc53"),
+            ("uint8", [1024, 1024],
+             "e28d8247a4869c6b8f919e1641646b2cd28299ec55f0f6e6e2ba5c0057dafc53")),
+    "jpeg_eoi_in_scan": (("uint8", [1024, 1024],
+             "b852d4af5d54290dab57931b1cee9029ad4d88683499231395aee8ede9b0c03d"),
+            ("uint8", [1024, 1024],
+             "b852d4af5d54290dab57931b1cee9029ad4d88683499231395aee8ede9b0c03d")),
+    "jpeg_cut": (None,
+            ("uint8", [1024, 1024],
+             "2ddbbd51fec44f07221f675f7dbdc0990ad943b34e6d7999d674adfb445015d4")),
+}
+
+
+def icons_files(vol, vol8):
+    """{form: (file name, its bytes)} of phase 23 (module docstring): slice
+    0's high bytes as a PackBits grey PSD, slices 0-2's as a raw RGB PSD and
+    as the composite of a PSD of two 256 x 256 layers (slices 0-2 and 3-5);
+    slice 0 as a PNG member of an ICO (its directory says 256 x 256); slices
+    0-3's top-left 256 x 256 as a 32-bit DIB member (B, G, R, alpha); slice
+    0's corner as an 8-bit DIB of a grey palette in a CUR; slice 1 cut to
+    one grey level (a mask) as an XPM; slices 0-2's 128 x 128 corner as an
+    ICNS ``it32`` with slice 3's as its ``t8mk``; slice 0's top 4 bits as
+    an IM ``L*4``; slice 0 (grey, progressive) and slices 0-2 (colour) at
+    quality 100 with their tables patched; slice 1 at quality 90 with
+    stray bytes before its scan and an EOI half way through it, and cut to
+    two thirds without its EOI."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _jpeg_writer import jpeg_bytes, patched_dqt
+    from _raster_writer import (
+        icns_bytes,
+        icns_rle,
+        ico_bytes,
+        ico_dib,
+        im_bits,
+        im_bytes,
+        psd_bytes,
+        xpm_bytes,
+    )
+
+    from empanada_tpu_torch.data.imwrite import png_bytes
+
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    corner = vol8[:4, :256, :256]
+    rgb128 = np.stack(list(vol8[:3, :128, :128]), -1)
+    mask = ((vol8[1] >> 6) == 1).astype(np.uint8)
+    rgb = np.stack(list(vol8[:3]), -1)
+    base = jpeg_bytes(vol8[1], INPUT_JPEG_QUALITY)
+    sos = base.index(b"\xff\xda")
+    mid = (sos + len(base)) // 2
+    return {
+        "psd_grey": ("slice.psd", psd_bytes(vol8[:1], mode=1, rle=True)),
+        "psd_rgb": ("rgb.psd", psd_bytes(vol8[:3])),
+        "psd_layers": ("layers.psd", psd_bytes(vol8[:3], layers=[
+            (0, 0, vol8[:3, :256, :256]), (256, 256, vol8[3:6, :256, :256])])),
+        "ico_png": ("slice.ico", ico_bytes([(256, 256, 0, 8, png_bytes(vol8[0]))])),
+        "ico_dib32": ("dib32.ico", ico_bytes([(256, 256, 0, 32, ico_dib(
+            np.stack([corner[2], corner[1], corner[0], corner[3]], -1), 32))])),
+        "cur": ("slice.cur", ico_bytes([(256, 256, 0, 8, ico_dib(corner[0], 8, grey))],
+                                       cursor=True, hotspots=[(128, 128)])),
+        "xpm_mask": ("mask.xpm", xpm_bytes(mask, ["#000000", "#ffffff"])),
+        "icns_it32": ("icon.icns", icns_bytes([
+            (b"it32", b"".join(icns_rle(rgb128[..., k]) for k in range(3))),
+            (b"t8mk", vol8[3, :128, :128].tobytes())])),
+        "im_l4": ("slice4.im", im_bytes(im_bits(vol[0] >> 12, 4), "L*4", size=(1024, 1024))),
+        "jpeg_dqt_grey": ("dqt_grey.jpg", patched_dqt(jpeg_bytes(vol8[0], 100), 237)),
+        "jpeg_dqt_rgb": ("dqt_rgb.jpg", patched_dqt(jpeg_bytes(rgb, 100), 128)),
+        "jpeg_dqt_progressive": ("dqt_progressive.jpg", patched_dqt(
+            jpeg_bytes(vol8[0], 100, progressive=True), 60)),
+        "jpeg_eoi_in_scan": ("eoi_in_scan.jpg", base[:sos] + b"\x00\x01\xff\xff"
+                             + base[sos:mid] + b"\xff\xd9" + base[mid + 2:]),
+        "jpeg_cut": ("cut.jpg", base[:len(base) * 2 // 3])}
+
+
+def icons_phase(prr, api, cfg, model, card):
+    """Phase 23 (module docstring).  Returns (the ``icons:`` record,
+    refine launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from empanada_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    wd = tempfile.mkdtemp(prefix="icons-", dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        # (a) the files, from phase 18's volume, and phase 5's model as a
+        # bundle
+        t0 = time.perf_counter()
+        vol = input_volume(INPUT_SHAPE, 180)[:6]
+        vol8 = (vol >> 8).astype(np.uint8)
+        files = icons_files(vol, vol8)
+        for name, data in files.values():
+            with open(path(name), "wb") as f:
+                f.write(data)
+        rec["write_s"] = time.perf_counter() - t0
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+        forms = ("psd_grey", "ico_png")
+
+        # (b) python -m empanada_tpu_torch infer2d of the grey PSD and of the
+        # PNG ICO in one batch of two subprocesses; meanwhile in this
+        # process (c) every form by both readers against the oracles'
+        # digests, and (d) infer3d of the two-layer PSD refused before any
+        # launch
+        def meanwhile():
+            rec.update(plugins_reads(files, path, PSD_ICO_SHA256, "icons"))
+            try:
+                _, n, _ = counted(prr, lambda: cli.main([
+                    "infer3d", path(files["psd_layers"][0]), "-o", path("layers_{class}.tif"),
+                    "--model", path("MitoNet_v1.yaml")]))
+                refused = False
+            except ValueError:
+                refused, n = True, prr.launches["full"]
+            check(refused and n == 0,
+                  f"icons: infer3d of the two-layer PSD: refused {refused} ({n} launches)")
+            rec["infer3d_psd_layers"] = {"refused": True, "launches": n}
+
+        done = cli_runs({form: ["infer2d", path(files[form][0]), "-o", path(f"{form}_pan.tif"),
+                                "--model", path("MitoNet_v1.yaml")] for form in forms},
+                        wd, "icons", meanwhile)
+
+        # (e) Engine2d at full width on the arrays imread gives of the two
+        # files, each map against its command line twin's
+        e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+        rec["infer2d"], held = infer2d_held(
+            prr, e2, done, {form: path(files[form][0]) for form in forms},
+            {form: path(f"{form}_pan.tif") for form in forms}, "icons")
+        launches.update(held)
+        del vol, vol8, files
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("icons: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= ICONS_LIMIT_S,
+          f"phase 23 took {rec['phase_s']:.1f} s, over its {ICONS_LIMIT_S} s")
     return rec, launches
 
 
@@ -5409,6 +5634,14 @@ def main():
     _, launches_22 = plugins_phase(prr, api, cfg, model, card)
     print(f"phase 22 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 23. icons: PSD, ICO, CUR, XPM, ICNS, IM L*4 and C15's JPEGs read
+    # back against the oracles' digests; infer2d of the grey PSD and the
+    # PNG ICO in subprocesses against Engine2d; infer3d of the two-layer
+    # PSD refused
+    t0 = time.perf_counter()
+    _, launches_23 = icons_phase(prr, api, cfg, model, card)
+    print(f"phase 23 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -5422,7 +5655,7 @@ def main():
                      + sum(launches_16.values()) + sum(launches_17.values())
                      + sum(launches_18.values()) + sum(launches_19.values())
                      + sum(launches_20.values()) + sum(launches_21.values())
-                     + sum(launches_22.values())),
+                     + sum(launches_22.values()) + sum(launches_23.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -5431,7 +5664,7 @@ def main():
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
                              **launches_17, **launches_18, **launches_19, **launches_20,
-                             **launches_21, **launches_22},
+                             **launches_21, **launches_22, **launches_23},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

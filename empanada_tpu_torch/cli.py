@@ -24,9 +24,11 @@ colour type and depth, interlaced or not), TIFF (classic and BigTIFF,
 strips or tiles, uncompressed, LZW, Deflate, PackBits, LZMA, ZSTD or JPEG),
 JPEG and multi-picture JPEG (``data/imread.py``), BMP, PBM/PGM/PPM, PFM,
 GIF, SPIDER, TGA, Sun raster (``data/raster.py``), WebP (``data/webp.py``),
-JPEG 2000 (``data/jpeg2000.py``), SGI, PCX, DCX, QOI, IM, XBM or MSP
-(``data/plugins.py``; PIL's arrays, as the JAX package's command line
-reads them),
+JPEG 2000 (``data/jpeg2000.py``), SGI, PCX, DCX, QOI, IM (``L*n`` of 2 to
+31 bits too), XBM or MSP (``data/plugins.py``), XPM, ICO, CUR, PSD (one
+layer at most: PIL numbers layers from 1, and the JAX package's reader
+raises on more) or ICNS (``data/icons.py``; PIL's arrays, as the JAX
+package's command line reads them),
 written as ``.npy``, PNG or uncompressed TIFF (``data/imwrite.py``), and
 volumes are also read from chunked stores; ``--downsampling`` takes every
 dtype the JAX package's cv2 resizes.  ``models export --quantize`` and

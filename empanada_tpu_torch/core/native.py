@@ -2,10 +2,11 @@
 ``empanada_tpu/core/native.py``).
 
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
-kernels) and the decoders of ``data/imread.py``, ``data/raster.py`` and
-``data/plugins.py``: ``csrc/image_codecs.cpp`` (TIFF LZW and PackBits;
-GIF LZW, BMP RLE8 and RLE4, TGA RLE, Sun raster RLE; SGI RLE, PCX RLE,
-QOI, MSP version 2 rows, Radiance HDR scanlines),
+kernels) and the decoders of ``data/imread.py``, ``data/raster.py``,
+``data/plugins.py`` and ``data/icons.py``: ``csrc/image_codecs.cpp`` (TIFF
+LZW and PackBits; GIF LZW, BMP RLE8 and RLE4, TGA RLE, Sun raster RLE; SGI
+RLE, PCX RLE, QOI, MSP version 2 rows, Radiance HDR scanlines, IM's
+samples of 2 to 31 bits; PSD's PackBits rows, ICNS's RGB runs),
 ``csrc/zstd_decode.cpp`` (ZSTD), ``csrc/jpeg_decode.cpp`` (JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L,
 VP8 and ALPH) and ``csrc/j2k_decode.cpp`` (JPEG 2000 codestreams),
 compiled at first use with the host C++ compiler into
@@ -65,8 +66,12 @@ __all__ = [
     "qoi_decode",
     "msp_decode",
     "hdr_rle_decode",
+    "packbits_rows_decode",
+    "icns_rle_decode",
+    "im_bit_decode",
     "jpeg_decode",
     "jpeg_info",
+    "JpegRefused",
     "webp_info",
     "webp_decode",
     "webp_alpha",
@@ -180,6 +185,12 @@ def load() -> ctypes.CDLL:
         lib.tga_rle_decode.restype = i64
         lib.sgi_rle_decode.argtypes = [vp, i64, vp, vp, i64, i64, ci, ci, vp, vp]
         lib.sgi_rle_decode.restype = i64
+        lib.packbits_rows_decode.argtypes = [vp, i64, i64, i64, vp]
+        lib.packbits_rows_decode.restype = i64
+        lib.icns_rle_decode.argtypes = [vp, i64, i64, vp]
+        lib.icns_rle_decode.restype = ci
+        lib.im_bit_decode.argtypes = [vp, i64, ci, i64, i64, vp]
+        lib.im_bit_decode.restype = ci
         lib.pcx_rle_decode.argtypes = [vp, i64, i64, i64, vp]
         lib.pcx_rle_decode.restype = i64
         lib.qoi_decode.argtypes = [vp, i64, i64, vp]
@@ -188,9 +199,9 @@ def load() -> ctypes.CDLL:
         lib.msp_decode.restype = i64
         lib.hdr_rle_decode.argtypes = [vp, i64, i64, i64, vp, vp]
         lib.hdr_rle_decode.restype = ci
-        lib.jpeg_info.argtypes = [vp, i64, vp, i64, vp, ctypes.c_char_p, i64]
+        lib.jpeg_info.argtypes = [vp, i64, vp, i64, ci, vp, ctypes.c_char_p, i64]
         lib.jpeg_info.restype = ci
-        lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, vp, i64, ctypes.c_char_p,
+        lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, ci, vp, i64, ctypes.c_char_p,
                                     i64]
         lib.jpeg_decode.restype = ci
         for name in ("webp_vp8l_info", "webp_vp8_info"):
@@ -688,38 +699,89 @@ def hdr_rle_decode(data, width: int, height: int) -> tuple:
                                        _ptr(line)))
 
 
-def jpeg_info(data, tables=b"") -> tuple:
+def packbits_rows_decode(data, row: int, rows: int) -> tuple:
+    """A PSD channel's PackBits as PIL's decoder reads it
+    (``csrc/image_codecs.cpp``): ((rows, row) bytes, bytes read or -1 when
+    the data ends first)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((rows, row), np.uint8)
+    return out, int(lib.packbits_rows_decode(_ptr(src), len(src), int(row), int(rows), _ptr(out)))
+
+
+def icns_rle_decode(data, size: int) -> tuple:
+    """ICNS's run-length RGB planes of ``size`` samples each as PIL's
+    ``read_32`` reads them: ((3, size) bytes, 0, or -1 where PIL raises)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((3, size), np.uint8)
+    return out, int(lib.icns_rle_decode(_ptr(src), len(src), int(size), _ptr(out)))
+
+
+def im_bit_decode(data, bits: int, width: int, height: int) -> tuple:
+    """IM samples of ``bits`` bits (2-31) as PIL's bit decoder reads them:
+    ((height, width) float32, 0, or -1 when the data ends first)."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((height, width), np.float32)
+    return out, int(lib.im_bit_decode(_ptr(src), len(src), int(bits), int(width), int(height),
+                                      _ptr(out)))
+
+
+# where a JPEG stream's data ends (csrc/jpeg_decode.cpp): a TIFF strip read
+# strictly (every libjpeg warning raises), PIL's suspending source, cv2's
+# jpeg_stdio_src (an endless fake EOI)
+JPEG_SOURCES = {"strict": 0, "pil": 1, "cv2": 2}
+
+
+class JpegRefused(ValueError):
+    """A JPEG form libjpeg reads and the port refuses by name."""
+
+
+def _jpeg_error(code: int, err) -> ValueError:
+    return (JpegRefused if code == -2 else ValueError)(err.value.decode())
+
+
+def jpeg_info(data, tables=b"", source: str = "strict") -> tuple:
     """(height, width, components) of the JPEG stream ``data`` from its
     headers alone (after the tables stream ``tables``), without decoding or
-    allocating its samples.  A form the decoder refuses raises ValueError
-    with the reason."""
+    allocating its samples, as the ``source`` (``JPEG_SOURCES``) reads
+    them.  A form the decoder refuses raises ValueError with the reason."""
     lib = load()
     src = np.frombuffer(data, np.uint8)
     tab = np.frombuffer(tables, np.uint8)
     info = np.zeros(3, np.int64)
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_info(_ptr(tab), len(tab), _ptr(src), len(src), _ptr(info), err, 256):
-        raise ValueError(err.value.decode())
+    code = lib.jpeg_info(_ptr(tab), len(tab), _ptr(src), len(src), JPEG_SOURCES[source],
+                         _ptr(info), err, 256)
+    if code:
+        raise _jpeg_error(code, err)
     return tuple(int(v) for v in info)
 
 
-def jpeg_decode(data, tables=b"", color: int = 0, sampling=(0, 0)) -> np.ndarray:
+def jpeg_decode(data, tables=b"", color: int = 0, sampling=(0, 0),
+                source: str = "strict") -> np.ndarray:
     """The (H, W, C) uint8 samples of the JPEG stream ``data`` (C 1 or 3),
     after the tables stream ``tables`` (a TIFF's JPEGTables); ``color`` 0
     converts YCbCr to RGB by libjpeg's colour-space rule, 1 never (a TIFF
     of photometric min-is-black or RGB), 2 always (photometric YCbCr);
     ``sampling`` (h, v), when given, is the first component's sampling
-    factors a TIFF requires (the others' 1 x 1), as libtiff checks them.
-    A form the decoder refuses, or damaged data, raises ValueError with
-    the reason."""
+    factors a TIFF requires (the others' 1 x 1), as libtiff checks them;
+    ``source`` says how damaged data and the stream's end read: "strict"
+    raises at any libjpeg warning, "pil" and "cv2" read as those oracles'
+    libjpeg sources do (csrc/jpeg_decode.cpp).  A form the decoder refuses,
+    or data it cannot read, raises ValueError with the reason (a
+    ``JpegRefused`` for a form libjpeg reads and the port does not)."""
     lib = load()
     src = np.frombuffer(data, np.uint8)
     tab = np.frombuffer(tables, np.uint8)
-    out = np.empty(jpeg_info(data, tables), np.uint8)
+    out = np.empty(jpeg_info(data, tables, source), np.uint8)
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_decode(_ptr(tab), len(tab), _ptr(src), len(src), int(color), int(sampling[0]),
-                       int(sampling[1]), _ptr(out), out.size, err, 256):
-        raise ValueError(err.value.decode())
+    code = lib.jpeg_decode(_ptr(tab), len(tab), _ptr(src), len(src), JPEG_SOURCES[source],
+                           int(color), int(sampling[0]), int(sampling[1]), _ptr(out), out.size,
+                           err, 256)
+    if code:
+        raise _jpeg_error(code, err)
     return out
 
 

@@ -2,8 +2,9 @@
 // data/imread.py, TIFF's LZW (compression 5) and PackBits (compression
 // 32773); for data/raster.py, GIF's LZW, BMP's RLE8 and RLE4, TGA's RLE
 // and Sun raster's byte encoding; for data/plugins.py, SGI's RLE at 8
-// and 16 bits, PCX's RLE, QOI's op stream, MSP version 2 rows and
-// Radiance HDR's scanlines.
+// and 16 bits, PCX's RLE, QOI's op stream, MSP version 2 rows, Radiance
+// HDR's scanlines and IM's samples of 2 to 31 bits; for data/icons.py,
+// PSD's PackBits rows and ICNS's RGB runs.
 //
 // Each call decodes one strip, tile, frame or image into a buffer of the
 // size its header says it holds and never writes past it.  The return
@@ -83,27 +84,114 @@ int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
 }
 
 // PackBits: a header byte h, then h + 1 literal bytes (0 <= h <= 127) or
-// one byte repeated 1 - h times (-127 <= h <= -1); -128 is skipped.
-int64_t packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+// one byte repeated 1 - h times (-127 <= h <= -1); -128 is skipped.  With
+// row == 0 (TIFF) the data runs on across rows and a literal cut by the
+// data's end is copied as far as it goes; with row > 0, as PIL's
+// PackbitsDecode reads it (PSD), a packet's bytes past the end of its row
+// of ``row`` bytes are dropped (the next packet starts the next row) and a
+// packet cut by the data's end is not read.  ``used`` gets the bytes read.
+static int64_t packbits(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int64_t row,
+                        int64_t* used) {
     int64_t pos = 0, out = 0;
     while (out < cap && pos < n) {
-        const int h = static_cast<int8_t>(src[pos++]);
+        const int h = static_cast<int8_t>(src[pos]);
+        const int64_t len = h >= 0 ? h + 1 : (h == -128 ? 0 : 1 - h);
+        if (row > 0 && pos + 1 + (h >= 0 ? len : (h == -128 ? 0 : 1)) > n) break;
+        ++pos;
+        int64_t count = len;
+        if (row > 0 && count > row - out % row) count = row - out % row;
+        if (count > cap - out) count = cap - out;
         if (h >= 0) {
-            int64_t count = h + 1;
             if (count > n - pos) count = n - pos;
-            if (count > cap - out) count = cap - out;
             std::memcpy(dst + out, src + pos, static_cast<size_t>(count));
-            pos += h + 1;
+            pos += len;
             out += count;
         } else if (h != -128) {
             if (pos >= n) break;
-            int64_t count = 1 - h;
-            if (count > cap - out) count = cap - out;
             std::memset(dst + out, src[pos++], static_cast<size_t>(count));
             out += count;
         }
     }
+    *used = pos < n ? pos : n;
     return out;
+}
+
+int64_t packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+    int64_t used;
+    return packbits(src, n, dst, cap, 0, &used);
+}
+
+// PSD's PackBits channel (PIL's PackbitsDecode): rows of ``row`` bytes
+// from src until ``rows`` are full.  Returns the bytes read, or -1 when
+// the data ends first (PIL: the file is truncated).
+int64_t packbits_rows_decode(const uint8_t* src, int64_t n, int64_t row, int64_t rows,
+                             uint8_t* dst) {
+    int64_t used;
+    return packbits(src, n, dst, row * rows, row, &used) == row * rows ? used : -1;
+}
+
+// ICNS's RGB runs (PIL's read_32): for each of the red, green and blue
+// planes of ``size`` samples in turn, a header byte h: h & 0x80, one
+// sample repeated h - 125 times; else h + 1 samples as they stand.  A
+// plane whose packets overshoot it, or data that ends first, is refused
+// (PIL raises): returns 0, or -1.
+int icns_rle_decode(const uint8_t* src, int64_t n, int64_t size, uint8_t* dst) {
+    int64_t pos = 0;
+    for (int band = 0; band < 3; ++band) {
+        uint8_t* o = dst + band * size;
+        int64_t left = size, got = 0;
+        while (left > 0 && pos < n) {
+            const int h = src[pos++];
+            const int64_t count = h & 0x80 ? h - 125 : h + 1;
+            if (count > left) return -1;
+            if (h & 0x80) {
+                if (pos >= n) return -1;
+                std::memset(o + got, src[pos++], static_cast<size_t>(count));
+            } else {
+                if (count > n - pos) return -1;
+                std::memcpy(o + got, src + pos, static_cast<size_t>(count));
+                pos += count;
+            }
+            got += count;
+            left -= count;
+        }
+        if (left != 0) return -1;
+    }
+    return 0;
+}
+
+// IM's samples of 2 to 31 bits (PIL's BitDecode with bits, pad 8, fill 3,
+// ystep -1): bytes enter a bit buffer above the bits it holds, samples
+// leave from its bottom (least significant bit first); at each row's end
+// the count of bits held drops to a multiple of 8 but the buffer is not
+// cleared, so the next byte is ORed over what it still holds; more than
+// 32 bits held refills it from the last byte.  Rows fill bottom-up into
+// dst (h x w float32).  Returns 0, or -1 when the data ends first.
+int im_bit_decode(const uint8_t* src, int64_t n, int bits, int64_t w, int64_t h, float* dst) {
+    const uint64_t mask = (uint64_t{1} << bits) - 1;
+    uint64_t buffer = 0;
+    int count = 0;
+    int64_t x = 0, y = h - 1;
+    for (int64_t pos = 0; pos < n; ++pos) {
+        const uint8_t byte = src[pos];
+        buffer |= static_cast<uint64_t>(byte) << count;
+        count += 8;
+        while (count >= bits) {
+            const uint64_t v = buffer & mask;
+            if (count > 32)
+                buffer = byte >> (8 - (count - bits));
+            else
+                buffer >>= bits;
+            count -= bits;
+            dst[y * w + x] = static_cast<float>(v);
+            if (++x >= w) {
+                if (--y < 0) return 0;
+                x = 0;
+                count -= count % 8;
+            }
+        }
+    }
+    return -1;
 }
 
 // GIF's LZW: codes of min_size + 1 to 12 bits, least significant bit

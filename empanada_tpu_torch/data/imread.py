@@ -12,10 +12,13 @@ stacked, ``imread_gray`` cv2's blue of frame 0), and by
 reversible and irreversible, tiled, layered, in any progression order
 (the codestream by ``csrc/j2k_decode.cpp``, as OpenJPEG decodes it;
 ``imread`` PIL's L, I;16, LA, RGB or RGBA, ``imread_gray`` cv2's grey or
-blue, PIL's where cv2 reads nothing), and by ``data/plugins.py`` SGI, PCX
+blue, PIL's where cv2 reads nothing), by ``data/plugins.py`` SGI, PCX
 and DCX, QOI, IM, XBM, MSP (PIL's arrays for both readers: cv2 reads none
 of them) and Radiance HDR (cv2's alone: ``imread`` raises, as PIL opens
-none; the RLE and op streams by ``csrc/image_codecs.cpp``).
+none; the RLE and op streams by ``csrc/image_codecs.cpp``), and by
+``data/icons.py`` XPM, ICO and CUR, PSD and ICNS (PIL's arrays for both:
+cv2 reads none of them; ``imread`` of a PSD of several layers raises, as
+the JAX package's reader does).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain), an animated PNG or a
@@ -84,8 +87,8 @@ stacked for ``imread``, found where PIL's ``jpeg_factory`` and
 ``imread_gray``, as cv2 reads it; pictures of different shapes raise, as
 ``np.stack`` of PIL's frames does.
 
-Anything else raises and names the form: other formats (PSD, DDS, ICNS,
-FITS and the other PIL plugins, named by ``data/raster.py``; the WebP forms
+Anything else raises and names the form: other formats (DDS, BLP, FITS
+and the other PIL plugins, named by ``data/raster.py``; the WebP forms
 ``data/webp.py`` names and the JPEG 2000 forms ``data/jpeg2000.py``
 names: palettes, sYCC and ICC colour, code-block styles other than the
 default, RGN, POC, PPM and PPT markers, HTJ2K and Part 2, precisions other
@@ -122,10 +125,12 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # TIFF magic -> (byte order, BigTIFF)
 _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
+# PIL's decompression-bomb limit (Image.MAX_IMAGE_PIXELS, twice)
+_PIL_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 _READS = ("the port reads PNG, TIFF, JPEG and MPO, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
-          "raster, WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM, MSP and Radiance HDR (module "
-          "docstrings of data/imread.py, data/raster.py, data/webp.py, data/jpeg2000.py and "
-          "data/plugins.py)")
+          "raster, WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM, MSP, Radiance HDR, XPM, ICO, "
+          "CUR, PSD and ICNS (module docstrings of data/imread.py, data/raster.py, "
+          "data/webp.py, data/jpeg2000.py, data/plugins.py and data/icons.py)")
 
 
 def _bound(name: str, what: str, size: int, avail: int) -> None:
@@ -228,20 +233,145 @@ def _read_file(path: str, first_only: bool = False):
 
 def _jpeg_raw(data: bytes, name: str, first_only: bool = False) -> list:
     """The pictures of a JPEG as ``_Raw``: its one image, or each picture
-    of a multi-picture file (MPO) as PIL finds them (``_mpo_offsets``)."""
+    of a multi-picture file (MPO) as PIL finds them (``_mpo_offsets``).
+    ``first_only`` reads the file as the JAX package's ``_imread_gray``
+    does: cv2's decoding (its libjpeg source; cv2 takes a file for JPEG by
+    FF D8 FF), and PIL's where cv2 reads nothing; else as PIL's ``Image.open`` (``_pil_jpeg_open``) and its
+    libjpeg source read it (``native.jpeg_decode``'s ``source``)."""
+    if first_only and data[:3] == b"\xff\xd8\xff":  # cv2's JPEG signature
+        try:
+            return [_jpeg_picture(data, name, "cv2")]
+        except native.JpegRefused:
+            raise
+        except ValueError:
+            pass  # cv2.imread gives None: PIL's array
+    _pil_jpeg_open(data, name)
     offsets = None if first_only else _mpo_offsets(data, name)
     out = []
     for k, at in enumerate(offsets or [0]):
         where = f"{name}: MPO picture {k}" if offsets else name
         if data[at:at + 3] != b"\xff\xd8\xff":
             raise ValueError(f"{where}: no JPEG at byte {at}")
-        try:
-            px = native.jpeg_decode(data[at:] if at else data)
-        except ValueError as exc:
-            raise ValueError(f"{where}: {exc}; {_READS}") from None
-        out.append(_Raw(px[..., 0] if px.shape[2] == 1 else px,
-                        "grey" if px.shape[2] == 1 else "rgb", 8, where))
+        out.append(_jpeg_picture(data[at:] if at else data, where, "pil"))
     return out
+
+
+def _jpeg_picture(data: bytes, where: str, source: str) -> _Raw:
+    try:
+        px = native.jpeg_decode(data, source=source)
+    except ValueError as exc:
+        raise type(exc)(f"{where}: {exc}; {_READS}") from None
+    return _Raw(px[..., 0] if px.shape[2] == 1 else px, "grey" if px.shape[2] == 1 else "rgb", 8,
+                where)
+
+
+# the markers PIL's JpegImagePlugin knows (MARKER) and the segments its
+# handlers read: SOF (which sets the size and mode), Skip, APP, COM, DQT
+_PIL_SOF = {*range(0xC0, 0xC4), *range(0xC5, 0xC8), *range(0xC9, 0xCC), *range(0xCD, 0xD0), 0xDE}
+_PIL_SEGMENTS = _PIL_SOF | {0xC4, 0xCC, 0xDA, 0xDB, 0xDC, 0xDD, 0xDF, 0xFE, *range(0xE0, 0xF0)}
+
+
+def _pil_jpeg_open(data: bytes, name: str) -> None:
+    """Raise where PIL's ``Image.open`` of a JPEG raises before any sample
+    is decoded: its ``JpegImagePlugin._open`` walk of the markers up to the
+    first SOS (junk bytes skipped, FF fill and FF 00 skipped, a marker it
+    does not know refused), each segment its handler reads (past the file's
+    end: truncated), an SOF of other than 8 bits or 1, 3 or 4 components,
+    or too short for its fields, a DQT of a table cut short, a JFIF or
+    Adobe APP segment too short for its version, a Photoshop resource cut
+    before its name's length, an ICC profile fragment under 14 bytes; no
+    SOF, a size of 0, or more pixels than its decompression-bomb limit."""
+    def refuse(why):
+        raise ValueError(f"{name}: {why}, which PIL does not open; {_READS}")
+
+    pos, mark, layers, size, icc = 3, 0xFF, 0, (0, 0), []
+    while True:
+        if mark is None:
+            refuse("a JPEG that ends before its first scan")
+        if mark != 0xFF:  # junk: PIL reads on
+            mark, pos = (data[pos] if pos < len(data) else None), pos + 1
+            continue
+        if pos >= len(data):
+            refuse("a JPEG that ends inside a marker")
+        code, pos = data[pos], pos + 1
+        if code == 0xFF:
+            continue
+        if code == 0x00:
+            mark, pos = (data[pos] if pos < len(data) else None), pos + 1
+            continue
+        if code < 0xC0:
+            refuse(f"a JPEG marker PIL does not know (0xFF{code:02X})")
+        if code in _PIL_SEGMENTS:
+            if pos + 2 > len(data):
+                refuse("a JPEG segment whose length is cut")
+            n = struct.unpack_from(">H", data, pos)[0] - 2
+            pos += 2
+            seg = data[pos:pos + max(n, 0)]
+            if len(seg) < n:
+                refuse("a JPEG segment that runs past the file's end")
+            pos += max(n, 0)
+            if code in _PIL_SOF:
+                if len(seg) < 6:
+                    refuse("a JPEG frame header too short for its fields")
+                size = (struct.unpack_from(">H", seg, 3)[0], struct.unpack_from(">H", seg, 1)[0])
+                if seg[0] != 8:
+                    refuse(f"{seg[0]}-bit JPEG")
+                if seg[5] not in (1, 3, 4):
+                    refuse(f"{seg[5]}-component JPEG")
+                layers = seg[5]
+                if icc:
+                    icc.sort()
+                    if len(icc[0]) < 14:
+                        refuse("a JPEG ICC profile fragment under 14 bytes")
+                    icc = []
+            elif code == 0xDB:
+                while seg:
+                    length = 1 + 64 * (1 if seg[0] < 16 else 2)
+                    if len(seg) < length:
+                        refuse("a JPEG quantisation table cut short")
+                    seg = seg[length:]
+            elif code in (0xE0, 0xEE) and seg.startswith(b"JFIF" if code == 0xE0 else b"Adobe"):
+                if len(seg) < 7:
+                    refuse("a JFIF or Adobe segment too short for its version")
+            elif code == 0xE2 and seg.startswith(b"ICC_PROFILE\0"):
+                icc.append(seg)
+            elif code == 0xED and seg.startswith(b"Photoshop 3.0\x00"):
+                _pil_photoshop(seg, refuse)
+            if code == 0xDA:
+                break
+        mark, pos = (data[pos] if pos < len(data) else None), pos + 1
+    if not layers:
+        refuse("a JPEG whose first scan comes before its frame header")
+    if size[1] == 0:
+        refuse("a JPEG whose height a DNL marker gives (DNL is not read)")
+    if size[0] == 0:
+        refuse("a JPEG of width 0")
+    if size[0] * size[1] > _PIL_PIXELS:
+        refuse(f"a {size[0]} x {size[1]} JPEG, over its decompression-bomb limit")
+
+
+def _pil_photoshop(seg: bytes, refuse) -> None:
+    """PIL's walk of a JPEG's Photoshop resources: a cut field ends it
+    quietly, but a resource cut before its name's length raises."""
+    at = 14
+    while seg[at:at + 4] == b"8BIM":
+        at += 4
+        if at + 2 > len(seg):
+            return
+        code = struct.unpack_from(">H", seg, at)[0]
+        at += 2
+        if at >= len(seg):
+            refuse("a JPEG Photoshop resource cut before its name")
+        at += 1 + seg[at]
+        at += at & 1
+        if at + 4 > len(seg):
+            return
+        n = struct.unpack_from(">I", seg, at)[0]
+        at += 4
+        if code == 0x03ED and len(seg[at:at + n]) < 14:  # its resolution fields cut
+            return
+        at += n
+        at += at & 1
 
 
 # the TIFF headers PIL takes (TiffImagePlugin.PREFIXES) and the types of a

@@ -61,8 +61,11 @@ PA without such a Lut raises (PIL has no raw mode for it).  ``File size
 (width * bits + 7) // 8 * height bytes from the data, bits 1 for mode 1
 and else 8 times the mode's name's length (16 for I;16, 8 for F), and the
 port reads the frames there (a frame past the file's end raises).  The
-``L*n`` images of n bits other than 8, 16 and 32 (PIL's bit decoder)
-raise, named.
+``L*n`` images of n bits from 2 to 31 but 8 and 16 (F, float32) are read
+as PIL's bit decoder reads them (``native.im_bit_decode``): least
+significant bit first, rows bottom-up and padded to a byte, with the
+decoder's bit buffer not cleared at a row's end; more than one frame of
+them raises, as PIL reads the later frames raw, in a raw mode it has not.
 
 XBM: PIL's header expression on the first 512 bytes (the width and height
 ``#define``s, an optional hotspot, up to ``_bits[]``), then each ``x``
@@ -102,7 +105,7 @@ import struct
 import numpy as np
 
 from empanada_tpu_torch.core import native
-from empanada_tpu_torch.data.imread import _READS, _Raw, _bound
+from empanada_tpu_torch.data.imread import _PIL_PIXELS, _READS, _Raw, _bound
 
 __all__ = ["READERS", "im_header", "is_hdr"]
 
@@ -111,8 +114,6 @@ __all__ = ["READERS", "im_header", "is_hdr"]
 # 3-byte run), HDR's new RLE (127 samples of a channel a 2-byte run: under
 # 16 pixels a byte with the scanline's 4 header bytes)
 _EXPANSION = {"PCX": 32, "QOI": 62, "MSP": 85, "HDR": 16}
-# PIL's decompression-bomb limit (Image.MAX_IMAGE_PIXELS, twice)
-_PIL_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 
 
 def _pixels(where: str, w: int, h: int) -> None:
@@ -376,6 +377,21 @@ def _im_frame(data: bytes, at: int, w: int, h: int, raw: str, where: str) -> np.
     return np.ascontiguousarray(planes[..., :3] if raw == "RGBX;L" else planes)
 
 
+def _im_bits(data: bytes, bits: int, w: int, h: int, where: str) -> np.ndarray:
+    """An ``L*<bits>`` frame as PIL's bit decoder reads it
+    (``native.im_bit_decode``): float32, rows bottom-up."""
+    if bits >= 32:
+        raise ValueError(f"{where}: samples of {bits} bits, which PIL's bit decoder refuses; "
+                         f"{_READS}")
+    _bound(where, f"{h} rows of {w} samples of {bits} bits", h * ((w * bits + 7) // 8),
+           len(data))
+    px, code = native.im_bit_decode(data, bits, w, h)
+    if code < 0:
+        raise ValueError(f"{where}: its {bits}-bit samples end before the image (PIL: "
+                         f"truncated); {_READS}")
+    return px
+
+
 def _im(data: bytes, name: str, first_only: bool) -> list:
     where = f"{name}: IM"
     try:
@@ -406,10 +422,12 @@ def _im(data: bytes, name: str, first_only: bool) -> list:
     if raw == "PA;L" and mode != "PA":
         raise ValueError(f"{where}: image type PA without a colour Lut, which PIL does not "
                          f"read; {_READS}")
-    if raw.startswith("F;") and raw[2:].isdigit() and int(raw[2:]) not in (8, 16, 32):
-        raise ValueError(f"{where}: samples of {raw[2:]} bits (PIL's bit decoder), which the "
-                         f"port does not read; {_READS}")
     n = frames if isinstance(frames, int) and frames > 1 and not first_only else 1
+    if raw.startswith("F;") and raw[2:].isdigit() and int(raw[2:]) not in (8, 16, 32):
+        if n > 1:  # PIL reads frames after the first raw, and has no raw mode F;<bits>
+            raise ValueError(f"{where}: {n} frames of {raw[2:]}-bit samples, which PIL reads "
+                             f"for frame 0 alone; {_READS}")
+        return [_one(_im_bits(data[at:], int(raw[2:]), w, h, where), where)]
     if n > 1 and raw in ("RGB;T", "RYB;T"):
         raise ValueError(f"{where}: {n} frames of raw mode {raw}, which PIL reads for frame 0 "
                          f"alone; {_READS}")

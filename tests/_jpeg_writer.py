@@ -1,5 +1,5 @@
 """A seeded baseline JPEG writer in numpy, for the port's JPEG tests and
-for phases 18 and 22 of chip_smoke.py (whose machine has no PIL): 8-bit
+for phases 18, 22 and 23 of chip_smoke.py (whose machine has no PIL): 8-bit
 grey images, and three-component ones (each component 1 x 1, with the
 luminance tables), the standard quantisation table scaled to a quality as
 the IJG library scales it, the separable 8 x 8 DCT, the standard
@@ -10,7 +10,9 @@ at once (symbols, then their bits, in vectors).
 components are Y, Cb and Cr to a decoder); with ``tables=False`` it is an
 abbreviated stream without DQT and DHT, whose tables
 ``jpeg_tables(quality)`` holds: the form of a JPEG strip or tile of a TIFF
-(compression 7) and of its JPEGTables tag."""
+(compression 7) and of its JPEGTables tag; with ``progressive=True`` a
+progressive file of spectral selection alone.  ``patched_dqt`` rewrites a
+file's quantisation tables (the out-of-range coefficients of C15)."""
 
 import struct
 
@@ -91,10 +93,12 @@ def _size(v):
     return out
 
 
-def _scan(planes: np.ndarray, quality: int) -> bytes:
+def _scan(planes: np.ndarray, quality: int, part=None) -> bytes:
     """The entropy-coded data of an (H, W, C) image, its C components'
     blocks interleaved a block each (bytes stuffed, padded with one
-    bits)."""
+    bits); ``part`` "dc" keeps the DC codes alone (a progressive DC scan),
+    an int ``ci`` the AC codes of component ci's blocks alone (its
+    progressive AC scan of coefficients 1-63)."""
     h, w, c = planes.shape
     ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
     px = np.empty((ph, pw, c), np.float64)
@@ -139,8 +143,11 @@ def _scan(planes: np.ndarray, quality: int) -> bytes:
     keys.append(eob * 256 + 255)
     codes.append(np.full(len(eob), _AC_CODE[0]))
     lens.append(np.full(len(eob), _AC_LEN[0]))
-    order = np.argsort(np.concatenate(keys), kind="stable")
-    codes, lens = np.concatenate(codes)[order], np.concatenate(lens)[order]
+    keys = np.concatenate(keys)
+    keep = np.ones(len(keys), bool) if part is None else (keys % 256 == 0) if part == "dc" \
+        else (keys % 256 != 0) & ((keys // 256) % c == part)
+    order = np.argsort(keys[keep], kind="stable")
+    codes, lens = np.concatenate(codes)[keep][order], np.concatenate(lens)[keep][order]
     starts = np.cumsum(lens) - lens
     total = int(lens.sum())
     idx = np.repeat(np.arange(len(lens)), lens)
@@ -152,11 +159,14 @@ def _scan(planes: np.ndarray, quality: int) -> bytes:
     return np.insert(data, ff + 1, 0).tobytes()
 
 
-def jpeg_bytes(pixels: np.ndarray, quality: int = 75, tables: bool = True) -> bytes:
+def jpeg_bytes(pixels: np.ndarray, quality: int = 75, tables: bool = True,
+               progressive: bool = False) -> bytes:
     """A baseline JPEG of the (H, W) or (H, W, 3) uint8 image ``pixels``
     at ``quality`` (three components: Y, Cb and Cr as they stand): a JFIF
     file, or (``tables`` False) an abbreviated stream whose tables are
-    ``jpeg_tables(quality)``."""
+    ``jpeg_tables(quality)``; ``progressive``: a progressive one (SOF2) of
+    spectral selection alone, a DC scan of every component, then each
+    component's AC scan of coefficients 1-63."""
     pixels = np.asarray(pixels, np.uint8)
     planes = pixels[..., None] if pixels.ndim == 2 else pixels
     h, w, c = planes.shape
@@ -164,8 +174,35 @@ def jpeg_bytes(pixels: np.ndarray, quality: int = 75, tables: bool = True) -> by
     if tables:
         out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
         out += jpeg_tables(quality)[2:-2]
-    out += _segment(0xC0, struct.pack(">BHHB", 8, h, w, c)
+    out += _segment(0xC2 if progressive else 0xC0, struct.pack(">BHHB", 8, h, w, c)
                     + b"".join(bytes([k + 1, 0x11, 0]) for k in range(c)))
+    if not progressive:
+        out += _segment(0xDA, bytes([c]) + b"".join(bytes([k + 1, 0x00]) for k in range(c))
+                        + bytes([0, 63, 0]))
+        return out + _scan(planes, quality) + b"\xff\xd9"
     out += _segment(0xDA, bytes([c]) + b"".join(bytes([k + 1, 0x00]) for k in range(c))
-                    + bytes([0, 63, 0]))
-    return out + _scan(planes, quality) + b"\xff\xd9"
+                    + bytes([0, 0, 0])) + _scan(planes, quality, "dc")
+    for k in range(c):
+        out += _segment(0xDA, bytes([1, k + 1, 0x00, 1, 63, 0])) + _scan(planes, quality, k)
+    return out + b"\xff\xd9"
+
+
+def patched_dqt(stream: bytes, value: int) -> bytes:
+    """``stream`` with every quantisation table's 64 entries set to
+    ``value`` (16-bit entries, Pq 1, where it is over 255): on a quality-100
+    file (an all-1 table) its dequantised coefficients pass 16 bits."""
+    pos, out = 2, bytearray(stream[:2])
+    while pos + 4 <= len(stream) and stream[pos + 1] not in (0xDA, 0xD9):
+        (n,) = struct.unpack_from(">H", stream, pos + 2)
+        seg = stream[pos:pos + 2 + n]
+        if seg[1] == 0xDB:
+            body, at = bytearray(), 4
+            while at < len(seg):
+                wide = seg[at] >> 4
+                body += bytes([(seg[at] & 15) | (0x10 if value > 255 else 0)])
+                body += struct.pack(">64H", *[value] * 64) if value > 255 else bytes([value] * 64)
+                at += 1 + 64 * (2 if wide else 1)
+            seg = b"\xff\xdb" + struct.pack(">H", len(body) + 2) + body
+        out += seg
+        pos += 2 + n
+    return bytes(out + stream[pos:])

@@ -6,8 +6,12 @@ maxval, comments in the header), PFM, PAM, GIF (global and local colour
 tables, interlaced frames, transparency, disposal; an LZW encoder of its
 own), SPIDER images and stacks in either byte order, TGA (colour-mapped,
 true-colour and grey, raw or RLE, either origin) and Sun raster (raw or
-byte-encoded, colour maps).  numpy and the standard library only; every
-file is a pure function of its arguments."""
+byte-encoded, colour maps); for ``data/plugins.py`` SGI, PCX, DCX, QOI,
+IM (with ``im_bits`` for its samples of 2 to 31 bits), XBM, MSP, HDR and
+MPO; for ``data/icons.py`` (and phase 23) XPM, ICO and CUR (PNG or DIB
+members, ``ico_dib`` with its AND mask), PSD (raw or PackBits, layers)
+and ICNS (``icns_rle`` for its RGB runs).  numpy and the standard library
+only; every file is a pure function of its arguments."""
 
 import struct
 
@@ -865,3 +869,174 @@ def mpo_bytes(jpegs, big: bool = False, formats=None, count: int = None,
     tiff = (b"MM\x00*" if big else b"II*\x00") + struct.pack(end + "I", ifd_at) + ifd + entries
     app2 = struct.pack(">HH", 0xFFE2, app2_len) + b"MPF\x00" + tiff
     return b"\xff\xd8" + xmp + app2 + jpegs[0][2:] + b"".join(jpegs[1:])
+
+
+def im_bits(pixels: np.ndarray, bits: int) -> bytes:
+    """An IM frame of ``bits``-bit samples (2-31, ``L*<bits>``): each row,
+    bottom-up, least significant bit first, padded to a byte."""
+    px = np.asarray(pixels, np.uint64)[::-1]
+    h, w = px.shape
+    bit = ((px[..., None] >> np.arange(bits, dtype=np.uint64)) & np.uint64(1)).astype(np.uint8)
+    rows = np.zeros((h, -(-w * bits // 8) * 8), np.uint8)
+    rows[:, :w * bits] = bit.reshape(h, -1)
+    return np.packbits(rows, axis=1, bitorder="little").tobytes()
+
+
+# ----- XPM, ICO and CUR, PSD, ICNS ------------------------------------------------
+
+_XPM_KEYS = bytes(c for c in range(35, 127) if c != 92)  # printable, no quote or backslash
+
+
+def xpm_bytes(indices: np.ndarray, colours, cpp: int = 1, comments: bool = True,
+              header: bytes = None) -> bytes:
+    """An XPM of (H, W) ``indices`` into ``colours`` (each "#RRGGBB",
+    "None", or a whole colour line's value part such as "c red" or
+    "s name c #808080"), keys of ``cpp`` characters; ``header`` replaces
+    the values line (``"W H N cpp``)."""
+    h, w = indices.shape
+    n = len(colours)
+    keys = [bytes(_XPM_KEYS[(i // len(_XPM_KEYS) ** j) % len(_XPM_KEYS)] for j in range(cpp))
+            for i in range(n)]
+    out = [b"/* XPM */", b"static char *image[] = {"]
+    if comments:
+        out.append(b"/* columns rows colors chars-per-pixel */")
+    out.append(header if header is not None else f'"{w} {h} {n} {cpp} ",'.encode())
+    for k, c in zip(keys, colours):
+        c = c.encode() if isinstance(c, str) else c
+        out.append(b'"' + k + b" " + (c if b" " in c else b"c " + c) + b'",')
+    if comments:
+        out.append(b"/* pixels */")
+    for r in range(h):
+        out.append(b'"' + b"".join(keys[i] for i in indices[r]) + (b'",' if r < h - 1 else b'"'))
+    out.append(b"};")
+    return b"\n".join(out) + b"\n"
+
+
+def ico_dib(pixels: np.ndarray, bits: int = None, palette=None, and_mask=None,
+            top_down: bool = False) -> bytes:
+    """An ICO or CUR member in DIB form: ``bmp_bytes(dib=True)`` of
+    ``pixels`` (indices, or (H, W, 4) BGRA bytes at 32 bits) with its height
+    doubled, then the AND mask (``and_mask`` (H, W), 1 transparent; zeros
+    by default), rows bottom-up, padded to 32 bits."""
+    h, w = pixels.shape[:2]
+    dib = bytearray(bmp_bytes(pixels, bits, palette, dib=True, top_down=top_down))
+    struct.pack_into("<i", dib, 8, -2 * h if top_down else 2 * h)
+    mask = np.zeros((h, w), bool) if and_mask is None else np.asarray(and_mask, bool)
+    packed = np.packbits(mask[::-1], axis=1)
+    stride = (w + 31) // 32 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :packed.shape[1]] = packed
+    return bytes(dib) + rows.tobytes()
+
+
+def ico_bytes(members, cursor: bool = False, hotspots=None) -> bytes:
+    """An ICO (a CUR with ``cursor``) of ``members``: each (width, height,
+    colours, bpp, payload) for its directory entry (a width or height of
+    256 written as 0; a CUR writes each ``hotspots`` (x, y) where an ICO
+    has planes and bpp), then the payloads (PNG or ``ico_dib``) in order."""
+    out = struct.pack("<HHH", 0, 2 if cursor else 1, len(members))
+    at = 6 + 16 * len(members)
+    for k, (w, h, colours, bpp, payload) in enumerate(members):
+        a, b = hotspots[k] if cursor and hotspots else (1, bpp)
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colours, 0, a, b, len(payload), at)
+        at += len(payload)
+    return out + b"".join(m[4] for m in members)
+
+
+def packbits_rows(rows: np.ndarray) -> list:
+    """Each row of ``rows`` PackBits-coded (runs of 3-128 equal bytes,
+    literals of up to 128), for PSD."""
+    out = []
+    for row in np.asarray(rows, np.uint8):
+        enc, i, n = bytearray(), 0, len(row)
+        while i < n:
+            j = i
+            while j + 1 < n and row[j + 1] == row[i] and j + 1 - i < 127:
+                j += 1
+            if j - i >= 2:
+                enc += bytes([257 - (j - i + 1), row[i]])
+                i = j + 1
+                continue
+            j = i
+            while j < n and j - i < 128 and not (j + 2 < n and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            enc += bytes([j - i - 1]) + row[i:j].tobytes()
+            i = j
+        out.append(bytes(enc))
+    return out
+
+
+def _psd_channels(planes: np.ndarray, rle: bool) -> bytes:
+    """Image data of (C, H, row bytes) planes: compression, then raw planes
+    or the byte counts of every row and the PackBits rows."""
+    if not rle:
+        return struct.pack(">H", 0) + np.ascontiguousarray(planes, np.uint8).tobytes()
+    rows = [r for p in planes for r in packbits_rows(p)]
+    return struct.pack(">H", 1) + struct.pack(f">{len(rows)}H", *map(len, rows)) + b"".join(rows)
+
+
+def psd_bytes(planes: np.ndarray, mode: int = 3, bits: int = 8, rle: bool = False,
+              layers=(), palette=None, resources=(), channels: int = None) -> bytes:
+    """A PSD of the composite ``planes`` (C, H, W) uint8 (mode 0 at 1 bit:
+    (1, H, ceil(W / 8)) bytes of bits), colour ``mode`` (0 bitmap, 1 grey,
+    2 indexed, 3 RGB, 4 CMYK, 7 multichannel, 8 duotone, 9 Lab), ``rle``
+    PackBits or raw, ``layers`` each (top, left, planes (C, h, w)) as
+    R, G, B (and A) channels, raw, ``palette`` (256, 3) for mode 2, and
+    image ``resources`` (id, data); ``channels`` overrides the header's."""
+    c, h = planes.shape[:2]
+    w = planes.shape[2] * 8 if mode == 0 and bits == 1 else planes.shape[2]
+    out = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or c, h, w, bits, mode)
+    cmd = np.asarray(palette, np.uint8).T.tobytes() if palette is not None else b""
+    out += struct.pack(">I", len(cmd)) + cmd
+    res = b""
+    for rid, data in resources:
+        res += b"8BIM" + struct.pack(">HBxI", rid, 0, len(data)) + data + b"\0" * (len(data) & 1)
+    out += struct.pack(">I", len(res)) + res
+    if layers:
+        records, data = b"", b""
+        for top, left, lp in layers:
+            lc, lh, lw = lp.shape
+            records += struct.pack(">iiiiH", top, left, top + lh, left + lw, lc)
+            for k in range(lc):
+                records += struct.pack(">hI", 65535 if k == 3 else k, 2 + lh * lw)
+            extra = struct.pack(">II", 0, 0) + b"\x03abc"
+            records += b"8BIMnorm" + bytes([255, 0, 0, 0]) + struct.pack(">I", len(extra)) + extra
+            data += b"".join(struct.pack(">H", 0) + p.tobytes() for p in lp)
+        info = struct.pack(">h", len(layers)) + records + data
+        info += b"\0" * (len(info) & 1)
+        section = struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+        out += struct.pack(">I", len(section)) + section
+    else:
+        out += struct.pack(">I", 0)
+    return out + _psd_channels(planes, rle)
+
+
+def icns_rle(plane: np.ndarray) -> bytes:
+    """One ICNS RGB plane run-length coded: runs of 3-130 equal bytes
+    (0x80 + count - 3, the byte) and literals of up to 128 (count - 1)."""
+    v, enc, i, n = np.asarray(plane, np.uint8).ravel(), bytearray(), 0, plane.size
+    while i < n:
+        j = i
+        while j + 1 < n and v[j + 1] == v[i] and j + 1 - i < 129:
+            j += 1
+        if j - i >= 2:
+            enc += bytes([0x80 + j - i + 1 - 3, v[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and v[j] == v[j + 1] == v[j + 2]):
+            j += 1
+        enc += bytes([j - i - 1]) + v[i:j].tobytes()
+        i = j
+    return bytes(enc)
+
+
+def icns_bytes(blocks) -> bytes:
+    """An ICNS of ``blocks``, each (type, payload): an ``it32`` payload
+    gets its four zero bytes first."""
+    body = b""
+    for kind, payload in blocks:
+        if kind == b"it32":
+            payload = b"\0\0\0\0" + payload
+        body += kind + struct.pack(">I", 8 + len(payload)) + payload
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body

@@ -342,15 +342,30 @@ def test_forms_that_stay_refused(kind, match, tmp_path):
     _assert_refused(kind, match, tmp_path)
 
 
-@pytest.mark.parametrize("kind", ["gif", "bmp", "sgi", "pcx"])
+@pytest.mark.parametrize("kind", ["gif", "bmp", "sgi", "pcx", "ico", "icns", "xpm", "psd",
+                                  "cur", "im"])
 def test_forms_once_refused_now_read(kind, tmp_path):
-    """GIF and BMP, refused before ``data/raster.py``, and SGI and PCX,
-    refused before ``data/plugins.py``, read as the JAX package reads them
-    (``tests/test_torch_raster.py`` and ``tests/test_torch_plugins.py``
-    hold every form)."""
+    """GIF and BMP, refused before ``data/raster.py``, SGI and PCX, refused
+    before ``data/plugins.py``, and ICO, ICNS, XPM, PSD, CUR and IM's 12-bit
+    samples, refused before ``data/icons.py``, read as the JAX package
+    reads them (``tests/test_torch_raster.py``,
+    ``tests/test_torch_plugins.py`` and ``tests/test_torch_icons.py`` hold
+    every form)."""
     arr = np.random.default_rng(11).integers(0, 256, (9, 14)).astype(np.uint8)
     path = str(tmp_path / f"x.{kind}")
-    Image.fromarray(arr).save(path)
+    if kind in ("ico", "icns"):  # PIL writes sizes of 16 and more
+        Image.fromarray(np.kron(arr, np.ones((4, 3), np.uint8))).convert("RGBA").save(path)
+    elif kind in ("xpm", "psd", "cur", "im"):  # formats PIL does not write
+        from _raster_writer import ico_bytes, ico_dib, im_bits, im_bytes, psd_bytes, xpm_bytes
+        pal = np.random.default_rng(12).integers(0, 256, (256, 3))
+        data = {"xpm": lambda: xpm_bytes(arr % 7, [f"#{v:06x}" for v in range(0, 7 * 99, 99)]),
+                "psd": lambda: psd_bytes(arr[None], mode=1, rle=True),
+                "cur": lambda: ico_bytes([(14, 9, 0, 8, ico_dib(arr, 8, pal))], cursor=True),
+                "im": lambda: im_bytes(im_bits(arr.astype(np.uint64) * 16, 12), "L*12",
+                                       size=(14, 9))}[kind]()
+        open(path, "wb").write(data)
+    else:
+        Image.fromarray(arr).save(path)
     for got, want in ((imread(path), jax_load(path)), (imread_gray(path), jax_gray(path))):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)

@@ -79,7 +79,7 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
                 "api.deploy", "bench", "utils", "utils.devices", "utils.profiling",
                 "utils.progress", "ops.int8_conv", "napari_plugin",
                 "napari_plugin.widgets", "data.raster", "data.webp", "data.jpeg2000",
-                "data.plugins"):
+                "data.plugins", "data.icons"):
         assert f"empanada_tpu_torch.{new}" in names, new
     from empanada_tpu_torch.api import Engine2d, Engine3d
     from empanada_tpu_torch.data.volume import resize_by_factor
@@ -131,6 +131,21 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
         open(os.path.join(d, name), "wb").write(data)
         got = imread(os.path.join(d, name))
         assert (got.shape == (2, 5, 7)) if want is None else (got == want).all(), name
+    # data/icons.py's PSD (PackBits), ICO (a DIB with its mask) and ICNS
+    # (runs with a mask), with the tests' writers
+    from _raster_writer import icns_bytes, icns_rle, ico_bytes, ico_dib, psd_bytes
+    side = np.kron(img, np.ones((4, 3), np.uint8))[:16, :16]
+    rgb16 = np.dstack([side * 30, side, 255 - side]).astype(np.uint8)
+    for name, data, want in (
+            ("x.psd", psd_bytes(rgb.transpose(2, 0, 1), rle=True), rgb),
+            ("x.ico", ico_bytes([(7, 5, 0, 24, ico_dib(rgb, 24))]),
+             np.dstack([rgb, np.full((5, 7), 255, np.uint8)])),
+            ("x.icns", icns_bytes([(b"is32", b"".join(icns_rle(rgb16[..., k]) for k in range(3))),
+                                   (b"s8mk", side.tobytes())]), np.dstack([rgb16, side]))):
+        open(os.path.join(d, name), "wb").write(data)
+        for read in (imread, imread_gray):
+            got = read(os.path.join(d, name))
+            assert (got == (want if read is imread else want[..., 0])).all(), name
     open(os.path.join(d, "x.hdr"), "wb").write(hdr_bytes(np.full((5, 9, 4), 137, np.uint8)))
     assert (imread_gray(os.path.join(d, "x.hdr")) == np.float32(274)).all()  # 137 * 2^1
     # the JPEG 2000 decoder: two of phase 21's committed fixtures, to the

@@ -20,7 +20,13 @@ sizes, every comparison exact (tolerance 0):
   refused; a strip's or tile's stream larger than its strip or tile is
   refused as libtiff refuses it, but for a last strip that is too tall,
   which reads;
-- a damaged ``.jpg`` raises and names the file.
+- C15: files whose patched quantisation tables send the coefficients
+  past 16 bits (grey and colour, baseline, progressive and restart
+  intervals, a JPEG TIFF's JPEGTables), read as libjpeg-turbo's SIMD IDCT
+  reads them; and damaged files (``_damages``: marker segments, fill and
+  stray bytes, EOI missing or doubled, cut scans, restart markers), each
+  read as each oracle reads it: the same array, or a raise naming the file
+  where the JAX reader raises.
 """
 
 import io
@@ -31,7 +37,7 @@ import pytest
 from PIL import Image
 
 import empanada_tpu.data.datasets as JD
-from _jpeg_writer import jpeg_bytes, jpeg_tables
+from _jpeg_writer import jpeg_bytes, jpeg_tables, patched_dqt
 from _tiff_writer import tiff_bytes
 from empanada_tpu.cli import _load_array as jax_load
 from empanada_tpu.curation.tiles import _load_image as jax_tile
@@ -303,8 +309,45 @@ def test_pil_written_jpeg_tiff_and_refused_sampling(tmp_path):
             read(path)
 
 
+def _oracle(read, path):
+    """The JAX reader's array, or None where it raises."""
+    try:
+        return read(path)
+    except OSError:  # PIL's truncated or broken stream, UnidentifiedImageError
+        return None
+
+
+def _as_oracles(path, refusals=()):
+    """``imread`` and ``imread_gray`` of ``path`` against the JAX readers:
+    the same array, or a ValueError naming the file where the JAX reader
+    raises; a refusal the port names (``refusals``: the block smoothing of
+    a progressive file whose later scans are lost) where it reads.
+    Returns whether each reader read."""
+    out = []
+    for read, oracle in ((imread, jax_load), (imread_gray, jax_gray)):
+        want = _oracle(oracle, path)
+        if want is None:
+            with pytest.raises(ValueError, match=path.split("/")[-1]):
+                read(path)
+            out.append(False)
+            continue
+        try:
+            got = read(path)
+        except ValueError as exc:
+            assert any(r in str(exc) for r in refusals), exc
+            out.append(False)
+            continue
+        _same(got, want)
+        out.append(True)
+    return out
+
+
 @pytest.mark.parametrize("damage", ["cut", "zeros", "marker"])
 def test_damaged_jpeg_names_the_file(damage, tmp_path):
+    """A cut scan, FF 00 pairs where the scan's data goes on (Huffman codes
+    no table holds, read as 0) and an EOI inside the scan (the rest of it
+    zero): read as the oracles read them, or a raise naming the file where
+    they raise (PIL's truncated stream)."""
     rng = np.random.default_rng(3)
     Image.fromarray(_image(rng, (64, 80, 3))).save(tmp_path / "src.jpg", quality=90)
     data = bytearray((tmp_path / "src.jpg").read_bytes())
@@ -318,6 +361,181 @@ def test_damaged_jpeg_names_the_file(damage, tmp_path):
         data[start:start + 2] = b"\xff\xd9"
     path = tmp_path / "bad.jpg"
     path.write_bytes(bytes(data))
-    for read in (imread, imread_gray):
-        with pytest.raises(ValueError, match=r"bad\.jpg: (damaged JPEG data|.*Huffman)"):
-            read(str(path))
+    assert _as_oracles(str(path)) == ([False, True] if damage == "cut" else [True, True])
+
+
+# ----- C15: libjpeg-turbo's SIMD IDCT on out-of-range coefficients ---------------
+
+# (id, colour, PIL keywords) of quality-100 files: an all-1 table, so that
+# a patched table sends the dequantised coefficients past 16 bits
+PATCHED = [("grey", False, {}), ("grey-progressive", False, dict(progressive=True)),
+           ("grey-rst", False, dict(restart_marker_blocks=2)),
+           ("rgb-420", True, dict(subsampling=2)),
+           ("rgb-422-progressive", True, dict(subsampling=1, progressive=True)),
+           ("rgb-444-rst", True, dict(subsampling=0, restart_marker_blocks=1))]
+
+
+@pytest.mark.parametrize("value", [60, 128, 237, 1000])
+@pytest.mark.parametrize("colour,kw", [p[1:] for p in PATCHED], ids=[p[0] for p in PATCHED])
+def test_patched_quantisation_tables_read_as_libjpeg_turbo(colour, kw, value, tmp_path):
+    """Both oracles run libjpeg-turbo's SIMD islow IDCT here (16-bit lanes:
+    wrapped products and sums, saturated passes); the port computes the
+    same.  Before it did, these files differed by 255."""
+    img = (np.random.default_rng(0).random((64, 64, 3) if colour else (64, 64)) * 255).astype(
+        np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=100, **kw)
+    path = tmp_path / "q.jpg"
+    path.write_bytes(patched_dqt(buf.getvalue(), value))
+    _check(str(path))
+
+
+@pytest.mark.parametrize("value", [237, 1000])
+@pytest.mark.parametrize("colour", [False, True], ids=["grey", "rgb"])
+def test_patched_tables_on_blocks_of_one_row(colour, value, tmp_path):
+    """An image constant down each column: every block's coefficients
+    rows 1-7 are zero, where the SIMD IDCT's first pass takes its DC
+    shortcut (a 16-bit left shift that wraps, where the full pass
+    saturates)."""
+    rng = np.random.default_rng(value)
+    row = (rng.random((1, 64) + ((3,) if colour else ())) * 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(np.repeat(row, 48, 0)).save(buf, "JPEG", quality=100)
+    path = tmp_path / "c.jpg"
+    path.write_bytes(patched_dqt(buf.getvalue(), value))
+    _check(str(path))
+
+
+@pytest.mark.parametrize("value", [60, 128, 237])
+def test_patched_tables_in_tiff(value, tmp_path):
+    """A JPEG TIFF whose JPEGTables hold a patched table: the strips'
+    abbreviated streams go through the same IDCT (libtiff's libjpeg)."""
+    page = (np.random.default_rng(1).random((40, 24)) * 255).astype(np.uint8)
+    path = str(tmp_path / "t.tif")
+    with open(path, "wb") as f:
+        f.write(tiff_bytes([page], 7, rows_per_strip=16,
+                           jpeg_fn=lambda b: jpeg_bytes(b[..., 0], 100, tables=False),
+                           extra_tags=[(347, 7, list(patched_dqt(jpeg_tables(100), value)))]))
+    _check(path)
+
+
+# ----- C15: damaged marker segments, read as each oracle's libjpeg source reads them --
+
+def _damages(d, restart):
+    """(id, bytes) of damaged copies of the JPEG ``d``."""
+    segs, scan = _segments(d)
+    sos = len(d) - len(scan)
+    dqt = sum(len(s) for _, s in segs[:[m for m, _ in segs].index(0xDB)]) + 2
+    half = sos + (len(d) - sos) // 2
+    out = [("com-past-the-end", d[:sos] + b"\xff\xfe\xff\xf0" + d[sos:]),
+           ("com-past-the-end-after-scan", d[:-2] + b"\xff\xfe\x01\x00abc"),
+           ("dqt-length-short", d[:dqt + 2] + struct.pack(">H", struct.unpack_from(
+               ">H", d, dqt + 2)[0] - 1) + d[dqt + 4:]),
+           ("fill-before-dqt", d[:dqt] + b"\xff\xff\xff" + d[dqt:]),
+           ("stray-before-dqt", d[:dqt] + b"\x12\x34" + d[dqt:]),
+           ("stray-before-sos", d[:sos] + b"\x00\x01\x02" + d[sos:]),
+           ("ff00-before-sos", d[:sos] + b"\xff\x00" + d[sos:]),
+           ("tem-before-sos", d[:sos] + b"\xff\x01" + d[sos:]),
+           ("rst-before-sos", d[:sos] + b"\xff\xd3" + d[sos:]),
+           ("reserved-marker", d[:sos] + b"\xff\x02\x00\x04ab" + d[sos:]),
+           ("jpg2-marker", d[:sos] + b"\xff\xf2\x00\x04ab" + d[sos:]),
+           ("second-soi", d[:sos] + b"\xff\xd8" + d[sos:]),
+           ("junk-after-soi", d[:2] + b"\x12\x34" + d[2:]),  # neither oracle's signature
+           ("app-length-1", d[:sos] + b"\xff\xe5\x00\x01" + d[sos:]),
+           ("no-dht", d[:2] + b"".join(s for m, s in segs if m != 0xC4) + scan),
+           ("stray-before-eoi", d[:-2] + b"\x01\x02\x03" + d[-2:]),
+           ("fill-before-eoi", d[:-2] + b"\xff\xff" + d[-2:]),
+           ("reserved-after-scan", d[:-2] + b"\xff\x05\xff\xd9"),
+           ("sos-after-scan", d[:-2] + b"\xff\xda\x00\x08\x01\x01\x00\x00\x3f\x00\x12\xff\xd9"),
+           ("no-eoi", d[:-2]), ("after-eoi", d + b"garbage\xff\xd8\xff"), ("two-jpegs", d + d),
+           ("cut-scan", d[:half]), ("cut-scan-eoi", d[:half] + b"\xff\xd9"),
+           ("cut-end", d[:-6]), ("cut-end-eoi", d[:-6] + b"\xff\xd9"),
+           ("eoi-in-scan", d[:sos + 20] + b"\xff\xd9" + d[sos + 22:]),
+           ("ff00-in-scan", d[:sos + 20] + b"\xff\x00" * 30 + d[sos + 80:])]
+    if restart:
+        at = [i for i in range(sos, len(d) - 1) if d[i] == 0xFF and 0xD0 <= d[i + 1] <= 0xD7]
+        i, j = at[1], at[2]
+
+        def renumber(k, by):
+            b = bytearray(d)
+            b[k + 1] = 0xD0 + ((b[k + 1] - 0xD0 + by) & 7)
+            return bytes(b)
+        swapped = bytearray(d)
+        swapped[i + 1], swapped[j + 1] = d[j + 1], d[i + 1]
+        out += [("rst-missing", d[:i] + d[i + 2:]), ("rst-repeated", d[:i + 2] + d[i:]),
+                ("rst-far", renumber(i, 3)), ("rst-next", renumber(i, 1)),
+                ("rst-prior", renumber(j, -1)), ("rst-swapped", bytes(swapped)),
+                ("rst-stray-bytes", d[:i] + b"\x11\x22" + d[i:]),
+                ("rst-cut-before", d[:i - 3] + d[i:]),
+                ("rst-all-missing", bytes(b for k, b in enumerate(d)
+                                          if not any(k in (a, a + 1) for a in at)))]
+    return out
+
+
+# (id, colour, PIL keywords) of the files the damages are made from
+DAMAGED = [("grey", False, {}), ("rgb", True, {}), ("progressive", False, dict(progressive=True)),
+           ("grey-rst", False, dict(restart_marker_blocks=2)),
+           ("rgb-rst", True, dict(restart_marker_blocks=1)),
+           ("rgb-progressive-rst", True, dict(progressive=True, restart_marker_blocks=1))]
+
+
+@pytest.mark.parametrize("colour,kw", [p[1:] for p in DAMAGED], ids=[p[0] for p in DAMAGED])
+def test_damaged_markers_read_as_the_oracles(colour, kw, tmp_path):
+    """Each damage of ``_damages`` (segments past the end or of a bad
+    length, fill and stray bytes, markers libjpeg or PIL refuse, a missing
+    or duplicated EOI, cut scans, markers inside the scan, restart markers
+    missing, repeated, renumbered or cut): ``imread`` reads what PIL reads
+    (its marker walk, then libjpeg from its suspending source), and
+    ``imread_gray`` cv2's array (libjpeg with a fake EOI at the end, its
+    finish's errors ignored), PIL's where cv2 reads nothing.  A progressive
+    file whose later scans are lost is one libjpeg smooths, which the port
+    refuses by name."""
+    rng = np.random.default_rng(len(kw) + colour)
+    buf = io.BytesIO()
+    Image.fromarray(_image(rng, (32, 48, 3) if colour else (32, 48))).save(buf, "JPEG",
+                                                                           quality=90, **kw)
+    reads = {}
+    for name, data in _damages(buf.getvalue(), "restart_marker_blocks" in kw):
+        path = tmp_path / f"{name}.jpg"
+        path.write_bytes(data)
+        reads[name] = _as_oracles(str(path), ["block smoothing"] if "progressive" in kw else [])
+    assert reads["eoi-in-scan"] == [True, True] or "progressive" in kw
+    assert reads["no-dht"] == ([False, False] if "progressive" in kw else [True, True])
+    assert reads["tem-before-sos"][0] is False  # PIL's marker walk refuses it, libjpeg not
+
+
+@pytest.mark.parametrize("colour,kw", [(False, {}), (True, {}),
+                                       (False, dict(restart_marker_blocks=3))],
+                         ids=["grey", "rgb", "grey-rst"])
+def test_cut_files_read_as_the_oracles(colour, kw, tmp_path):
+    """The last 12 cuts of each file, with and without an EOI after them:
+    where the data ends decides PIL's outcome by libjpeg-turbo's bit buffer
+    (decode_mcu_fast's 6-byte fills while 512 bytes a block are buffered,
+    then 57-bit fills that wait for bytes past the end); grey seed 3 cut by
+    its EOI is one that the fast path's fills decide."""
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        buf = io.BytesIO()
+        Image.fromarray(_image(rng, (48, 64, 3) if colour else (48, 64))).save(
+            buf, "JPEG", quality=90, **kw)
+        d = buf.getvalue()
+        for cut in range(len(d) - 13, len(d) - 1):
+            for tail in (b"", b"\xff\xd9"):
+                path = tmp_path / f"c{seed}-{cut}-{len(tail)}.jpg"
+                path.write_bytes(d[:cut] + tail)
+                _as_oracles(str(path))
+
+
+def test_cut_file_over_pil_blocks(tmp_path):
+    """A 700 x 900 file (about 160 kB): PIL hands libjpeg 65536 bytes at a
+    time, and each MCU that waits for more starts again with the larger
+    buffer (and the fast path it may then take)."""
+    rng = np.random.default_rng(7)
+    buf = io.BytesIO()
+    Image.fromarray(_image(rng, (700, 900))).save(buf, "JPEG", quality=90)
+    d = buf.getvalue()
+    assert len(d) > 2 * 65536
+    for cut in (65536 + 5, 131072 - 3, len(d) - 9, len(d) - 4, len(d) - 2):
+        path = tmp_path / f"c{cut}.jpg"
+        path.write_bytes(d[:cut])
+        _as_oracles(str(path))

@@ -433,8 +433,8 @@ def _im_array(kind, rng, h=H, w=W):
 def test_im_types(image_type, tmp_path):
     """Every image type of ``ImImagePlugin.OPEN`` the writer packs (RLB,
     for which PIL has no raw mode, raises in both); the L*n types of n bits
-    other than 8, 16 and 32 (PIL's bit decoder) are refused by the port,
-    naming them (pinned: PIL reads them)."""
+    other than 8, 16 and 32 read as PIL's bit decoder reads them
+    (``tests/test_torch_icons.py`` holds more of them)."""
     rng = _rng("im" + image_type)
     kind, rawmode = IM_TYPES[image_type]
     if kind in ("planes", "bits"):
@@ -445,10 +445,6 @@ def test_im_types(image_type, tmp_path):
     path = _file(tmp_path, "x.im", data)
     if kind == "bits":
         assert jax_load(path).shape == (H, W)
-        for read in (imread, imread_gray):
-            with pytest.raises(ValueError, match="samples of 12 bits .PIL's bit decoder."):
-                read(path)
-        return
     _held(path)
 
 

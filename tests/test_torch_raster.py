@@ -736,18 +736,33 @@ def _oversized(fmt):
         for v in words[:12]:
             words[12] ^= v
         return struct.pack("<16H", *words) + bytes(16)
-    return b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 13000 +X 13000\n" + bytes(16)
+    if fmt == "hdr":
+        return b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 13000 +X 13000\n" + bytes(16)
+    # data/icons.py's formats and IM's samples of 12 bits: 13000 x 13000 too
+    if fmt == "im-bits":
+        return b"Image type: L*12 image\r\nImage size (x*y): 13000*13000\r\n\0\x1a" \
+            + bytes(16)
+    if fmt == "xpm":
+        return b'/* XPM */\n"13000 13000 1 1",\n"a c #000000",\n"aaaa"\n'
+    if fmt in ("ico", "cur"):  # a DIB member of 13000 x 26000 (halved: 13000)
+        dib = struct.pack("<IiiHHIIiiII", 40, side, 2 * side, 1, 8, 0, 0, 0, 0, 1, 0)
+        return struct.pack("<HHHBBBBHHII", 0, 2 if fmt == "cur" else 1, 1, 0, 0, 1, 0, 1, 8,
+                           len(dib) + 20, 22) + dib + bytes(20)
+    psd = b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, side, side, 8, 1) + bytes(12)
+    if fmt == "psd":
+        return psd + struct.pack(">H", 0) + bytes(16)
+    return psd + struct.pack(">H", 1) + struct.pack(">H", 2) * side + b"\xc1\x00" * 8
 
 
 OVERSIZED = ["bmp", "bmp-rle", "pgm", "pgm-plain", "pfm", "pam", "gif", "spider", "tga",
              "tga-rle", "sun", "sun-rle", "sgi", "sgi-rle", "pcx", "dcx", "qoi", "im", "xbm",
-             "msp", "msp-v2", "hdr"]
+             "msp", "msp-v2", "hdr", "im-bits", "xpm", "ico", "cur", "psd", "psd-rle"]
 
 
 @pytest.mark.parametrize("fmt", OVERSIZED)
 def test_oversized_header_is_refused_before_allocating(fmt, tmp_path):
     """A header claiming 65535 x 65535 (13000 x 13000 in the formats of
-    data/plugins.py) on a file of a few dozen bytes
+    data/plugins.py and data/icons.py) on a file of a few dozen bytes
     raises before any buffer of its size is allocated (the peak traced
     allocation stays under 1 MiB)."""
     path = _file(tmp_path, "x.img", _oversized(fmt))
@@ -764,10 +779,6 @@ def test_oversized_header_is_refused_before_allocating(fmt, tmp_path):
 
 def _other_format(kind):
     arr = np.zeros((8, 8), np.uint8)
-    if kind == "ico":
-        buf = io.BytesIO()
-        Image.fromarray(arr).save(buf, "ICO")
-        return buf.getvalue()
     if kind == "jpeg2000":  # the port reads JPEG 2000: a form of it that it refuses, a palette
         buf = io.BytesIO()
         Image.fromarray(np.dstack([arr] * 3)).save(buf, "JPEG2000")
@@ -778,9 +789,10 @@ def _other_format(kind):
         buf = io.BytesIO()
         Image.fromarray(np.dstack([arr] * 3)).save(buf, "DDS")
         return buf.getvalue()
-    # the others by their first bytes: PSD's signature and version, an
-    # ICNS's magic and length, a FITS primary header
-    return {"psd": b"8BPS\0\1" + bytes(20), "icns": b"icns" + struct.pack(">I", 8),
+    # the others by their first bytes: BLP's and FTEX's magic, a GIMP
+    # brush's header length and version, a FITS primary header
+    return {"blp": b"BLP2" + bytes(20), "ftex": b"FTEX" + bytes(20),
+            "gbr": struct.pack(">II", 28, 2) + bytes(20),
             "fits": b"SIMPLE  =                    T" + b" " * 50}[kind]
 
 
@@ -789,8 +801,8 @@ def _other_format(kind):
 _REFUSED_FORM = {"JPEG2000": r"a palette \(pclr and cmap boxes\), which the port does not read"}
 
 
-@pytest.mark.parametrize("kind,name", [("ico", "ICO"), ("jpeg2000", "JPEG2000"),
-                                       ("psd", "PSD"), ("dds", "DDS"), ("icns", "ICNS"),
+@pytest.mark.parametrize("kind,name", [("blp", "BLP"), ("jpeg2000", "JPEG2000"),
+                                       ("ftex", "FTEX"), ("dds", "DDS"), ("gbr", "GBR"),
                                        ("fits", "FITS")])
 def test_formats_still_refused_name_themselves(kind, name, tmp_path):
     path = _file(tmp_path, f"x.{kind}", _other_format(kind))
