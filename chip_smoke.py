@@ -356,6 +356,27 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     each, and 2 in each twin); ``infer3d`` of the two-layer PSD refused
     before any launch (PIL numbers PSD layers from 1: the JAX package's
     reader raises); ``icons:`` line; at most 60 s.
+24. textures: phase 18's volume written with the tests' writers
+    (``tests/_texture_writer.py``, ``textures_files``) as DDS of every form
+    ``data/textures.py`` reads (a 1024 x 1024 L8 slice, LA, 5-6-5 RGB,
+    ARGB 32-bit masks, a palette, DXT1, DXT3, DXT5, BC4, BC5 and BC5S of
+    the writer's BC encoder, seeded random blocks of BC6H UF16 and SF16 and
+    BC7 reaching every mode, R8G8B8A8, a mipmapped DXT1), BLP1 (a grey JPEG
+    of the tests' writer, a palette), BLP2 (a palette, DXT1, DXT3 and DXT5
+    by BLP's Python rule), FTEX (DXT1, raw RGB), GBR (version 1 grey,
+    version 2 RGBA), and C16's damaged PNGs of slice 0 (the port's writer,
+    mutated: ``png_mutations``); each read by ``imread`` and
+    ``imread_gray`` and held to the dtype, shape and SHA-256 of the
+    oracles' arrays of the same file (PIL 12.1's and cv2 5.0's,
+    ``TEXTURES_SHA256``; None where the JAX reader raises), each reader's
+    decode MB/s and ms (the faster of two reads), each BC format's
+    ``native.bcn_decode`` MB/s; ``python -m empanada_tpu_torch infer2d`` of
+    the DDS L8 slice and of the BC4 slice with phase 5's model as a bundle,
+    in one batch of two subprocesses side by side, each map equal to
+    ``Engine2d``'s on the array ``imread`` gives (2 refine launches in
+    each, and 2 in each twin); a ``SingleClassInstanceDataset`` over BC4
+    DDS images and L8 DDS masks equal, item for item, to the one over the
+    same arrays as PNG; ``textures:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -4338,42 +4359,59 @@ def raster_digest(a) -> tuple:
     return str(a.dtype), list(a.shape), hashlib.sha256(samples.tobytes()).hexdigest()
 
 
-def raster_dataset_check(vol8, root) -> dict:
-    """A ``SingleClassInstanceDataset`` over 4 BMP images (slices 0-3's high
-    bytes, 512 x 512) and RLE TGA masks (slices 4-7 cut to one grey level,
-    numbered by column quarter) equals the one over the same arrays as PNG
-    (the port's writer), item for item."""
+def dataset_twin_check(label, root, items) -> dict:
+    """A ``SingleClassInstanceDataset`` over ``items``, each an (image, mask)
+    pair of (extension, file bytes, twin array), equals the one over the
+    twins written as PNG (the port's writer), item for item.  A twin is the
+    array its file was made from, or what ``imread_gray`` reads of a lossy
+    file."""
     import numpy as np
 
     from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
     from empanada_tpu_torch.data.imwrite import imwrite
 
+    for ext in (label, "png"):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(root, ext, "src", sub))
+    for i, pair in enumerate(items):
+        for sub, (ext, data, twin) in zip(("images", "masks"), pair):
+            with open(os.path.join(root, label, "src", sub, f"{i}.{ext}"), "wb") as f:
+                f.write(data)
+            imwrite(os.path.join(root, "png", "src", sub, f"{i}.png"), twin)
+    t0 = time.perf_counter()
+    got = SingleClassInstanceDataset(os.path.join(root, label))
+    want = SingleClassInstanceDataset(os.path.join(root, "png"))
+    same = len(got) == len(want) == len(items) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in ((got[i], want[i]) for i in range(len(items))))
+    check(same, f"{label}: the {label.upper()} dataset's items differ from the PNG one's")
+    return {"items": len(items), "side": items[0][0][2].shape[1], "equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def quarter_masks(vol8):
+    """Slices 0-3's high bytes (512 x 512), and slices 4-7 cut to one grey
+    level and numbered by column quarter: the images and masks of the input
+    phases' training folders."""
+    import numpy as np
+
+    masks = ((vol8[4:8, :512, :512] >> 6) == 1).astype(np.uint8)
+    masks *= (1 + np.arange(512) // 128).astype(np.uint8)[None, None, :]
+    return vol8[:4, :512, :512], masks
+
+
+def raster_dataset_check(vol8, root) -> dict:
+    """The training folder of 4 BMP images and RLE TGA masks
+    (``quarter_masks``) against its PNG twin (``dataset_twin_check``)."""
+    import numpy as np
+
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from _raster_writer import bmp_bytes, tga_bytes
 
-    slices = vol8[:4, :512, :512]
-    masks = ((vol8[4:8, :512, :512] >> 6) == 1).astype(np.uint8)
-    masks *= (1 + np.arange(512) // 128).astype(np.uint8)[None, None, :]
     grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
-    for ext in ("bmp", "png"):
-        for sub in ("images", "masks"):
-            os.makedirs(os.path.join(root, ext, "src", sub))
-    for i, (img, mask) in enumerate(zip(slices, masks)):
-        with open(os.path.join(root, "bmp", "src", "images", f"{i}.bmp"), "wb") as f:
-            f.write(bmp_bytes(img, 8, palette=grey))
-        with open(os.path.join(root, "bmp", "src", "masks", f"{i}.tga"), "wb") as f:
-            f.write(tga_bytes(mask, 11))
-        imwrite(os.path.join(root, "png", "src", "images", f"{i}.png"), img)
-        imwrite(os.path.join(root, "png", "src", "masks", f"{i}.png"), mask)
-    t0 = time.perf_counter()
-    got = SingleClassInstanceDataset(os.path.join(root, "bmp"))
-    want = SingleClassInstanceDataset(os.path.join(root, "png"))
-    same = len(got) == len(want) == len(slices) and all(
-        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
-        for a, b in ((got[i], want[i]) for i in range(len(slices))))
-    check(same, "raster: the BMP/TGA dataset's items differ from the PNG one's")
-    return {"items": len(slices), "side": 512, "equal": True,
-            "seconds": time.perf_counter() - t0}
+    return dataset_twin_check("bmp", root, [
+        (("bmp", bmp_bytes(img, 8, palette=grey), img), ("tga", tga_bytes(mask, 11), mask))
+        for img, mask in zip(*quarter_masks(vol8))])
 
 
 def raster_reads(files, path) -> dict:
@@ -4504,35 +4542,17 @@ def webp_reads(root) -> dict:
 
 
 def webp_dataset_check(root, wd) -> dict:
-    """A ``SingleClassInstanceDataset`` over the lossy WebP slices (1024 x
-    1024 and the 512 x 512 one with alpha) and the lossless WebP masks
-    equals the one over the same arrays (``imread_gray``'s, as the dataset
-    reads them) written as PNG, item for item."""
-    import shutil
-
-    import numpy as np
-
-    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
+    """The training folder of the lossy WebP slices (1024 x 1024 and the
+    512 x 512 one with alpha) and the lossless WebP masks against its PNG
+    twin of what ``imread_gray`` reads of them (``dataset_twin_check``)."""
     from empanada_tpu_torch.data.imread import imread_gray
-    from empanada_tpu_torch.data.imwrite import imwrite
 
-    pairs = (("lossy", "mask"), ("alpha", "mask512"))
-    for ext in ("webp", "png"):
-        for sub in ("images", "masks"):
-            os.makedirs(os.path.join(wd, ext, "src", sub))
-    for i, forms in enumerate(pairs):
-        for sub, form in zip(("images", "masks"), forms):
-            src = os.path.join(root, WEBP_FILES[form])
-            shutil.copy(src, os.path.join(wd, "webp", "src", sub, f"{i}.webp"))
-            imwrite(os.path.join(wd, "png", "src", sub, f"{i}.png"), imread_gray(src))
-    t0 = time.perf_counter()
-    got = SingleClassInstanceDataset(os.path.join(wd, "webp"))
-    want = SingleClassInstanceDataset(os.path.join(wd, "png"))
-    same = len(got) == len(want) == len(pairs) and all(
-        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
-        for a, b in ((got[i], want[i]) for i in range(len(pairs))))
-    check(same, "webp: the WebP dataset's items differ from the PNG one's")
-    return {"items": len(pairs), "equal": True, "seconds": time.perf_counter() - t0}
+    def form(name):
+        src = os.path.join(root, WEBP_FILES[name])
+        with open(src, "rb") as f:
+            return "webp", f.read(), imread_gray(src)
+    return dataset_twin_check("webp", wd, [(form("lossy"), form("mask")),
+                                           (form("alpha"), form("mask512"))])
 
 
 def webp_phase(prr, api, cfg, model, card):
@@ -4667,35 +4687,17 @@ def jp2_reads(root) -> dict:
 
 
 def jp2_dataset_check(root, wd) -> dict:
-    """A ``SingleClassInstanceDataset`` over the 9/7 slice and the tiled RPCL
-    slice with their lossless JP2 masks equals the one over the same arrays
-    (``imread_gray``'s, as the dataset reads them) written as PNG, item for
-    item."""
-    import shutil
-
-    import numpy as np
-
-    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
+    """The training folder of the 9/7 slice and the tiled RPCL slice with
+    their lossless JP2 masks against its PNG twin of what ``imread_gray``
+    reads of them (``dataset_twin_check``)."""
     from empanada_tpu_torch.data.imread import imread_gray
-    from empanada_tpu_torch.data.imwrite import imwrite
 
-    pairs = (("slice97", "mask"), ("tiled", "mask_tiled"))
-    for ext in ("jp2", "png"):
-        for sub in ("images", "masks"):
-            os.makedirs(os.path.join(wd, ext, "src", sub))
-    for i, forms in enumerate(pairs):
-        for sub, form in zip(("images", "masks"), forms):
-            src = os.path.join(root, JP2_FILES[form])
-            shutil.copy(src, os.path.join(wd, "jp2", "src", sub, f"{i}.jp2"))
-            imwrite(os.path.join(wd, "png", "src", sub, f"{i}.png"), imread_gray(src))
-    t0 = time.perf_counter()
-    got = SingleClassInstanceDataset(os.path.join(wd, "jp2"))
-    want = SingleClassInstanceDataset(os.path.join(wd, "png"))
-    same = len(got) == len(want) == len(pairs) and all(
-        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
-        for a, b in ((got[i], want[i]) for i in range(len(pairs))))
-    check(same, "jp2: the JP2 dataset's items differ from the PNG one's")
-    return {"items": len(pairs), "equal": True, "seconds": time.perf_counter() - t0}
+    def form(name):
+        src = os.path.join(root, JP2_FILES[name])
+        with open(src, "rb") as f:
+            return "jp2", f.read(), imread_gray(src)
+    return dataset_twin_check("jp2", wd, [(form("slice97"), form("mask")),
+                                          (form("tiled"), form("mask_tiled"))])
 
 
 def jp2_phase(prr, api, cfg, model, card):
@@ -4854,41 +4856,17 @@ def plugins_reads(files, path, table=None, tag="plugins") -> dict:
 
 
 def plugins_dataset_check(vol8, root) -> dict:
-    """A ``SingleClassInstanceDataset`` over 4 RLE SGI images (slices 0-3's
-    high bytes, 512 x 512) and PCX masks (slices 4-7 cut to one grey level,
-    numbered by column quarter) equals the one over the same arrays as PNG
-    (the port's writer), item for item."""
+    """The training folder of 4 RLE SGI images and PCX masks
+    (``quarter_masks``) against its PNG twin (``dataset_twin_check``)."""
     import numpy as np
-
-    from empanada_tpu_torch.data.datasets import SingleClassInstanceDataset
-    from empanada_tpu_torch.data.imwrite import imwrite
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from _raster_writer import pcx_bytes, sgi_bytes
 
-    slices = vol8[:4, :512, :512]
-    masks = ((vol8[4:8, :512, :512] >> 6) == 1).astype(np.uint8)
-    masks *= (1 + np.arange(512) // 128).astype(np.uint8)[None, None, :]
     grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
-    for ext in ("sgi", "png"):
-        for sub in ("images", "masks"):
-            os.makedirs(os.path.join(root, ext, "src", sub))
-    for i, (img, mask) in enumerate(zip(slices, masks)):
-        with open(os.path.join(root, "sgi", "src", "images", f"{i}.sgi"), "wb") as f:
-            f.write(sgi_bytes(img, rle=True))
-        with open(os.path.join(root, "sgi", "src", "masks", f"{i}.pcx"), "wb") as f:
-            f.write(pcx_bytes(mask, palette=grey))
-        imwrite(os.path.join(root, "png", "src", "images", f"{i}.png"), img)
-        imwrite(os.path.join(root, "png", "src", "masks", f"{i}.png"), mask)
-    t0 = time.perf_counter()
-    got = SingleClassInstanceDataset(os.path.join(root, "sgi"))
-    want = SingleClassInstanceDataset(os.path.join(root, "png"))
-    same = len(got) == len(want) == len(slices) and all(
-        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
-        for a, b in ((got[i], want[i]) for i in range(len(slices))))
-    check(same, "plugins: the SGI/PCX dataset's items differ from the PNG one's")
-    return {"items": len(slices), "side": 512, "equal": True,
-            "seconds": time.perf_counter() - t0}
+    return dataset_twin_check("sgi", root, [
+        (("sgi", sgi_bytes(img, rle=True), img), ("pcx", pcx_bytes(mask, palette=grey), mask))
+        for img, mask in zip(*quarter_masks(vol8))])
 
 
 def plugins_phase(prr, api, cfg, model, card):
@@ -5204,6 +5182,394 @@ def icons_phase(prr, api, cfg, model, card):
     print("icons: " + json.dumps(rec), flush=True)
     check(rec["phase_s"] <= ICONS_LIMIT_S,
           f"phase 23 took {rec['phase_s']:.1f} s, over its {ICONS_LIMIT_S} s")
+    return rec, launches
+
+
+# phase 24: DDS, BLP, FTEX, GBR and C16's damaged PNGs, made from phase
+# 18's seeded volume; its limit, and per form two digests, (dtype, shape,
+# SHA-256) of ``cli._load_array``'s and of ``datasets._imread_gray``'s
+# array of the same file (PIL 12.1 and cv2 5.0), None where the reader
+# raises (regenerate: write ``textures_files(vol8)`` on a machine with
+# PIL 12.1 and cv2 5.0 and take ``raster_digest`` of each reader's array;
+# ``plugins_reads(files, path, TEXTURES_SHA256, "textures")`` then checks
+# them)
+TEXTURES_LIMIT_S = 60
+TEXTURES_SHA256 = {
+    "dds_l8": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "dds_la": (("uint8", [1024, 1024, 2],
+             "b250e11499e373c994a13cfa12bc2768a6d4594e8e2141e66624937952ae20c8"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "dds_rgb565": (("uint8", [512, 512, 3],
+             "8156ea7940fe3897abce127264a7bebae661ccaaef156b27a7af1fc04cadced9"),
+            ("uint8", [512, 512],
+             "c1a2731352fbb85c7a630118cd38ef590379a3a1f3fb8492a3b4f452b5b07226")),
+    "dds_argb32": (("uint8", [512, 512, 4],
+             "41e708aea33f96ae65b4f5c5afbf63b85ea65907604cf68517671549e2e3a39d"),
+            ("uint8", [512, 512],
+             "88ac204768b549e547d0a893f151b285527da284e0e4c3359568f8f48e63cb9a")),
+    "dds_p8": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "dds_dxt1": (("uint8", [1024, 1024, 4],
+             "38f8d0292c84217f9aa81284c4d834942e97f1cb3461d042f95fe0f3a037e00e"),
+            ("uint8", [1024, 1024],
+             "0bc09aff3ac2a2b5b8e76a8d481fcf48a1081de0940bc954566420fe43af66a1")),
+    "dds_dxt3": (("uint8", [1024, 1024, 4],
+             "464d5263b5baae72023fd9197ca3581cc5b1bf40e005a0739c793153b4ac7d19"),
+            ("uint8", [1024, 1024],
+             "0bc09aff3ac2a2b5b8e76a8d481fcf48a1081de0940bc954566420fe43af66a1")),
+    "dds_dxt5": (("uint8", [1024, 1024, 4],
+             "9fb1b07ccbb0416e0d5c6dc3ba47322824641a8039957c99285c673092d7253a"),
+            ("uint8", [1024, 1024],
+             "0bc09aff3ac2a2b5b8e76a8d481fcf48a1081de0940bc954566420fe43af66a1")),
+    "dds_bc4": (("uint8", [1024, 1024],
+             "3b92db309616a87708b95f498b50adc5ea0fbf58a4467c26ea8a2839b032fd19"),
+            ("uint8", [1024, 1024],
+             "3b92db309616a87708b95f498b50adc5ea0fbf58a4467c26ea8a2839b032fd19")),
+    "dds_bc5": (("uint8", [1024, 1024, 3],
+             "7420207a88580f2894e1d1de46a30ad8daff6fc9bbbd69e0c80db3aaa8be7c2d"),
+            ("uint8", [1024, 1024],
+             "3b92db309616a87708b95f498b50adc5ea0fbf58a4467c26ea8a2839b032fd19")),
+    "dds_bc5s": (("uint8", [1024, 1024, 3],
+             "2307a9d78b7377dae42b65d1e45820e8cbaa295d731e126c2fe8e3b690214d8c"),
+            ("uint8", [1024, 1024],
+             "3b92db309616a87708b95f498b50adc5ea0fbf58a4467c26ea8a2839b032fd19")),
+    "dds_bc6h": (("uint8", [512, 512, 3],
+             "e4e802f190d3aad434774167cb22641c0d190dfc208d9f47dc57a57f27714a71"),
+            ("uint8", [512, 512],
+             "ccfe4c39c0aac90ed58ba8b2ef4ec2a3592597760cfb314b41192bf658e0dbbf")),
+    "dds_bc6hs": (("uint8", [512, 512, 3],
+             "6dcae7a96fe56bc3c97a9d0422c49604535b7ab4a423f2adfb3d66cee545f74b"),
+            ("uint8", [512, 512],
+             "c90ccd493ac02b0131dd6a135053b864a448602f04f0e7e01018665d5b6b7252")),
+    "dds_bc7": (("uint8", [512, 512, 4],
+             "faa46acd2039d70847d0c7fcba8916a722e4c0f4c56219972869d2a7109f1890"),
+            ("uint8", [512, 512],
+             "d79e98b495baaa841581398ac467762e9b745928ac19658c8b898f32bd8374a0")),
+    "dds_rgba8": (("uint8", [512, 512, 4],
+             "41e708aea33f96ae65b4f5c5afbf63b85ea65907604cf68517671549e2e3a39d"),
+            ("uint8", [512, 512],
+             "88ac204768b549e547d0a893f151b285527da284e0e4c3359568f8f48e63cb9a")),
+    "dds_mips": (("uint8", [1024, 1024, 4],
+             "38f8d0292c84217f9aa81284c4d834942e97f1cb3461d042f95fe0f3a037e00e"),
+            ("uint8", [1024, 1024],
+             "0bc09aff3ac2a2b5b8e76a8d481fcf48a1081de0940bc954566420fe43af66a1")),
+    "blp1_jpeg": (("uint8", [512, 512, 3],
+             "ba92a23cbe4ee886a8e9604dba747d13b1ed1a865a05435ee733c22ab860151c"),
+            ("uint8", [512, 512],
+             "d5dcb1b520055dc38db123f482c3869b16fc0ea91775fb411141146bd165c3f2")),
+    "blp1_palette": (("uint8", [1024, 1024, 3],
+             "e96f1f79212d2020c5985d760e96133eb5d00a9808d68d8e94afaf0d94c8e84e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "blp2_palette": (("uint8", [1024, 1024, 3],
+             "e96f1f79212d2020c5985d760e96133eb5d00a9808d68d8e94afaf0d94c8e84e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "blp2_dxt1": (("uint8", [1024, 1024, 3],
+             "711e463dc2f776f8e8de49617ca8e2468126bc1860295c35e9c02494373be6db"),
+            ("uint8", [1024, 1024],
+             "0909a570ca3c5d6021f1c92a082cadcccfb3e4eba1bf67376bc97866946dbf85")),
+    "blp2_dxt3": (("uint8", [1024, 1024, 4],
+             "6a2bd4089d3cd7d18176b1dafdb8caf78d082e6226e94ce3c7b10a008b2a6f35"),
+            ("uint8", [1024, 1024],
+             "0909a570ca3c5d6021f1c92a082cadcccfb3e4eba1bf67376bc97866946dbf85")),
+    "blp2_dxt5": (("uint8", [1024, 1024, 4],
+             "a03fa4cb0e173f7e43ad7e41b7ece3037f4b1e5079fa50b4d58374614b50eb5c"),
+            ("uint8", [1024, 1024],
+             "0909a570ca3c5d6021f1c92a082cadcccfb3e4eba1bf67376bc97866946dbf85")),
+    "ftex_dxt1": (("uint8", [1024, 1024, 4],
+             "38f8d0292c84217f9aa81284c4d834942e97f1cb3461d042f95fe0f3a037e00e"),
+            ("uint8", [1024, 1024],
+             "0bc09aff3ac2a2b5b8e76a8d481fcf48a1081de0940bc954566420fe43af66a1")),
+    "ftex_rgb": (("uint8", [512, 512, 3],
+             "94925b5cb4303b86d4d1337c50f9a92fe281d5987137ece39afde71b0c57ecaa"),
+            ("uint8", [512, 512],
+             "88ac204768b549e547d0a893f151b285527da284e0e4c3359568f8f48e63cb9a")),
+    "gbr_l": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "gbr_rgba": (("uint8", [512, 512, 4],
+             "41e708aea33f96ae65b4f5c5afbf63b85ea65907604cf68517671549e2e3a39d"),
+            ("uint8", [512, 512],
+             "88ac204768b549e547d0a893f151b285527da284e0e4c3359568f8f48e63cb9a")),
+    "png_ihdr_crc": (None,
+            None),
+    "png_text_crc": (None,
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "png_idat_crc": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "png_cut_iend": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "png_cut_idat": (None,
+            None),
+    "png_adler": (None,
+            None),
+    "png_junk": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "png_extra_rows": (("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e"),
+            ("uint8", [1024, 1024],
+             "1ba3d9a2b370ca93191452751bd2c4185cd945b144551eda054474a49491819e")),
+    "png_ends_at_row": (("uint8", [1024, 1024],
+             "fa08087bfb37fba45faa6cab2c3bc9d8fb3e35a15869c9ed1d44735a22ead3af"),
+            ("uint8", [1024, 1024],
+             "fa08087bfb37fba45faa6cab2c3bc9d8fb3e35a15869c9ed1d44735a22ead3af")),
+    "png_text_cut_after": (None,
+            None),
+    "png_width_0": (None,
+            None),
+    "png_height_2_31": (None,
+            None),
+}
+# per BC format, the form whose blocks ``textures_bc_rates`` times: (form,
+# offset of its blocks, signed)
+TEXTURES_BC = {"bc1": ("dds_dxt1", 128, False), "bc2": ("dds_dxt3", 128, False),
+               "bc3": ("dds_dxt5", 128, False), "bc4": ("dds_bc4", 148, False),
+               "bc5": ("dds_bc5", 148, False), "bc5s": ("dds_bc5s", 128, True),
+               "bc6h": ("dds_bc6h", 148, False), "bc6hs": ("dds_bc6hs", 148, True),
+               "bc7": ("dds_bc7", 148, False)}
+
+
+def png_mutations(png) -> dict:
+    """{form: bytes} of C16's damaged PNGs, from ``png`` (the port's writer:
+    one IDAT): the IHDR's CRC broken; a tEXt of a broken CRC before IDAT
+    (PIL refuses, cv2 drops it); the IDAT's CRC broken (cv2 refuses, PIL
+    does not check it); 6 bytes short (IEND cut: PIL reads, cv2 not); cut
+    in the middle of IDAT; the Adler-32 broken; junk after the zlib
+    stream; filtered rows after the last; a stream that ends after half the
+    rows (PIL reads them, the rest 0); a tEXt after IDAT cut short; an
+    IHDR of width 0, and one of height 2^31 - 1 (over PIL's decompression-
+    bomb limit), their CRCs right."""
+    import struct
+    import zlib
+
+    def chunk(cid, body, bad=False):
+        crc = zlib.crc32(body, zlib.crc32(cid)) ^ int(bad)
+        return struct.pack(">I", len(body)) + cid + body + struct.pack(">I", crc)
+    ihdr, (n,) = png[8:33], struct.unpack(">I", png[33:37])
+    idat, rest = png[41:41 + n], png[45 + n:]
+    raw = zlib.decompress(idat)
+    h = struct.unpack(">I", png[20:24])[0]
+    half = len(raw) // h * (h // 2)
+    bad = bytearray(idat)
+    bad[-1] ^= 1
+    sig = png[:8]
+
+    def with_idat(body):
+        return sig + ihdr + chunk(b"IDAT", body) + rest
+    return {
+        "png_ihdr_crc": sig + chunk(b"IHDR", ihdr[8:21], True) + png[33:],
+        "png_text_crc": sig + ihdr + chunk(b"tEXt", b"k\0v", True) + png[33:],
+        "png_idat_crc": sig + ihdr + chunk(b"IDAT", idat, True) + rest,
+        "png_cut_iend": png[:-6],
+        "png_cut_idat": png[:41 + n // 2],
+        "png_adler": with_idat(bytes(bad)),
+        "png_junk": with_idat(idat + b"junkjunk"),
+        "png_extra_rows": with_idat(zlib.compress(raw + raw[:len(raw) // h * 3])),
+        "png_ends_at_row": with_idat(zlib.compress(raw[:half])),
+        "png_text_cut_after": sig + ihdr + chunk(b"IDAT", idat) + struct.pack(">I", 100)
+        + b"tEXtabc",
+        "png_width_0": sig + chunk(b"IHDR", bytes(4) + ihdr[12:21]) + png[33:],
+        "png_height_2_31": sig + chunk(b"IHDR", ihdr[8:12] + struct.pack(">I", 2 ** 31 - 1)
+                                       + ihdr[16:21]) + png[33:]}
+
+
+def textures_files(vol8):
+    """{form: (file name, its bytes)} of phase 24 (module docstring)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _jpeg_writer import jpeg_bytes
+    from _texture_writer import (
+        bc_encode,
+        blp1_bytes,
+        blp2_bytes,
+        dds_bytes,
+        ftex_bytes,
+        gbr_bytes,
+        random_blocks,
+    )
+
+    from empanada_tpu_torch.data.imwrite import png_bytes
+
+    s0, side = vol8[0], 1024
+    rgb = np.stack(list(vol8[:3]), -1)
+    rgba = np.stack(list(vol8[:4]), -1)
+    corner = rgba[:512, :512]
+    w16 = ((rgb[:512, :512, 0] >> 3).astype(np.uint16) << 11
+           | (rgb[:512, :512, 1] >> 2).astype(np.uint16) << 5 | rgb[:512, :512, 2] >> 3)
+    pal = np.stack([np.arange(256, dtype=np.uint8)] * 3 + [np.full(256, 255, np.uint8)], -1)
+    dxt1, dxt3, dxt5 = bc_encode(rgb, 1), bc_encode(rgba, 2), bc_encode(rgba, 3)
+    bc5s = np.frombuffer(bc_encode(rgb, 5), np.uint8).reshape(-1, 8).copy()
+    bc5s[:, :2] ^= 0x80  # the signed endpoints of the same samples - 128
+    mips = dxt1 + b"".join(bc_encode(rgb[::k, ::k], 1) for k in (2, 4))
+    grey_jpeg = jpeg_bytes(s0[:512, :512], INPUT_JPEG_QUALITY)
+    sos = grey_jpeg.index(b"\xff\xda")
+    bgra = pal[:, [2, 1, 0, 3]].tobytes()
+    files = {
+        "dds_l8": ("slice.dds", dds_bytes(side, side, s0.tobytes(), flags=0x20000, fourcc=None,
+                                          bitcount=8)),
+        "dds_la": ("la.dds", dds_bytes(side, side, np.stack([s0, vol8[1]], -1).tobytes(),
+                                       flags=0x20001, fourcc=None, bitcount=16)),
+        "dds_rgb565": ("rgb565.dds", dds_bytes(512, 512, w16.astype("<u2").tobytes(), flags=0x40,
+                                               fourcc=None, bitcount=16,
+                                               masks=(0xF800, 0x7E0, 0x1F, 0))),
+        "dds_argb32": ("argb32.dds", dds_bytes(512, 512, corner[..., [2, 1, 0, 3]].tobytes(),
+                                               flags=0x41, fourcc=None, bitcount=32,
+                                               masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))),
+        "dds_p8": ("p8.dds", dds_bytes(side, side, pal.tobytes() + s0.tobytes(), flags=0x20,
+                                       fourcc=None, bitcount=8)),
+        "dds_dxt1": ("dxt1.dds", dds_bytes(side, side, dxt1, fourcc=b"DXT1")),
+        "dds_dxt3": ("dxt3.dds", dds_bytes(side, side, dxt3, fourcc=b"DXT3")),
+        "dds_dxt5": ("dxt5.dds", dds_bytes(side, side, dxt5, fourcc=b"DXT5")),
+        "dds_bc4": ("bc4.dds", dds_bytes(side, side, bc_encode(s0, 4), dxgi=80)),
+        "dds_bc5": ("bc5.dds", dds_bytes(side, side, bc_encode(rgb, 5), dxgi=83)),
+        "dds_bc5s": ("bc5s.dds", dds_bytes(side, side, bc5s.tobytes(), fourcc=b"BC5S")),
+        "dds_bc6h": ("bc6h.dds", dds_bytes(512, 512, random_blocks(6, 128 * 128, 6).tobytes(),
+                                           dxgi=95)),
+        "dds_bc6hs": ("bc6hs.dds", dds_bytes(512, 512, random_blocks(6, 128 * 128, 7).tobytes(),
+                                             dxgi=96)),
+        "dds_bc7": ("bc7.dds", dds_bytes(512, 512, random_blocks(7, 128 * 128, 8).tobytes(),
+                                         dxgi=98)),
+        "dds_rgba8": ("rgba8.dds", dds_bytes(512, 512, corner.tobytes(), dxgi=28)),
+        "dds_mips": ("mips.dds", dds_bytes(side, side, mips, fourcc=b"DXT1", mipmaps=3)),
+        "blp1_jpeg": ("jpeg.blp", blp1_bytes(512, 512, [grey_jpeg[sos:]], compression=0,
+                                             jpeg_header=grey_jpeg[:sos])),
+        "blp1_palette": ("p1.blp", blp1_bytes(side, side, [s0.tobytes()], palette=bgra)),
+        "blp2_palette": ("p2.blp", blp2_bytes(side, side, [s0.tobytes()], encoding=1,
+                                              palette=bgra)),
+        "blp2_dxt1": ("dxt1.blp", blp2_bytes(side, side, [dxt1])),
+        "blp2_dxt3": ("dxt3.blp", blp2_bytes(side, side, [dxt3], alpha=8,
+                                             alpha_encoding=1)),
+        "blp2_dxt5": ("dxt5.blp", blp2_bytes(side, side, [dxt5], alpha=8,
+                                             alpha_encoding=7)),
+        "ftex_dxt1": ("dxt1.ftc", ftex_bytes(side, side, 0, dxt1)),
+        "ftex_rgb": ("rgb.ftu", ftex_bytes(512, 512, 1, rgb[:512, :512].tobytes())),
+        "gbr_l": ("brush.gbr", gbr_bytes(s0, version=1)),
+        "gbr_rgba": ("rgba.gbr", gbr_bytes(corner, version=2)),
+    }
+    files.update({form: (f"{form}.png", data)
+                  for form, data in png_mutations(png_bytes(s0)).items()})
+    return files
+
+
+def textures_bc_rates(files) -> dict:
+    """Per BC format, ``native.bcn_decode`` of its DDS form's blocks: MB/s
+    of the pixels it writes and ms, the faster of three calls."""
+    import struct
+
+    from empanada_tpu_torch.core import native
+
+    rec = {}
+    for key, (form, at, signed) in TEXTURES_BC.items():
+        data = files[form][1]
+        h, w = struct.unpack_from("<II", data, 12)
+        fmt = int(key[2])
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = native.bcn_decode(memoryview(data)[at:], fmt, w, h, signed)
+            best = min(best, time.perf_counter() - t0)
+        rec[key] = {"MB_per_s": out.nbytes / best / 1e6, "ms": best * 1e3}
+    return rec
+
+
+def textures_dataset_check(vol8, root) -> dict:
+    """The training folder of 4 DDS images as BC4 blocks (their twins the
+    decoded samples) and DDS L8 masks (``quarter_masks``) against its PNG
+    twin (``dataset_twin_check``)."""
+    from empanada_tpu_torch.core import native
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _texture_writer import bc_encode, dds_bytes
+
+    items = []
+    for img, mask in zip(*quarter_masks(vol8)):
+        blocks = bc_encode(img, 4)
+        items.append((("dds", dds_bytes(512, 512, blocks, dxgi=80),
+                       native.bcn_decode(blocks, 4, 512, 512)[..., 0]),
+                      ("dds", dds_bytes(512, 512, mask.tobytes(), flags=0x20000, fourcc=None,
+                                        bitcount=8), mask)))
+    return dataset_twin_check("dds", root, items)
+
+
+def textures_phase(prr, api, cfg, model, card):
+    """Phase 24 (module docstring).  Returns (the ``textures:`` record,
+    refine launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    wd = tempfile.mkdtemp(prefix="textures-",
+                          dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        # (a) the files, from phase 18's volume, and phase 5's model as a
+        # bundle
+        t0 = time.perf_counter()
+        vol8 = (input_volume(INPUT_SHAPE, 180)[:8] >> 8).astype(np.uint8)
+        files = textures_files(vol8)
+        for name, data in files.values():
+            with open(path(name), "wb") as f:
+                f.write(data)
+        rec["write_s"] = time.perf_counter() - t0
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+        forms = ("dds_l8", "dds_bc4")
+
+        # (b) python -m empanada_tpu_torch infer2d of the DDS L8 slice and of
+        # the BC4 slice in one batch of two subprocesses; meanwhile in this
+        # process (c) every form by both readers against the oracles'
+        # digests, each BC format's decode rate, and a DDS training folder
+        # against its PNG twin
+        def meanwhile():
+            rec.update(plugins_reads(files, path, TEXTURES_SHA256, "textures"))
+            rec["bc_decode"] = textures_bc_rates(files)
+            rec["dataset"] = textures_dataset_check(vol8, path("dataset"))
+
+        done = cli_runs({form: ["infer2d", path(files[form][0]), "-o", path(f"{form}_pan.tif"),
+                                "--model", path("MitoNet_v1.yaml")] for form in forms},
+                        wd, "textures", meanwhile)
+
+        # (d) Engine2d at full width on the arrays imread gives of the two
+        # slices, each map against its command line twin's
+        e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+        rec["infer2d"], held = infer2d_held(
+            prr, e2, done, {form: path(files[form][0]) for form in forms},
+            {form: path(f"{form}_pan.tif") for form in forms}, "textures")
+        launches.update(held)
+        del vol8, files
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("textures: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= TEXTURES_LIMIT_S,
+          f"phase 24 took {rec['phase_s']:.1f} s, over its {TEXTURES_LIMIT_S} s")
     return rec, launches
 
 
@@ -5642,6 +6008,14 @@ def main():
     _, launches_23 = icons_phase(prr, api, cfg, model, card)
     print(f"phase 23 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 24. textures: DDS, BLP, FTEX, GBR and C16's damaged PNGs read
+    # back against the oracles' digests; each BC format's decode rate;
+    # infer2d of the DDS L8 and BC4 slices in subprocesses against
+    # Engine2d; a DDS training folder against its PNG twin
+    t0 = time.perf_counter()
+    _, launches_24 = textures_phase(prr, api, cfg, model, card)
+    print(f"phase 24 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -5655,7 +6029,8 @@ def main():
                      + sum(launches_16.values()) + sum(launches_17.values())
                      + sum(launches_18.values()) + sum(launches_19.values())
                      + sum(launches_20.values()) + sum(launches_21.values())
-                     + sum(launches_22.values()) + sum(launches_23.values())),
+                     + sum(launches_22.values()) + sum(launches_23.values())
+                     + sum(launches_24.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -5664,7 +6039,8 @@ def main():
                              **launches_2d, **launches_3d_api, **launches_12,
                              **launches_13, **launches_14, **launches_15, **launches_16,
                              **launches_17, **launches_18, **launches_19, **launches_20,
-                             **launches_21, **launches_22, **launches_23},
+                             **launches_21, **launches_22, **launches_23,
+                             **launches_24},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

@@ -3,12 +3,13 @@
 
 The library is ``csrc/core_kernels.cpp`` (a copy of the JAX package's host
 kernels) and the decoders of ``data/imread.py``, ``data/raster.py``,
-``data/plugins.py`` and ``data/icons.py``: ``csrc/image_codecs.cpp`` (TIFF
-LZW and PackBits; GIF LZW, BMP RLE8 and RLE4, TGA RLE, Sun raster RLE; SGI
-RLE, PCX RLE, QOI, MSP version 2 rows, Radiance HDR scanlines, IM's
-samples of 2 to 31 bits; PSD's PackBits rows, ICNS's RGB runs),
-``csrc/zstd_decode.cpp`` (ZSTD), ``csrc/jpeg_decode.cpp`` (JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L,
-VP8 and ALPH) and ``csrc/j2k_decode.cpp`` (JPEG 2000 codestreams),
+``data/plugins.py``, ``data/icons.py`` and ``data/textures.py``:
+``csrc/image_codecs.cpp`` (TIFF LZW and PackBits; GIF LZW, BMP RLE8 and
+RLE4, TGA RLE, Sun raster RLE; SGI RLE, PCX RLE, QOI, MSP version 2 rows,
+Radiance HDR scanlines, IM's samples of 2 to 31 bits; PSD's PackBits rows,
+ICNS's RGB runs), ``csrc/zstd_decode.cpp`` (ZSTD), ``csrc/jpeg_decode.cpp``
+(JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L, VP8 and ALPH), ``csrc/j2k_decode.cpp`` (JPEG 2000 codestreams) and
+``csrc/bcn_decode.cpp`` (the texture blocks BC1-BC7 of ``data/textures.py``),
 compiled at first use with the host C++ compiler into
 ``empanada_tpu_torch/build/`` and named by a hash of the sources and
 flags.  No floating-point contraction is allowed (``-ffp-contract=off``),
@@ -78,6 +79,8 @@ __all__ = [
     "j2k_info",
     "j2k_decode",
     "j2k_tables",
+    "bcn_layout",
+    "bcn_decode",
 ]
 
 # False routes every caller to its numpy formulation
@@ -86,7 +89,7 @@ use_native = True
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [os.path.join(_PKG, "csrc", name) for name in (
     "core_kernels.cpp", "image_codecs.cpp", "jpeg_decode.cpp", "webp_decode.cpp",
-    "zstd_decode.cpp", "j2k_decode.cpp")]
+    "zstd_decode.cpp", "j2k_decode.cpp", "bcn_decode.cpp")]
 _BUILD = os.path.join(_PKG, "build")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared", "-ffp-contract=off"]
 
@@ -199,10 +202,10 @@ def load() -> ctypes.CDLL:
         lib.msp_decode.restype = i64
         lib.hdr_rle_decode.argtypes = [vp, i64, i64, i64, vp, vp]
         lib.hdr_rle_decode.restype = ci
-        lib.jpeg_info.argtypes = [vp, i64, vp, i64, ci, vp, ctypes.c_char_p, i64]
+        lib.jpeg_info.argtypes = [vp, i64, vp, i64, ci, ci, vp, ctypes.c_char_p, i64]
         lib.jpeg_info.restype = ci
-        lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, ci, vp, i64, ctypes.c_char_p,
-                                    i64]
+        lib.jpeg_decode.argtypes = [vp, i64, vp, i64, ci, ci, ci, ci, ci, vp, i64,
+                                    ctypes.c_char_p, i64]
         lib.jpeg_decode.restype = ci
         for name in ("webp_vp8l_info", "webp_vp8_info"):
             getattr(lib, name).argtypes = [vp, i64, vp, ctypes.c_char_p, i64]
@@ -218,6 +221,10 @@ def load() -> ctypes.CDLL:
         lib.j2k_decode.restype = ci
         lib.j2k_tables.argtypes = [vp, i64]
         lib.j2k_tables.restype = i64
+        lib.bcn_layout.argtypes = [ci, vp]
+        lib.bcn_layout.restype = ci
+        lib.bcn_decode.argtypes = [vp, i64, ci, ci, i64, i64, vp]
+        lib.bcn_decode.restype = i64
         _LIB = lib
         return lib
 
@@ -742,26 +749,28 @@ def _jpeg_error(code: int, err) -> ValueError:
     return (JpegRefused if code == -2 else ValueError)(err.value.decode())
 
 
-def jpeg_info(data, tables=b"", source: str = "strict") -> tuple:
+def jpeg_info(data, tables=b"", source: str = "strict", cmyk: bool = False) -> tuple:
     """(height, width, components) of the JPEG stream ``data`` from its
     headers alone (after the tables stream ``tables``), without decoding or
     allocating its samples, as the ``source`` (``JPEG_SOURCES``) reads
-    them.  A form the decoder refuses raises ValueError with the reason."""
+    them; ``cmyk`` reads 4 components.  A form the decoder refuses raises
+    ValueError with the reason."""
     lib = load()
     src = np.frombuffer(data, np.uint8)
     tab = np.frombuffer(tables, np.uint8)
     info = np.zeros(3, np.int64)
     err = ctypes.create_string_buffer(256)
     code = lib.jpeg_info(_ptr(tab), len(tab), _ptr(src), len(src), JPEG_SOURCES[source],
-                         _ptr(info), err, 256)
+                         int(cmyk), _ptr(info), err, 256)
     if code:
         raise _jpeg_error(code, err)
     return tuple(int(v) for v in info)
 
 
 def jpeg_decode(data, tables=b"", color: int = 0, sampling=(0, 0),
-                source: str = "strict") -> np.ndarray:
-    """The (H, W, C) uint8 samples of the JPEG stream ``data`` (C 1 or 3),
+                source: str = "strict", cmyk: bool = False) -> np.ndarray:
+    """The (H, W, C) uint8 samples of the JPEG stream ``data`` (C 1 or 3;
+    4 where ``cmyk``: each plane as it is stored),
     after the tables stream ``tables`` (a TIFF's JPEGTables); ``color`` 0
     converts YCbCr to RGB by libjpeg's colour-space rule, 1 never (a TIFF
     of photometric min-is-black or RGB), 2 always (photometric YCbCr);
@@ -775,11 +784,11 @@ def jpeg_decode(data, tables=b"", color: int = 0, sampling=(0, 0),
     lib = load()
     src = np.frombuffer(data, np.uint8)
     tab = np.frombuffer(tables, np.uint8)
-    out = np.empty(jpeg_info(data, tables, source), np.uint8)
+    out = np.empty(jpeg_info(data, tables, source, cmyk), np.uint8)
     err = ctypes.create_string_buffer(256)
     code = lib.jpeg_decode(_ptr(tab), len(tab), _ptr(src), len(src), JPEG_SOURCES[source],
-                           int(color), int(sampling[0]), int(sampling[1]), _ptr(out), out.size,
-                           err, 256)
+                           int(cmyk), int(color), int(sampling[0]), int(sampling[1]), _ptr(out),
+                           out.size, err, 256)
     if code:
         raise _jpeg_error(code, err)
     return out
@@ -892,3 +901,33 @@ def j2k_tables() -> bytes:
     out = np.zeros(8192, np.uint8)
     n = int(lib.j2k_tables(_ptr(out), out.size))
     return out[:n].tobytes()
+
+
+def bcn_layout(fmt: int) -> tuple:
+    """(bytes a block, channels a pixel) of BC``fmt`` (1-7), from
+    ``csrc/bcn_decode.cpp``'s own table."""
+    out = np.zeros(2, np.int64)
+    if load().bcn_layout(int(fmt), _ptr(out)) < 0:
+        raise ValueError(f"BC{fmt} is not a BCn format")
+    return int(out[0]), int(out[1])
+
+
+def bcn_decode(data, fmt: int, width: int, height: int, signed: bool = False,
+               rule: str = "pil") -> np.ndarray:
+    """The (height, width, channels) surface of BC``fmt`` blocks (1-7) in
+    ``data``, decoded as PIL's C decoder does (``rule="pil"``), or BC1-BC3
+    as ``BlpImagePlugin``'s Python does (``rule="blp"``: every block whole,
+    (4 * block rows, 4 * blocks a row, 4)).  ``signed``: BC4, BC5 or BC6H
+    of signed samples.  The data must hold every block."""
+    lib = load()
+    size, channels = bcn_layout(fmt)
+    bw, bh = -(-width // 4), -(-height // 4)
+    src = np.frombuffer(data, np.uint8)
+    if len(src) < bw * bh * size:
+        raise ValueError(f"BC{fmt} data of {len(src)} bytes, not {bw * bh * size}")
+    shape = (4 * bh, 4 * bw, 4) if rule == "blp" else (height, width, channels)
+    out = np.empty(shape, np.uint8)
+    flags = int(signed) | (2 if rule == "blp" else 0)
+    if lib.bcn_decode(_ptr(src), len(src), fmt, flags, width, height, _ptr(out)) < 0:
+        raise ValueError(f"BC{fmt} under the {rule} rule is not a BCn form")
+    return out

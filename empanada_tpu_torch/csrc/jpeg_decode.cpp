@@ -14,7 +14,10 @@
 // Arithmetic coding, lossless and hierarchical processes, 12-bit samples,
 // 2 or 4 components, a height that a DNL marker gives and a progressive
 // image that libjpeg smooths (its scans leave low AC coefficients
-// unfinished, jdcoefct.c's smoothing_ok) are refused by name.
+// unfinished, jdcoefct.c's smoothing_ok) are refused by name; 4 components
+// are read where the caller asks for cmyk (BLP1's JPEG, data/textures.py),
+// each plane as it is stored: the JCS_CMYK source colour space that PIL's
+// BLP plugin sets, whatever an Adobe marker says.
 //
 // Damaged streams are read as libjpeg-turbo reads them (jdmarker.c,
 // jdhuff.c, jdphuff.c): bytes before a marker are skipped, FF fill and
@@ -143,6 +146,7 @@ struct Decoder {
     const uint8_t* d = nullptr;
     int64_t n = 0, pos = 0, avail = 0;
     int source = kStrict;
+    bool cmyk = false;    // 4 components read (BLP1's JPEG), planes as stored
     bool in_mcu = false;  // a suspension restarts the MCU
     uint16_t qt[4][64];
     bool qt_defined[4] = {false, false, false, false};
@@ -403,8 +407,8 @@ struct Decoder {
         if (length != ncomp * 3) throw Error("a frame header of a bad length");
         if (p != 8)
             throw Refusal(std::to_string(p) + "-bit JPEG (12-bit and other precisions are not read)");
-        if (ncomp == 4) throw Refusal("4-component JPEG (CMYK or YCCK) is not read");
-        if (ncomp != 1 && ncomp != 3)
+        if (ncomp == 4 && !cmyk) throw Refusal("4-component JPEG (CMYK or YCCK) is not read");
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4)
             throw Refusal(std::to_string(ncomp) + "-component JPEG is not read");
         progressive = m == 0xC2;
         for (int c = 0; c < ncomp; ++c) {
@@ -1040,7 +1044,7 @@ struct Decoder {
 
     void write(uint8_t* dst, int color) const {
         check_finished();
-        std::vector<uint8_t> p[3];
+        std::vector<uint8_t> p[4];
         for (int c = 0; c < ncomp; ++c) p[c] = plane(comp[c]);
         const int64_t npx = static_cast<int64_t>(width) * height;
         if (!to_rgb(color)) {
@@ -1080,9 +1084,10 @@ void set_error(char* err, int64_t cap, const char* msg) {
 extern "C" {
 
 int jpeg_info(const uint8_t* tables, int64_t nt, const uint8_t* src, int64_t n, int source,
-              int64_t* info, char* err, int64_t errcap) {
+              int cmyk, int64_t* info, char* err, int64_t errcap) {
     try {
         Decoder dec;
+        dec.cmyk = cmyk;
         if (nt > 0) dec.run(tables, nt, source, Decoder::kTables);
         dec.run(src, n, source, Decoder::kHeader);
         info[0] = dec.height;
@@ -1099,9 +1104,11 @@ int jpeg_info(const uint8_t* tables, int64_t nt, const uint8_t* src, int64_t n, 
 }
 
 int jpeg_decode(const uint8_t* tables, int64_t nt, const uint8_t* src, int64_t n, int source,
-                int color, int sh, int sv, uint8_t* dst, int64_t cap, char* err, int64_t errcap) {
+                int cmyk, int color, int sh, int sv, uint8_t* dst, int64_t cap, char* err,
+                int64_t errcap) {
     try {
         Decoder dec;
+        dec.cmyk = cmyk;
         if (nt > 0) dec.run(tables, nt, source, Decoder::kTables);
         dec.run(src, n, source, Decoder::kImage);
         if (sh > 0) {  // libtiff's check: the first component sh x sv, the others 1 x 1

@@ -18,7 +18,9 @@ of them) and Radiance HDR (cv2's alone: ``imread`` raises, as PIL opens
 none; the RLE and op streams by ``csrc/image_codecs.cpp``), and by
 ``data/icons.py`` XPM, ICO and CUR, PSD and ICNS (PIL's arrays for both:
 cv2 reads none of them; ``imread`` of a PSD of several layers raises, as
-the JAX package's reader does).
+the JAX package's reader does), and by ``data/textures.py`` DDS, BLP,
+FTEX and GBR (PIL's arrays for both; their BC1-BC7 blocks by
+``csrc/bcn_decode.cpp``).
 
 ``imread(path)`` returns the whole file as PIL's ``Image.open`` gives it,
 pages stacked: a multipage TIFF (the IFD chain), an animated PNG or a
@@ -32,9 +34,22 @@ BGR, so its channel 0 is blue: the last colour channel of the file's RGB.
 PNG: grey at 1, 2, 4, 8 and 16 bits, grey + alpha, RGB and RGBA at 8 and
 16 bits, palette at 1, 2, 4 and 8 bits; any of the five row filters;
 Adam7-interlaced or not; animated PNG frames (offsets, dispose ops, blend
-OVER only without alpha, where it equals SOURCE), of which
-``imread_gray`` reads the default image alone, as cv2 does.  Both scale 2- and 4-bit
-grey to 8 bits; PIL gives 1-bit grey as bool, palette images as indices,
+OVER only without alpha, where it equals SOURCE; a default image that is
+not an animation frame is frame 0, as PIL gives it), of which
+``imread_gray`` reads the default image alone, as cv2 does.  A damaged
+file reads as each oracle reads it: ``imread`` as PIL (``_PngStream``:
+the CRC of every chunk before the first IDAT checked, none after; image
+data inflated in pieces of 65536 bytes only until its last row, a stream
+that ends at a row's end leaving the rows after it 0; the chunks after it
+each whole up to IEND or the file's end, which may come anywhere after
+them), ``imread_gray`` as cv2's libpng (``_png_cv2``: nothing read where
+a critical chunk fails its CRC, a chunk is cut short or IEND is missing,
+or the image data, in pieces of 8192 bytes, breaks off, fails inflate's
+checks or ends before the last row; an ancillary chunk failing its CRC
+dropped), then as PIL where cv2 reads nothing.  A size of 0, or one over
+the oracle's limit (PIL's decompression-bomb limit; libpng's 1000000 a
+side and cv2's 2^30 pixels), is refused from the header, before anything
+of its size is allocated.  Both scale 2- and 4-bit grey to 8 bits; PIL gives 1-bit grey as bool, palette images as indices,
 16-bit colour as the high byte of each sample and 16-bit grey + alpha as
 RGBA; cv2 scales 1-bit grey to 8 bits too, looks palette indices up and
 keeps 16 bits.
@@ -87,8 +102,8 @@ stacked for ``imread``, found where PIL's ``jpeg_factory`` and
 ``imread_gray``, as cv2 reads it; pictures of different shapes raise, as
 ``np.stack`` of PIL's frames does.
 
-Anything else raises and names the form: other formats (DDS, BLP, FITS
-and the other PIL plugins, named by ``data/raster.py``; the WebP forms
+Anything else raises and names the form: other formats (McIdas, PIXAR,
+FITS and the other PIL plugins, named by ``data/raster.py``; the WebP forms
 ``data/webp.py`` names and the JPEG 2000 forms ``data/jpeg2000.py``
 names: palettes, sYCC and ICC colour, code-block styles other than the
 default, RGN, POC, PPM and PPT markers, HTJ2K and Part 2, precisions other
@@ -110,8 +125,10 @@ file, the page and the strip; a damaged JPEG file names the file.
 
 from __future__ import annotations
 
+import bisect
 import lzma
 import os
+import re
 import struct
 import zlib
 
@@ -129,8 +146,9 @@ _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
 _PIL_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 _READS = ("the port reads PNG, TIFF, JPEG and MPO, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
           "raster, WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM, MSP, Radiance HDR, XPM, ICO, "
-          "CUR, PSD and ICNS (module docstrings of data/imread.py, data/raster.py, "
-          "data/webp.py, data/jpeg2000.py, data/plugins.py and data/icons.py)")
+          "CUR, PSD, ICNS, DDS, BLP, FTEX and GBR (module docstrings of data/imread.py, "
+          "data/raster.py, data/webp.py, data/jpeg2000.py, data/plugins.py, data/icons.py "
+          "and data/textures.py)")
 
 
 def _bound(name: str, what: str, size: int, avail: int) -> None:
@@ -221,7 +239,13 @@ def _read_file(path: str, first_only: bool = False):
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIGNATURE:
-        return _png_raw(data, path, first_only)
+        if not first_only:
+            return _png_raw(data, path)
+        raw = _png_cv2(data, path)
+        if raw is None:  # cv2 reads nothing: PIL's default image
+            raw = _png_raw(data, path, first_only=True)[0]
+            raw.cv2_reads = False
+        return [raw]
     if data[:4] in _TIFF_MAGIC:
         return _tiff_raw(data, path, first_only)
     if data[:2] == b"\xff\xd8":
@@ -496,28 +520,50 @@ def _unfilter_slow(kind: int, cur: bytearray, prior: bytes, bpp: int) -> None:
         cur[i] = (cur[i] + pred) & 0xFF
 
 
-def _png_chunks(data: bytes):
-    pos = 8
-    while pos < len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        yield kind, data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IEND":
-            return
+# PIL's is_cid: a chunk type is four ASCII letters, digits or underscores
+_PNG_CID = re.compile(rb"\w{4}")
+# the bytes of image data handed to inflate at a time: PIL's
+# decodermaxblock, and libpng's IDAT read size (cv2)
+_PIL_PIECE, _CV2_PIECE = 65536, 8192
+# libpng's default user limit of a width or height (PNG_USER_WIDTH_MAX),
+# and cv2's of the pixels (CV_IO_MAX_IMAGE_PIXELS)
+_LIBPNG_SIDE, _CV2_PIXELS = 1000000, 1 << 30
 
 
-def _png_rows(raw: bytes, pos: int, w: int, h: int, depth: int, channels: int, name: str):
+def _png_chunk_at(data: bytes, at: int):
+    """(length, type, offset of the data) of the chunk at ``at``; None
+    where fewer than 8 bytes remain or the type is not a chunk type."""
+    if at + 8 > len(data):
+        return None
+    length, cid = struct.unpack_from(">I4s", data, at)
+    return (length, cid, at + 8) if _PNG_CID.fullmatch(cid) else None
+
+
+def _png_crc_ok(data: bytes, cid: bytes, pos: int, length: int) -> bool:
+    """Whether the chunk's CRC is in the file and matches its type and data."""
+    end = pos + length
+    return end + 4 <= len(data) and struct.unpack_from(">I", data, end)[0] == zlib.crc32(
+        memoryview(data)[pos:end], zlib.crc32(cid))
+
+
+def _png_rows(raw: bytes, pos: int, w: int, h: int, depth: int, channels: int, name: str,
+              avail: int):
     """The (h, w, channels) samples of one filtered image (or Adam7 pass)
-    starting at ``raw[pos]``, and the position after it."""
+    starting at ``raw[pos]``, of which the first ``avail`` rows were
+    inflated (the others 0, as PIL leaves them), and the position after
+    them."""
     bpp = max(1, channels * depth // 8)
     stride = (w * channels * depth + 7) // 8
-    end = pos + h * (stride + 1)
-    if len(raw) < end:
-        raise ValueError(f"{name}: PNG data holds {len(raw)} bytes, not {end}")
-    rows = np.frombuffer(raw, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
-    filters, out = rows[:, 0], rows[:, 1:].copy()
+    end = pos + avail * (stride + 1)
+    rows = np.frombuffer(raw, np.uint8, avail * (stride + 1), pos).reshape(avail, stride + 1)
+    filters = rows[:, 0]
+    if avail == h:
+        out = rows[:, 1:].copy()
+    else:
+        out = np.zeros((h, stride), np.uint8)
+        out[:avail] = rows[:, 1:]
     prior = np.zeros(stride, np.uint8)
-    for r in range(h):
+    for r in range(avail):
         kind = int(filters[r])
         cur = out[r]
         if kind == 1:
@@ -542,69 +588,351 @@ def _png_rows(raw: bytes, pos: int, w: int, h: int, depth: int, channels: int, n
     return samples.reshape(h, w, channels), end
 
 
-def _png_image(raw: bytes, w: int, h: int, depth: int, channels: int, interlace: int,
-               name: str) -> np.ndarray:
+class _RowSizes:
+    """The bytes of each filtered row of a PNG, every pass in turn, kept as
+    runs of (rows, bytes a row), so that a tall header costs nothing before
+    its data is read."""
+
+    def __init__(self, runs):
+        self.runs = [(n, size) for n, size in runs if n]
+        self.rows = sum(n for n, _ in self.runs)
+
+    def __len__(self) -> int:
+        return self.rows
+
+    def __getitem__(self, r: int) -> int:
+        for n, size in self.runs:
+            if r < n:
+                return size
+            r -= n
+        raise IndexError(r)
+
+    def end(self, r: int) -> int:
+        """The bytes of rows 0 to ``r``."""
+        total = 0
+        for n, size in self.runs:
+            if r < n:
+                return total + (r + 1) * size
+            total, r = total + n * size, r - n
+        return total
+
+
+def _png_inflate(chunks: list, piece: int, runs: list, name: str) -> tuple:
+    """The filtered rows (``runs`` of (rows, bytes a row), every pass in
+    turn) of the zlib stream in ``chunks`` (each IDAT's data), as PIL's ZipDecode and
+    libpng inflate it: each chunk handed over in pieces of ``piece``
+    bytes, never an empty one, a row at a time; inflate stops at the last
+    row (what the same piece holds after it is still read, so a bad
+    Adler-32 there raises), and a stream that ends at a row's end, in the
+    call that gave that row, ends the image.  Returns (the rows' bytes, how
+    many rows, the index of the chunk that held the last)."""
+    sizes = _RowSizes(runs)
+    bounds, owner, at = [], [], 0  # each piece's end in the joined stream, and its chunk
+    for k, chunk in enumerate(chunks):
+        for e in [*range(piece, len(chunk), piece), len(chunk)] if len(chunk) else []:
+            bounds.append(at + e)
+            owner.append(k)
+        at += len(chunk)
+    stream = chunks[0] if len(chunks) == 1 else b"".join(chunks)
+    # the rows before the last few in one call, where the input read for
+    # them ends inside a piece (so that the piece the oracle was reading
+    # is known); the rest row by row, piece by piece, as the oracle
+    d, head, r, p, i = zlib.decompressobj(), b"", 0, 0, 0
+    try:
+        for k in range(len(sizes) - 1, max(0, len(sizes) - 5), -1):
+            fast = zlib.decompressobj()
+            want = sizes.end(k - 1)
+            got = fast.decompress(stream, want)
+            if len(got) < want or fast.eof:
+                break
+            q = len(stream) - len(fast.unconsumed_tail)
+            j = bisect.bisect_right(bounds, q)
+            if j < len(bounds) and (j == 0 or bounds[j - 1] < q):
+                d, head, r, p, i = fast, got, k, q, j
+                break
+        parts, row = [head], bytearray()
+        for j in range(i, len(bounds)):
+            data = stream[p if j == i else bounds[j - 1]:bounds[j]]
+            while data:
+                row += d.decompress(data, sizes[r] - len(row))
+                data = d.unconsumed_tail
+                if len(row) < sizes[r]:
+                    break  # the piece is used up, or the stream ended within the row
+                parts.append(bytes(row))
+                row, r = bytearray(), r + 1
+                if r == len(sizes) or d.eof:
+                    return b"".join(parts), r, owner[j]
+    except zlib.error as exc:
+        raise ValueError(f"{name}: damaged PNG image data ({exc})") from None
+    raise ValueError(f"{name}: PNG image data that ends before its last row "
+                     f"({r} of {len(sizes)} rows)")
+
+
+def _png_image(chunks: list, piece: int, w: int, h: int, depth: int, channels: int,
+               interlace: int, name: str, whole: bool = False) -> tuple:
+    """The (h, w, channels) samples of the zlib stream in ``chunks``
+    (``_png_inflate``), the rows after an early end of the stream 0 (PIL)
+    or refused if ``whole`` (libpng); and the index of the chunk that held
+    the last row."""
+    passes = [(x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy))
+              for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),))]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+    runs = [(ph, (pw * channels * depth + 7) // 8 + 1) for *_, pw, ph in passes]
+    raw, left, last = _png_inflate(chunks, piece, runs, name)
+    rows = sum(ph for *_, ph in passes)
+    if whole and left < rows:
+        raise ValueError(f"{name}: PNG image data that ends after {left} of {rows} rows")
     if not interlace:
-        return _png_rows(raw, 0, w, h, depth, channels, name)[0]
+        return _png_rows(raw, 0, w, h, depth, channels, name, left)[0], last
     out = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
     pos = 0
-    for x0, y0, dx, dy in _ADAM7:
-        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-        if pw > 0 and ph > 0:
-            out[y0::dy, x0::dx], pos = _png_rows(raw, pos, pw, ph, depth, channels, name)
-    return out
+    for x0, y0, dx, dy, pw, ph in passes:
+        out[y0::dy, x0::dx], pos = _png_rows(raw, pos, pw, ph, depth, channels, name,
+                                             min(ph, left))
+        left -= min(ph, left)
+    return out, last
 
 
-def _png_raw(data: bytes, name: str, first_only: bool = False) -> list:
-    """The images of a PNG (its one image, or each composed APNG frame; the
-    default image alone if ``first_only``) as ``_Raw``."""
-    header, palette, idat, frames, alpha = None, None, [], [], False
-    for kind, body in _png_chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
-            alpha = True
-        elif kind == b"fcTL":
-            frames.append([struct.unpack(">IIIIIHHBB", body)[1:], []])
-        elif kind == b"IDAT":
-            idat.append(body)
-            if frames:  # the default image is the first frame
-                frames[-1][1].append(body)
-        elif kind == b"fdAT":
-            frames[-1][1].append(body[4:])
+def _png_header(header, palette, name: str):
+    """(w, h, depth, colour kind, channels, interlace) of an IHDR; a size
+    of 0 refused, as PIL and libpng refuse it."""
     if header is None:
-        raise ValueError(f"{name}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR before its image data")
     w, h, depth, color, _, _, interlace = header
+    if not w or not h:
+        raise ValueError(f"{name}: a PNG of {w} x {h} pixels, which PIL does not open")
     if color not in _PNG_KINDS or depth not in _PNG_DEPTHS[color] or interlace > 1 \
             or (color == 3 and palette is None):
         raise ValueError(f"{name}: PNG colour type {color}, bit depth {depth}, interlace "
                          f"{interlace} is not a PNG form; {_READS}")
-    kind, channels = _PNG_KINDS[color]
+    return (w, h, depth, *_PNG_KINDS[color], interlace)
+
+
+def _png_cv2(data: bytes, name: str):
+    """The default image as cv2 (libpng) reads it, as ``_Raw``; None where
+    cv2 reads nothing: a chunk cut short or IEND missing, a critical chunk
+    (IHDR, PLTE, IDAT; not IEND) failing its CRC, IHDR not first, a
+    side over libpng's limit of 1000000 or pixels over cv2's 2^30, an
+    unknown critical chunk, IDAT chunks apart, image data that breaks off,
+    fails inflate's checks before the last row or ends early.  An
+    ancillary chunk failing its CRC is dropped."""
+    at, header, palette, idat, ended = 8, None, None, [], False
+    while True:
+        c = _png_chunk_at(data, at)
+        if c is None or c[2] + c[0] + 4 > len(data):
+            return None
+        length, cid, pos = c
+        at = pos + length + 4
+        if cid == b"IEND":
+            break
+        if (cid == b"IHDR") != (header is None):
+            return None
+        critical = not cid[0] & 0x20
+        if not _png_crc_ok(data, cid, pos, length):
+            if critical:
+                return None
+            continue
+        ended = ended or (bool(idat) and cid != b"IDAT")
+        if cid == b"IHDR":
+            header = struct.unpack_from(">IIBBBBB", data, pos)
+            if length != 13 or header[4] or header[5]:  # compression, filter method
+                return None
+        elif cid == b"PLTE":
+            palette = np.frombuffer(data, np.uint8, length - length % 3, pos).reshape(-1, 3)
+        elif cid == b"IDAT":
+            if ended:
+                return None
+            idat.append((pos, length))
+        elif critical:
+            return None
+    if header is None or not idat or max(header[:2]) > _LIBPNG_SIDE \
+            or header[0] * header[1] > _CV2_PIXELS:
+        return None
+    w, h, depth, kind, channels, interlace = _png_header(header, palette, name)
+    view = memoryview(data)
+    try:
+        px, _ = _png_image([view[p:p + n] for p, n in idat], _CV2_PIECE, w, h, depth, channels,
+                           interlace, name, whole=True)
+    except ValueError:
+        return None
+    return _Raw(px if channels > 1 else px[..., 0], kind, depth, name, palette)
+
+
+class _PngStream:
+    """A PNG's chunks walked as PIL's ``PngImagePlugin`` walks them: the
+    CRC of every chunk before the first IDAT checked, none after; a frame's
+    image data the run of IDAT (or fdAT) chunks from its first, read only
+    until its last row; the chunks after it read up to IEND, the file's end
+    or (animated) the next frame's fcTL, each one's data in the file."""
+
+    def __init__(self, data: bytes, name: str):
+        self.data, self.name = data, name
+        self.header = self.palette = self.frames = self.seq = self.fctl = self.kind = None
+        self.alpha = False
+
+    def refuse(self, why: str):
+        raise ValueError(f"{self.name}: a PNG {why}, which PIL does not read")
+
+    def body(self, cid: bytes, pos: int, length: int) -> bytes:
+        if pos + length > len(self.data):
+            self.refuse(f"whose {cid.decode()} chunk is cut short")
+        return self.data[pos:pos + length]
+
+    def handle(self, cid: bytes, pos: int, length: int) -> None:
+        """PIL's chunk handlers: what they keep, and their refusals."""
+        if cid == b"fdAT":  # the sequence number: the rest is image data
+            if length < 4:
+                self.refuse("with an fdAT chunk of fewer than 4 bytes")
+            self.sequence(struct.unpack(">I", self.body(cid, pos, 4))[0])
+            self.body(cid, pos, length)
+            return
+        body = self.body(cid, pos, length)
+        if cid == b"IHDR":
+            if length < 13 or body[11]:
+                self.refuse("with a short IHDR or an unknown filter method")
+            self.header = struct.unpack_from(">IIBBBBB", body)
+        elif cid == b"PLTE":
+            self.palette = np.frombuffer(body, np.uint8, length - length % 3).reshape(-1, 3)
+        elif cid == b"tRNS":
+            self.alpha = True
+        elif cid == b"acTL":
+            if length < 8:
+                self.refuse("with an acTL chunk of fewer than 8 bytes")
+            n = struct.unpack_from(">I", body)[0]
+            # a second acTL, or a count of 0 or over 2^31: the default image alone
+            self.frames = None if self.frames is not None or not 0 < n <= 1 << 31 else n
+        elif cid == b"fcTL":
+            if length < 26:
+                self.refuse("with an fcTL chunk of fewer than 26 bytes")
+            seq, fw, fh, x0, y0, _, _, dispose, blend = struct.unpack_from(">IIIIIHHBB", body)
+            self.sequence(seq, first=True)
+            w, h = (self.header or (0, 0))[:2]
+            if x0 + fw > w or y0 + fh > h:
+                self.refuse("whose APNG frame lies outside the image")
+            self.fctl = (fw, fh, x0, y0, dispose, blend)
+
+    def sequence(self, seq: int, first: bool = False) -> None:
+        if (self.seq is None and not (first and seq == 0)) or \
+                (self.seq is not None and self.seq != seq - 1):
+            self.refuse("with APNG frame sequence errors")
+        self.seq = seq
+
+    def open(self) -> int:
+        """PIL's ``_open``: the chunks before the first IDAT, each CRC
+        checked; the offset of that IDAT.  Sets ``kind``, the IHDR's
+        (w, h, depth, colour kind, channels, interlace)."""
+        at = 8
+        while True:
+            c = _png_chunk_at(self.data, at)
+            if c is None:
+                self.refuse("whose chunks break off before its image data")
+            length, cid, pos = c
+            if cid == b"IDAT":
+                self.kind = _png_header(self.header, self.palette, self.name)
+                w, h = self.kind[:2]
+                if w * h > _PIL_PIXELS:
+                    self.refuse(f"of {w} x {h} pixels, over its decompression-bomb limit")
+                return at
+            if cid in (b"IEND", b"fdAT"):
+                self.refuse(f"with {cid.decode()} before IDAT")
+            self.handle(cid, pos, length)
+            if not _png_crc_ok(self.data, cid, pos, length):
+                self.refuse(f"whose {cid.decode()} chunk fails its CRC")
+            at = pos + length + 4
+
+    def image(self, at: int, w: int, h: int):
+        """The (h, w, channels) samples whose data starts with the chunk
+        at ``at``, and the offset of the chunk after the one that held
+        their last row."""
+        chunks, after, view = [], [], memoryview(self.data)
+        while (c := _png_chunk_at(self.data, at)) is not None and c[1] in (b"IDAT", b"fdAT"):
+            length, cid, pos = c
+            if cid == b"fdAT":
+                if chunks:  # the first one's sequence number is checked already
+                    self.handle(cid, pos, min(length, 4))
+                pos, length = pos + 4, length - 4
+            chunks.append(view[pos:pos + length])
+            at = pos + length + 4
+            after.append(at)
+        if not w or not h:  # PIL: the tile cannot extend outside the image, or truncated
+            self.refuse(f"whose APNG frame is {w} x {h} pixels")
+        _, _, depth, _, channels, interlace = self.kind
+        px, last = _png_image(chunks, _PIL_PIECE, w, h, depth, channels, interlace, self.name)
+        return px, after[last]
+
+    def after(self, at: int, animated: bool):
+        """PIL's ``load_end``: the chunks from ``at`` on; the offset of the
+        next frame's fcTL, or None."""
+        while True:
+            c = _png_chunk_at(self.data, at)
+            if c is None or c[1] == b"IEND":
+                return None
+            length, cid, pos = c
+            if cid == b"fcTL" and animated:
+                return at
+            self.handle(cid, pos, length)
+            at = pos + length + 4
+
+    def next_frame(self, at) -> int:
+        """PIL's ``_seek`` to the frame whose fcTL is at ``at`` (None: the
+        file ended): the offset of its first fdAT."""
+        started = False
+        while at is not None:
+            c = _png_chunk_at(self.data, at)
+            if c is None or c[1] == b"IEND":
+                break
+            length, cid, pos = c
+            if cid == b"fcTL":
+                if started:
+                    self.refuse("with an APNG frame without data")
+                started = True
+            self.handle(cid, pos, length)
+            if cid == b"fdAT" and started:
+                return at
+            at = pos + length + 4
+        self.refuse(f"whose acTL counts {self.frames} frames, more than it holds")
+
+
+def _png_raw(data: bytes, name: str, first_only: bool = False) -> list:
+    """The images of a PNG as PIL reads them (its one image, or each
+    composed APNG frame; the default image alone if ``first_only``) as
+    ``_Raw``."""
+    png = _PngStream(data, name)
+    at = png.open()
+    w, h, depth, kind, channels, _ = png.kind
+    default = png.fctl is None  # the default image is not a frame of the animation
+    frames = (png.frames or 1) + (default and png.frames is not None)
 
     def raw(pixels):
-        return _Raw(pixels if channels > 1 else pixels[..., 0], kind, depth, name, palette)
-    if first_only or not frames:
-        return [raw(_png_image(zlib.decompress(b"".join(idat)), w, h, depth, channels,
-                               interlace, name))]
-    alpha = alpha or color in (4, 6)
-    canvas, out = None, []
-    for (fw, fh, x0, y0, _, _, dispose, blend), parts in frames:
-        img = _png_image(zlib.decompress(b"".join(parts)), fw, fh, depth, channels,
-                         interlace, name)
-        if canvas is None:
-            canvas = np.zeros((h, w, channels), img.dtype)
+        return _Raw(pixels if channels > 1 else pixels[..., 0], kind, depth, name, png.palette)
+    fw, fh, x0, y0, dispose, _ = png.fctl or (w, h, 0, 0, 0, 0)
+    img, at = png.image(at, fw, fh)
+    canvas = img
+    if img.shape[:2] != (h, w):  # a first frame smaller than the image
+        canvas = np.zeros((h, w, channels), img.dtype)
+        canvas[y0:y0 + fh, x0:x0 + fw] = img
+    at = png.after(at, frames > 1)
+    if first_only or frames == 1:
+        return [raw(canvas)]
+    out = [raw(canvas.copy())]
+    alpha = png.alpha or kind in ("grey_alpha", "rgba")
+    # the default image disposes of nothing; a first frame's OP_PREVIOUS is
+    # OP_BACKGROUND
+    dispose, before = (0 if default else dispose), None
+    dispose = 1 if dispose == 2 else dispose
+    for _ in range(frames - 1):
+        if dispose == 1:
+            canvas[y0:y0 + fh, x0:x0 + fw] = 0
+        elif dispose == 2:
+            canvas[y0:y0 + fh, x0:x0 + fw] = before
+        at = png.next_frame(at)
+        fw, fh, x0, y0, dispose, blend = png.fctl
         if blend == 1 and alpha:
             raise ValueError(f"{name}: APNG frame blended OVER with alpha is not read")
-        region = (slice(y0, y0 + fh), slice(x0, x0 + fw))
-        before = canvas.copy() if dispose == 2 else None
-        canvas[region] = img
+        before = canvas[y0:y0 + fh, x0:x0 + fw].copy()
+        canvas[y0:y0 + fh, x0:x0 + fw], at = png.image(at, fw, fh)
         out.append(raw(canvas.copy()))
-        if dispose == 1:
-            canvas[region] = 0
-        elif dispose == 2:
-            canvas = before
+        at = png.after(at, True)
     return out
 
 

@@ -3,8 +3,8 @@ through PIL and cv2: BMP and DIB, PBM/PGM/PPM, PFM and PAM, GIF, SPIDER,
 TGA and Sun raster, parsed with numpy; their RLE and LZW streams are
 decoded by the port's host library (``csrc/image_codecs.cpp``).  Of PIL's
 other plugins the port reads WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM,
-MSP, XPM, ICO, CUR, PSD and ICNS (below) and refuses the rest by name
-(DDS, BLP, FTEX, GBR, FITS, McIdas, PIXAR, XVThumb, ...).
+MSP, XPM, ICO, CUR, PSD, ICNS, DDS, BLP, FTEX and GBR (below) and refuses
+the rest by name (FITS, McIdas, PIXAR, XVThumb, ...).
 
 WebP, which PIL takes for one after TGA (RIFF, WEBP and a first chunk of
 VP8, VP8L or VP8X, as its ``_accept``), is read by ``data/webp.py``,
@@ -12,8 +12,8 @@ JPEG 2000 (a JP2 file's signature box, or a codestream's SOC and SIZ
 markers) by ``data/jpeg2000.py``, and SGI, PCX, DCX, QOI, IM (which has
 no check of its own: PIL tries its text header after ICO), XBM and MSP,
 and cv2's Radiance HDR (``#?RGBE`` or ``#?RADIANCE``), by
-``data/plugins.py``, and XPM, ICO and CUR, PSD and ICNS by
-``data/icons.py``.
+``data/plugins.py``, XPM, ICO and CUR, PSD and ICNS by ``data/icons.py``,
+and DDS, BLP, FTEX and GBR by ``data/textures.py``.
 
 ``read(data, name, first_only)`` gives ``data/imread.py``'s ``_Raw`` of
 each image, so that ``imread`` returns PIL's array (``Image.open``,
@@ -93,7 +93,7 @@ import struct
 import numpy as np
 
 from empanada_tpu_torch.core import native
-from empanada_tpu_torch.data import icons, jpeg2000, plugins, webp
+from empanada_tpu_torch.data import icons, jpeg2000, plugins, textures, webp
 from empanada_tpu_torch.data.imread import _READS, _Raw, _bound
 
 __all__ = ["identify", "read"]
@@ -124,9 +124,9 @@ def _im_accept(data: bytes) -> bool:
 
 
 # PIL's plugins in the order of PIL.Image.ID (Image.init()) up to SPIDER,
-# each with its check of the file's first bytes; the port reads BMP, DIB,
-# CUR, PCX, DCX, GIF, JPEG2000, ICNS, ICO, IM, MSP, PPM, PSD, QOI and SGI of
-# them (PNG, JPEG and TIFF never reach here)
+# each with its check of the file's first bytes; the port reads BLP, BMP,
+# DIB, CUR, PCX, DCX, DDS, FTEX, GBR, GIF, JPEG2000, ICNS, ICO, IM, MSP, PPM,
+# PSD, QOI and SGI of them (PNG, JPEG and TIFF never reach here)
 _BEFORE_SPIDER = (
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
@@ -201,7 +201,7 @@ def read(data: bytes, name: str, first_only: bool = False) -> list:
                          f"{data[:8]!r}); {_READS}")
     reader = {"BMP": _bmp, "DIB": _bmp, "PNM": _pnm, "GIF": _gif, "SPIDER": _spider,
               "TGA": _tga, "SUN": _sun, "WEBP": webp.read, "JPEG2000": jpeg2000.read,
-              **plugins.READERS, **icons.READERS}.get(fmt)
+              **plugins.READERS, **icons.READERS, **textures.READERS}.get(fmt)
     if reader is None:
         raise ValueError(f"{name}: a {fmt} file, which the port does not read; {_READS}")
     if reader in (_bmp, _pnm, _tga, _sun):  # readers of one image take no first_only

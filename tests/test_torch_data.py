@@ -338,7 +338,8 @@ def test_reader_takes_every_row_filter(tmp_path):
 
 def test_reader_refuses_other_formats(tmp_path):
     """A palette PNG, an RGBA TIFF (premultiplied by cv2), a JPEG and a BMP
-    read as the JAX package reads them; DDS is refused, naming itself; of an APNG
+    and a DDS read as the JAX package reads them; McIdas is refused, naming
+    itself; of an APNG
     whose second frame is blended OVER with alpha, ``imread_gray`` reads
     the default image as cv2 does and ``imread`` refuses the frame."""
     rng = np.random.default_rng(6)
@@ -347,14 +348,15 @@ def test_reader_refuses_other_formats(tmp_path):
     Image.fromarray(arr).save(tmp_path / "j.jpg")
     Image.fromarray(arr).save(tmp_path / "b.bmp")
     Image.fromarray(arr).save(tmp_path / "s.dds")
+    (tmp_path / "s.mcidas").write_bytes(b"\0\0\0\0\0\0\0\4" + bytes(1024))
     Image.fromarray(rng.integers(0, 256, (8, 8, 4)).astype(np.uint8)).save(tmp_path / "rgba.tif")
-    for name in ("p.png", "rgba.tif", "j.jpg", "b.bmp"):
+    for name in ("p.png", "rgba.tif", "j.jpg", "b.bmp", "s.dds"):
         path = str(tmp_path / name)
         got, want = imread_gray(path), _jax_read(path)
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError, match="a DDS file, which the port does not read"):
-        imread_gray(str(tmp_path / "s.dds"))
+    with pytest.raises(ValueError, match="a MCIDAS file, which the port does not read"):
+        imread_gray(str(tmp_path / "s.mcidas"))
     frames = [Image.fromarray(rng.integers(0, 256, (8, 8, 4)).astype(np.uint8)) for _ in range(2)]
     frames[0].save(tmp_path / "over.png", save_all=True, append_images=frames[1:],
                    blend=PngImagePlugin.Blend.OP_OVER)

@@ -123,9 +123,9 @@ def test_refusals_name_the_format(tmp_path):
     with pytest.raises(ValueError, match="pages of one shape"):
         imwrite(str(tmp_path / "x.tif"), [np.zeros((4, 4), np.uint8), np.zeros((4, 5),
                                                                                 np.uint8)])
-    Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "s.dds")
-    with pytest.raises(ValueError, match="a DDS file, which the port does not read"):
-        imread(str(tmp_path / "s.dds"))
+    (tmp_path / "s.pxr").write_bytes(b"\x80\xe8\0\0" + bytes(508))
+    with pytest.raises(ValueError, match="a PIXAR file, which the port does not read"):
+        imread(str(tmp_path / "s.pxr"))
     # a compressed TIFF (which the port does not write) reads as PIL reads it
     arr = np.random.default_rng(4).integers(0, 256, (9, 13)).astype(np.uint8)
     Image.fromarray(arr).save(tmp_path / "lzw.tif", compression="tiff_lzw")

@@ -28,7 +28,7 @@ the CPU at small sizes; every comparison is exact (tolerance 0):
   uncompressed one, raises naming the file, the page and the strip; the
   forms the port does not read (arithmetic, lossless, hierarchical,
   12-bit, CMYK and DNL JPEG; old-style JPEG TIFF, predictor 3 of integer
-  samples; DDS, JPEG 2000 and WebP; the photometric forms and sample counts neither
+  samples; XVThumb, JPEG 2000 and WebP; the photometric forms and sample counts neither
   reader takes) are refused, naming themselves; ``imread_gray`` reads a
   TIFF's first page alone, as cv2 does; the ZSTD decoder equals
   zstandard's frames at levels 1 to 19, with and without checksums, and
@@ -305,6 +305,8 @@ def _refused(kind, tmp_path):
         data = bytearray((tmp_path / "v.webp").read_bytes())
         data[20] |= 1 if kind == "webp-inter" else 4 << 1
         return "x.webp", data
+    if kind == "xvthumb":  # XV's thumbnails: PIL reads them, the port does not
+        return "x.xv", b"P7 332\n#END_OF_COMMENTS\n8 8 255\n" + bytes(64)
     Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / f"x.{kind}")
     return f"x.{kind}", (tmp_path / f"x.{kind}").read_bytes()
 
@@ -331,9 +333,9 @@ def _assert_refused(kind, match, tmp_path):
 
 
 def test_refusals_name_the_format(tmp_path):
-    """A format the port does not read (DDS), and predictor 3 of integer
+    """A format the port does not read (XVThumb), and predictor 3 of integer
     samples (libtiff's floating-point differencing takes floats only)."""
-    _assert_refused("dds", "a DDS file, which the port does not read", tmp_path)
+    _assert_refused("xvthumb", "a XVTHUMB file, which the port does not read", tmp_path)
     _assert_refused("tiff-predictor3-uint16", "predictor 3, bits", tmp_path)
 
 

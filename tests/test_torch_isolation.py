@@ -187,17 +187,19 @@ WRITER_IMPORTS = {"zstandard"}
 def test_port_imports_only_torch_numpy_scipy_yaml():
     """Static check of every import statement in the port (data/raster.py
     among them) and in chip_smoke.py and the writers it imports
-    (tests/_tiff_writer.py, tests/_jpeg_writer.py, tests/_raster_writer.py):
+    (tests/_tiff_writer.py, tests/_jpeg_writer.py, tests/_raster_writer.py,
+    tests/_texture_writer.py):
     the standard library, torch, numpy, scipy, yaml and the port itself;
     napari and magicgui inside the napari adapters' functions alone,
     zstandard inside the TIFF writer's functions alone."""
     files = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(REPO, "tests", f"_{w}_writer.py") for w in ("tiff", "jpeg", "raster")]
+        os.path.join(REPO, "tests", f"_{w}_writer.py")
+        for w in ("tiff", "jpeg", "raster", "texture")]
     for root, _, names in os.walk(os.path.join(REPO, "empanada_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert os.path.join(REPO, "empanada_tpu_torch", "data", "raster.py") in files
-    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {"__future__", "_tiff_writer",
-                                                                "_jpeg_writer", "_raster_writer"}
+    allowed = ALLOWED_IMPORTS | set(sys.stdlib_module_names) | {
+        "__future__", "_tiff_writer", "_jpeg_writer", "_raster_writer", "_texture_writer"}
     bad = []
     for path in files:
         with open(path) as f:

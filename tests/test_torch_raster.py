@@ -37,6 +37,7 @@ import os
 import struct
 import tracemalloc
 import warnings
+import zlib
 
 import cv2
 import numpy as np
@@ -715,6 +716,11 @@ def _oversized(fmt):
     if fmt.startswith("sun"):
         return struct.pack(">8I", 0x59A66A95, big, big, 8, 0, 2 if fmt == "sun-rle" else 1, 0,
                            0) + bytes(16)
+    if fmt == "png":  # every CRC right, a few bytes of image data
+        chunks = (b"IHDR" + struct.pack(">IIBBBBB", big, big, 8, 0, 0, 0, 0),
+                  b"IDAT" + zlib.compress(bytes(16)), b"IEND")
+        return b"\x89PNG\r\n\x1a\n" + b"".join(
+            struct.pack(">I", len(c) - 4) + c + struct.pack(">I", zlib.crc32(c)) for c in chunks)
     # data/plugins.py's formats: 13000 x 13000, under PIL's pixel limit
     side = 13000
     if fmt in ("sgi", "sgi-rle"):
@@ -754,7 +760,7 @@ def _oversized(fmt):
     return psd + struct.pack(">H", 1) + struct.pack(">H", 2) * side + b"\xc1\x00" * 8
 
 
-OVERSIZED = ["bmp", "bmp-rle", "pgm", "pgm-plain", "pfm", "pam", "gif", "spider", "tga",
+OVERSIZED = ["png", "bmp", "bmp-rle", "pgm", "pgm-plain", "pfm", "pam", "gif", "spider", "tga",
              "tga-rle", "sun", "sun-rle", "sgi", "sgi-rle", "pcx", "dcx", "qoi", "im", "xbm",
              "msp", "msp-v2", "hdr", "im-bits", "xpm", "ico", "cur", "psd", "psd-rle"]
 
@@ -785,14 +791,12 @@ def _other_format(kind):
         palette = (box(b"pclr", struct.pack(">HB", 2, 3) + bytes([7, 7, 7]) + bytes(6))
                    + box(b"cmap", struct.pack(">HBB", 0, 1, 0) * 3))
         return jp2(codestream_of(buf.getvalue()), 8, 8, 3, 7, 16, header_extra=palette)
-    if kind == "dds":
-        buf = io.BytesIO()
-        Image.fromarray(np.dstack([arr] * 3)).save(buf, "DDS")
-        return buf.getvalue()
-    # the others by their first bytes: BLP's and FTEX's magic, a GIMP
-    # brush's header length and version, a FITS primary header
-    return {"blp": b"BLP2" + bytes(20), "ftex": b"FTEX" + bytes(20),
-            "gbr": struct.pack(">II", 28, 2) + bytes(20),
+    # the others by their first bytes: McIdas's, PIXAR's, XVThumb's and
+    # MPEG's magic, a FITS primary header
+    return {"mcidas": b"\0\0\0\0\0\0\0\4" + bytes(1024),
+            "pixar": b"\x80\xe8\0\0" + bytes(508),
+            "xvthumb": b"P7 332\n#END_OF_COMMENTS\n8 8 255\n" + bytes(64),
+            "mpeg": b"\0\0\1\xb3" + bytes(20),
             "fits": b"SIMPLE  =                    T" + b" " * 50}[kind]
 
 
@@ -801,9 +805,9 @@ def _other_format(kind):
 _REFUSED_FORM = {"JPEG2000": r"a palette \(pclr and cmap boxes\), which the port does not read"}
 
 
-@pytest.mark.parametrize("kind,name", [("blp", "BLP"), ("jpeg2000", "JPEG2000"),
-                                       ("ftex", "FTEX"), ("dds", "DDS"), ("gbr", "GBR"),
-                                       ("fits", "FITS")])
+@pytest.mark.parametrize("kind,name", [("mcidas", "MCIDAS"), ("jpeg2000", "JPEG2000"),
+                                       ("pixar", "PIXAR"), ("xvthumb", "XVTHUMB"),
+                                       ("mpeg", "MPEG"), ("fits", "FITS")])
 def test_formats_still_refused_name_themselves(kind, name, tmp_path):
     path = _file(tmp_path, f"x.{kind}", _other_format(kind))
     assert raster.identify(open(path, "rb").read()) == name
