@@ -15,7 +15,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 2. build: compiles the three CUDA sources (csrc/pointrend_refine.cu,
    csrc/refine_profile.cu and csrc/int8_conv.cu, one nvcc each, started
    together), then the host
-   C++ library (csrc/core_kernels.cpp and csrc/image_codecs.cpp), and
+   C++ library (csrc/core_kernels.cpp and the input decoders of csrc/,
+   csrc/ccitt_decode.cpp among them), and
    prints the build seconds and ptxas' resource reports;
 3. kernel vs plain: the refine kernel against its plain PyTorch version on
    the card at MitoNet_v1's shapes (N = 1, 8 and 32, steps sf = 2 and 4,
@@ -377,6 +378,32 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     each, and 2 in each twin); a ``SingleClassInstanceDataset`` over BC4
     DDS images and L8 DDS masks equal, item for item, to the one over the
     same arrays as PNG; ``textures:`` line; at most 60 s.
+25. tiff: phase 18's volume written with the tests' writer
+    (``tests/_tiff_writer.py``, ``tiff_files``) as 1-bit LZW and
+    uncompressed FillOrder-2 min-is-white, 2-bit Deflate and 4-bit PackBits
+    tiles, int8 LZW, uint32 Deflate tiles (ids past 2^31) and big-endian,
+    8-bit grey + alpha LZW, 16-bit grey + alpha in tiles cut at the edge,
+    grey of three samples, 16-bit CMYK and CIELab (Deflate), C17's damaged and minimal
+    pages (``tiff_mutations``: tags removed, counts 5 short, damaged
+    strips, a looping IFD chain, a cut file, an IFD count past its
+    entries), and the committed CCITT fixtures PIL's libtiff wrote
+    (``tests/fixtures/tiff_*.tif``, ``TIFF_FIXTURES``: Group 4, Group 3 1D,
+    Group 3 2D with fill bits and FillOrder 2, Modified Huffman, one made
+    min-is-white, one with bits flipped); each read by ``imread`` and
+    ``imread_gray`` and held to the dtype, shape and SHA-256 of the
+    oracles' arrays of the same file (PIL 12.1's and cv2 5.0's,
+    ``TIFF_SHA256``; None where the JAX reader raises), each reader's
+    decode MB/s and ms (the faster of two reads), the Group 4 decode's MB/s
+    of output pixels; ``python -m empanada_tpu_torch infer2d`` of a uint16
+    Deflate slice with ``--roi-mask`` the Group 4 mask (a seeded union of discs
+    over half the slice) with phase 5's model as a bundle, its map equal
+    to ``Engine2d``'s on the window ``cmd_infer2d`` cuts (the mask's
+    bounding box, zero outside the mask; 2 refine launches in each), and
+    ``labels count`` of a uint32 LZW stack whose ids pass 65535 equal to
+    ``count_labels`` on the array written, in one batch of two
+    subprocesses; a ``SingleClassInstanceDataset`` over 4-bit PackBits
+    images with Group 4 and uint32 Deflate masks equal, item for item, to
+    the one over the same arrays as PNG; ``tiff:`` line; at most 60 s.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root (the
@@ -5573,6 +5600,432 @@ def textures_phase(prr, api, cfg, model, card):
     return rec, launches
 
 
+# phase 25: bilevel, sub-byte, int8, uint32 and grey + alpha TIFF, CIELab,
+# CCITT (the committed fixtures PIL wrote, tests/make_tiff_fixtures.py)
+# and C17's damaged and minimal pages, made from phase 18's volume with the
+# tests' writer; every read held to the oracles' digests
+TIFF_LIMIT_S = 60
+# the volume the phase's files come from: phase 18's seed, 8 slices
+TIFF_SHAPE, TIFF_SEED, TIFF_ROI_SEED = (8, 1024, 1024), 180, 250
+# {fixture: (file under tests/fixtures, PIL's compression, its tiffinfo)}:
+# tiff_fixture_mask(key) as PIL 12.1's libtiff wrote it
+TIFF_FIXTURES = {
+    "g4_roi": ("tiff_g4_roi_mask.tif", "group4", {}),
+    "g3_2d_fill2": ("tiff_g3_2d_fill2.tif", "group3", {292: 5, 266: 2, 278: 16}),
+    "g3_1d": ("tiff_g3_1d.tif", "group3", {278: 64}),
+    "rle": ("tiff_rle.tif", "tiff_ccitt", {278: 64}),
+    "g4_train_0": ("tiff_g4_train_0.tif", "group4", {}),
+    "g4_train_1": ("tiff_g4_train_1.tif", "group4", {266: 2}),
+}
+TIFF_SHA256 = {
+    "bits1_lzw": (("bool", [1024, 1024],
+                   "b7c106dc290afd2535eaf72ec70dcff80cdfe22b5dcb78653e5fcb5fc68220c8"),
+                  ("uint8", [1024, 1024],
+                   "fc69a437f5f91a181defc335f55fcdf5dcb3e507f114bc1dc08d6aaf8d8f4fff")),
+    "bits1_white_fill2": (("bool", [1024, 1024],
+                           "235e66bae3b6575960c033d50a7cd21f414eddab879e01a330ced892ecd3594a"),
+                          ("uint8", [1024, 1024],
+                           "1a6643c25ca60f84b4f621fef87243a41e2ff866ce80d28ad4d3f4b499e1c065")),
+    "bits2_deflate": (("uint8", [1024, 1024],
+                       "e659a757f09e60bc30c5f4b2874e9f6bf54a6d462229f10c87c9c01a1a7b39b2"),
+                      ("uint8", [1024, 1024],
+                       "e659a757f09e60bc30c5f4b2874e9f6bf54a6d462229f10c87c9c01a1a7b39b2")),
+    "bits4_packbits_tiles": (("uint8", [1024, 1024],
+                              "ed48173aedddc3887717de0ae367bb3ed649a9b123166fb2914871adf3b2ad3b"),
+                             ("uint8", [1024, 1024],
+                              "ed48173aedddc3887717de0ae367bb3ed649a9b123166fb2914871adf3b2ad3b")),
+    "int8_lzw": (("uint8", [1024, 1024],
+                  "cd20080738be5a8b50c8380885d18bde451da9f7085ef084f39d0d6bfe7bb3e6"),
+                 ("int8", [1024, 1024],
+                  "cd20080738be5a8b50c8380885d18bde451da9f7085ef084f39d0d6bfe7bb3e6")),
+    "uint32_deflate_tiles": (("int32", [1024, 1024],
+                              "5aec4fe246958dc51dc3df09d30bd2e723f6ae006050d3ed134d05381f64152f"),
+                             ("uint32", [1024, 1024],
+                              "5aec4fe246958dc51dc3df09d30bd2e723f6ae006050d3ed134d05381f64152f")),
+    "uint32_be": (None,
+                  ("uint32", [1024, 1024],
+                   "5aec4fe246958dc51dc3df09d30bd2e723f6ae006050d3ed134d05381f64152f")),
+    "ga8_lzw": (("uint8", [512, 512, 2],
+                 "a5bbc540e17a48fd893143716954867fc6f56220cab98ec94221b83616f460b3"),
+                ("uint8", [512, 512],
+                 "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a")),
+    "ga16_edge_tiles": (None,
+                        ("uint8", [1000, 1000],
+                         "3f94b6961a3a8de4ea6762b929d420f4b32d6aa633db2ec85a60c31dc8c8dedb")),
+    "grey3": (None,
+              ("uint8", [1024, 1024],
+               "f7a9406d463bb972f70c0f2ffd7d34e1e760c47e19d579af05a815c48af341f9")),
+    "cmyk16": (("uint8", [512, 512, 4],
+                "bf4466a8046f4f532fce770739bebe7b2ab94da640fcbc63d17e85dded2e8768"),
+               ("uint8", [512, 512],
+                "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a")),
+    "lab": (("uint8", [1024, 1024, 3],
+             "54b8e2639f903781a068e65dbe2315fe8e57af83135f10c274b938dfcfaf0973"),
+            ("uint8", [1024, 1024],
+             "69f4c891f6f7213313c75da2ff2a64d2abf0ac626b31dd9003088eeed2241f75")),
+    "g4_roi": (("bool", [1024, 1024],
+                "c0e9030196b993927e496a03521de18af4badd5d6ef13cb21489a63bec470bb0"),
+               ("uint8", [1024, 1024],
+                "7300403b479aaaed5cac321d9ea2cfdc56dc4a82230a184ebce25c4c475c0d8f")),
+    "g3_2d_fill2": (("bool", [64, 2648],
+                     "0838ab9652bfe71c74a8e31b3395a2a2ccfd9ba35f847e13087f745650ceefbf"),
+                    ("uint8", [64, 2648],
+                     "54d417b6e9509756c70ae06d4524a726d27e15b6070e399427a0f7aed8b4b553")),
+    "g3_1d": (("bool", [64, 2648],
+               "0838ab9652bfe71c74a8e31b3395a2a2ccfd9ba35f847e13087f745650ceefbf"),
+              ("uint8", [64, 2648],
+               "54d417b6e9509756c70ae06d4524a726d27e15b6070e399427a0f7aed8b4b553")),
+    "rle": (("bool", [512, 512],
+             "c7f4e8d15a763133fb26bd27870f83ce5de1a8584a62d99cb47fa0a8bb2daaa3"),
+            ("uint8", [512, 512],
+             "4d0d9523511c6acc902a16a0e47df9e2ba4c624a7dd2e4a11a9e22af8ee02400")),
+    "g4_train_0": (("bool", [512, 512],
+                    "1ee7d1f257d174272d461d2ac0f393efe7ffbd95faf594427fc1f3b03f481a59"),
+                   ("uint8", [512, 512],
+                    "f6bdab55a870c31842dd85506b366d8e4ee919f6f851f2656edbcae2afbdc1a2")),
+    "g4_train_1": (("bool", [512, 512],
+                    "f6f8d822b6f50288967597c24d6a9cf788953d975cdb2414137b61b65f5b7c16"),
+                   ("uint8", [512, 512],
+                    "31db94fc1f514745636b650db3796162c11d8147cc735070f3e07890681d9a4b")),
+    "g3_damaged": (("bool", [64, 2648],
+                    "60e4634bd34db06323af218a2aadc68ccad2e5eb497775f5f7189b45aa460046"),
+                   ("uint8", [64, 2648],
+                    "28225adbba465710abfb78c9a753f05dc7bf4a541cd39b0b49239785329247a1")),
+    "rle_white": (("bool", [512, 512],
+                   "bff709c9678a80b3aa5890eba7c490ad71b0796be2572802e2a210ae32503428"),
+                  ("uint8", [512, 512],
+                   "34e61f90d3612b50ded13deca5183adfdd2ff2352d84286a4fb6f3777c358449")),
+    "c17_no262_lzw": (("uint8", [512, 512],
+                       "67b108f93090e424c1b426a71bca81150c4c200d7afcd21b1b09bd654b0034fd"),
+                      ("uint8", [512, 512],
+                       "67b108f93090e424c1b426a71bca81150c4c200d7afcd21b1b09bd654b0034fd")),
+    "c17_no279_raw": (("uint8", [512, 512],
+                       "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a"),
+                      ("uint8", [512, 512],
+                       "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a")),
+    "c17_no258_raw": (("bool", [512, 512],
+                       "c18519b7ff72b8f238df4b26a0f70861d0305b03b906a62a6ae8407cd9fb1488"),
+                      ("uint8", [512, 512],
+                       "d188805e29995b6060f84bdb5f47ad7b73b515eee26af3c06b8a4a50487e8ef4")),
+    "c17_short5_raw": (("uint8", [512, 512],
+                        "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a"),
+                       ("uint8", [512, 512],
+                        "8a39d2abd3999ab73c34db2476849cddf303ce389b35826850f9a700589b4a90")),
+    "c17_short5_lzw": (None,
+                       ("uint8", [512, 512],
+                        "15713d5dcd5d0a51e1900f4bba3b27ab739aa81448077cba86dfae37f3874788")),
+    "c17_short5_packbits": (None,
+                            ("uint8", [512, 512],
+                             "21c10f887c26c841fbf79d4a073d11eb61093e2dee3d8953042924997edeba10")),
+    "c17_damaged_deflate": (None,
+                            ("uint8", [512, 512],
+                             "9778613ca56664f84195d4cc4101dcfc4e5ad9d8d6131f98bb3f8f0f2040bf0a")),
+    "c17_damaged_lzw": (None,
+                        ("uint8", [512, 512],
+                         "bef9914bfb2689415a25d5ac527cb19bb08efcd2045863540368dddcc2becadc")),
+    "c17_loop_lzw": (("uint8", [512, 512],
+                      "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a"),
+                     ("uint8", [512, 512],
+                      "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a")),
+    "c17_cut10_deflate": (None,
+                          None),
+    "c17_count3_packbits": (("uint8", [512, 512],
+                             "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a"),
+                            ("uint8", [512, 512],
+                             "be24906fd9e0cc7d1624db6e629659bdd6ff6a3e0c09f4251625d5a65ff6a59a")),
+}
+
+
+def roi_mask(shape, seed):
+    """Seeded bilevel mask: a union of discs that covers about half the
+    slice (as a user draws a region of interest)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    yy, xx = np.mgrid[:h, :w]
+    mask = np.zeros(shape, bool)
+    while mask.mean() < 0.5:
+        cy, cx = rng.integers(0, h), rng.integers(0, w)
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 < rng.uniform(0.08, 0.2) ** 2 * h * w
+    return mask
+
+
+def tiff_fixture_mask(key):
+    """The bilevel page of each CCITT fixture: the region-of-interest mask
+    of infer2d's slice, two training masks (a slice's dark pixels, of the
+    phase's volume), and wide pages whose runs pass 2560 pixels."""
+    import numpy as np
+
+    if key == "g4_roi":
+        return roi_mask((1024, 1024), TIFF_ROI_SEED)
+    vol8 = (input_volume(TIFF_SHAPE, TIFF_SEED) >> 8).astype(np.uint8)
+    if key.startswith("g4_train"):
+        return vol8[int(key[-1]), :512, :512] < 118
+    mask = roi_mask((1024, 1024), TIFF_ROI_SEED)
+    wide = np.concatenate([mask[:64], mask[:64, ::-1], mask[:64, :600]], 1)  # 2648 wide
+    return {"g3_2d_fill2": wide, "g3_1d": wide, "rle": mask[:512, :512]}[key]
+
+
+def tiff_mutations(page):
+    """{form: bytes} of C17's pages, from ``page`` (512 x 512 uint8) in the
+    tests' writer's 64-row strips: Photometric, StripByteCounts or
+    BitsPerSample removed; every count 5 short; a strip damaged; the IFD
+    chain looping; the file cut 10 bytes short; the IFD count 3 past its
+    entries."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _tiff_writer import (
+        drop_tag,
+        ifd_entries,
+        ifd_offsets,
+        set_entry_count,
+        set_next_ifd,
+        set_tag,
+        tag_values,
+        tiff_bytes,
+    )
+
+    def made(compression, change):
+        data = bytearray(tiff_bytes([page], compression, rows_per_strip=64))
+        change(data, ifd_offsets(data)[0])
+        return bytes(data)
+
+    def short(data, ifd):
+        set_tag(data, ifd, 279, [c - 5 for c in tag_values(data, ifd, 279)])
+
+    def damaged(data, ifd):
+        (o, c) = (tag_values(data, ifd, 273)[1], tag_values(data, ifd, 279)[1])
+        data[o + 2:o + c] = bytes(c - 2)
+
+    def cut(data, ifd):
+        del data[-10:]
+    return {
+        "c17_no262_lzw": made(5, lambda d, i: drop_tag(d, i, 262)),
+        "c17_no279_raw": made(1, lambda d, i: drop_tag(d, i, 279)),
+        "c17_no258_raw": made(1, lambda d, i: drop_tag(d, i, 258)),
+        "c17_short5_raw": made(1, short),
+        "c17_short5_lzw": made(5, short),
+        "c17_short5_packbits": made(32773, short),
+        "c17_damaged_deflate": made(8, damaged),
+        "c17_damaged_lzw": made(5, damaged),
+        "c17_loop_lzw": made(5, lambda d, i: set_next_ifd(d, i, i)),
+        "c17_cut10_deflate": made(8, cut),
+        "c17_count3_packbits": made(32773, lambda d, i: set_entry_count(
+            d, i, len(ifd_entries(d, i)) + 3)),
+    }
+
+
+def tiff_files(vol, vol8):
+    """{form: (file name, its bytes)} of phase 25 (module docstring)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _tiff_writer import ifd_offsets, set_tag, tag_values, tiff_bytes
+
+    s0, s1 = vol8[0], vol8[1]
+    labels = label_volume((1, 1024, 1024), 181)[0].astype(np.uint32)
+    ids = np.where(labels > 0, labels * np.uint32(40000) + np.uint32(70000), 0).astype(np.uint32)
+    ga16 = np.stack([vol[0, :1000, :1000], vol[1, :1000, :1000]], -1)
+    files = {
+        "bits1_lzw": ("bits1.tif", tiff_bytes([s0 > 120], 5, rows_per_strip=64, bits=1)),
+        "bits1_white_fill2": ("bits1w.tif", tiff_bytes([s0 > 120], 1, rows_per_strip=64,
+                                                       bits=1, photometric=0, fill_order=2)),
+        "bits2_deflate": ("bits2.tif", tiff_bytes([s0 >> 6], 8, rows_per_strip=64, bits=2)),
+        "bits4_packbits_tiles": ("bits4.tif", tiff_bytes([s0 >> 4], 32773, tile=(256, 256),
+                                                         bits=4, photometric=0)),
+        "int8_lzw": ("int8.tif", tiff_bytes([(s0.astype(np.int16) - 128).astype(np.int8)], 5, 2,
+                                            rows_per_strip=64)),
+        "uint32_deflate_tiles": ("u32.tif", tiff_bytes([ids], 8, 2, tile=(256, 256))),
+        "uint32_be": ("u32be.tif", tiff_bytes([ids], 1, rows_per_strip=64, order=">")),
+        "ga8_lzw": ("ga8.tif", tiff_bytes([np.stack([s0, s1], -1)[:512, :512]], 5, 2,
+                                          rows_per_strip=64, extra_samples=2, photometric=1)),
+        "ga16_edge_tiles": ("ga16.tif", tiff_bytes([ga16], 8, 2, tile=(256, 256),
+                                                   extra_samples=1, photometric=1)),
+        "grey3": ("grey3.tif", tiff_bytes([np.stack([s0, s1, vol8[2]], -1)], 8,
+                                          rows_per_strip=64, photometric=1)),
+        "cmyk16": ("cmyk16.tif", tiff_bytes([np.stack(list(vol[:4, :512, :512]), -1)], 8,
+                                            rows_per_strip=64, photometric=5)),
+        "lab": ("lab.tif", tiff_bytes([np.stack([s0, s1, vol8[2]], -1)], 8, rows_per_strip=64,
+                                      photometric=8)),
+    }
+    for key, (name, _, _) in TIFF_FIXTURES.items():
+        with open(os.path.join(HERE, "tests", "fixtures", name), "rb") as f:
+            files[key] = (name, f.read())
+    g3 = bytearray(files["g3_1d"][1])  # bits flipped in the Group 3 strip
+    (offset,), (count,) = (tag_values(g3, ifd_offsets(g3)[0], t) for t in (273, 279))
+    for k in range(8):
+        g3[offset + count * (k + 1) // 9] ^= 1 << k
+    files["g3_damaged"] = ("g3bad.tif", bytes(g3))
+    rle = bytearray(files["rle"][1])  # made min-is-white
+    set_tag(rle, ifd_offsets(rle)[0], 262, [0])
+    files["rle_white"] = ("rlew.tif", bytes(rle))
+    files.update({form: (f"{form}.tif", data)
+                  for form, data in tiff_mutations(s0[:512, :512]).items()})
+    return files
+
+
+def tiff_dataset_check(vol8, root) -> dict:
+    """The training folder of 4-bit PackBits images with Group 4 1-bit masks
+    (the committed fixtures; items 0 and 1) and uint32 Deflate instance
+    masks (items 2 and 3) against its PNG twin (``dataset_twin_check``;
+    the uint32 masks' twins uint16 of the same ids)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _tiff_writer import tiff_bytes
+
+    from empanada_tpu_torch.data.imread import imread_gray
+
+    images, masks = quarter_masks(vol8)
+    items = []
+    for i in range(4):
+        levels = images[i] >> 4
+        image = (("tif", tiff_bytes([levels], 32773, rows_per_strip=32, bits=4),
+                  (levels * 17).astype(np.uint8)))
+        if i < 2:
+            name = TIFF_FIXTURES[f"g4_train_{i}"][0]
+            with open(os.path.join(HERE, "tests", "fixtures", name), "rb") as f:
+                data = f.read()
+            mask = ("tif", data, imread_gray(os.path.join(HERE, "tests", "fixtures", name)))
+            check(np.array_equal(mask[2] > 0, tiff_fixture_mask(f"g4_train_{i}")),
+                  f"tiff: the Group 4 training mask {i} is not its seeded page")
+        else:  # the twin as uint16 (a PNG holds no uint32), the same ids
+            ids = masks[i].astype(np.uint32) * np.uint32(4001)
+            mask = ("tif", tiff_bytes([ids], 8, 2, rows_per_strip=64), ids.astype(np.uint16))
+        items.append((image, mask))
+    return dataset_twin_check("tif", root, items)
+
+
+def tiff_phase(prr, api, cfg, model, card):
+    """Phase 25 (module docstring).  Returns (the ``tiff:`` record, refine
+    launches per path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _tiff_writer import ifd_offsets, tag_values, tiff_bytes
+
+    from empanada_tpu_torch.core import native
+    from empanada_tpu_torch.curation import count_labels
+    from empanada_tpu_torch.data.imread import imread
+
+    t_phase = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    wd = tempfile.mkdtemp(prefix="tiff-", dir=os.path.join(HERE, "empanada_tpu_torch", "build"))
+
+    def path(name):
+        return os.path.join(wd, name)
+
+    try:
+        # (a) the files, from phase 18's volume and the committed CCITT
+        # fixtures; the slice infer2d reads, its mask, a uint32 label
+        # stack; phase 5's model as a bundle
+        t0 = time.perf_counter()
+        vol = input_volume(TIFF_SHAPE, TIFF_SEED)
+        vol8 = (vol >> 8).astype(np.uint8)
+        files = tiff_files(vol, vol8)
+        for name, data in files.values():
+            with open(path(name), "wb") as f:
+                f.write(data)
+        with open(path("slice.tif"), "wb") as f:
+            f.write(tiff_bytes([vol[0]], 8, 2, rows_per_strip=64))
+        stack = np.stack([label_volume((1, 512, 512), 182 + k)[0] for k in range(3)])
+        stack = np.where(stack > 0, stack.astype(np.uint32) * np.uint32(3) + np.uint32(65536),
+                         0).astype(np.uint32)
+        with open(path("labels.tif"), "wb") as f:
+            f.write(tiff_bytes(list(stack), 5, rows_per_strip=64))
+        rec["write_s"] = time.perf_counter() - t0
+        bundle = api.save_model_bundle(path("mitonet"), cfg["arch"], cfg["model_kwargs"], model)
+        with open(path("MitoNet_v1.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg, model=bundle), f)
+        mask_path = os.path.join(HERE, "tests", "fixtures", TIFF_FIXTURES["g4_roi"][0])
+
+        # (b) python -m empanada_tpu_torch infer2d of the slice with the
+        # Group 4 mask, and labels count of the uint32 stack, in one batch
+        # of two subprocesses; meanwhile in this process (c) every form by
+        # both readers against the oracles' digests, the CCITT decode rate,
+        # a training folder of 4-bit images and Group 4 and uint32 masks
+        # against its PNG twin, and (d) Engine2d at full width on the window
+        # cmd_infer2d cuts: the mask's bounding box of the slice, zero
+        # outside the mask, the map zero outside it, at the window's offset
+        twin = {}
+
+        def meanwhile():
+            rec.update(plugins_reads(files, path, TIFF_SHA256, "tiff"))
+            data = files["g4_roi"][1]
+            ifd = ifd_offsets(data)[0]
+            rps = tag_values(data, ifd, 278)[0]
+            strips = [data[o:o + c] for o, c in zip(tag_values(data, ifd, 273),
+                                                   tag_values(data, ifd, 279))]
+            best = float("inf")
+            for _ in range(5):  # the mask's strips, decoded as a page's are
+                t1 = time.perf_counter()
+                state, runs = np.zeros(1, np.int32), native.ccitt_runs(1024, 4)
+                rows = [native.ccitt_decode(src, 4, 1024, min(rps, 1024 - k * rps), 0, state,
+                                            runs) for k, src in enumerate(strips)]
+                best = min(best, time.perf_counter() - t1)
+            page = np.concatenate([out for out, _ in rows]).reshape(1024, 128)
+            check(all(got == out.size for out, got in rows) and np.array_equal(
+                np.unpackbits(page, axis=1).astype(bool), roi_mask((1024, 1024), TIFF_ROI_SEED)),
+                "tiff: the Group 4 mask decodes wrong")
+            rec["ccitt_decode_ms"] = best * 1e3
+            rec["ccitt_decode_MB_per_s"] = 1024 * 1024 / best / 1e6
+            rec["dataset"] = tiff_dataset_check(vol8, path("dataset"))
+            roi = imread(mask_path) > 0
+            image = imread(path("slice.tif"))
+            ys, xs = np.nonzero(roi)
+            y1, y2, x1, x2 = ys.min(), ys.max() + 1, xs.min(), xs.max() + 1
+            window = np.where(roi[y1:y2, x1:x2], image[y1:y2, x1:x2], 0).astype(image.dtype)
+            e2 = api.Engine2d(cfg, model=model, label_divisor=10000)
+            pan_window, n, secs = counted(prr, lambda: e2.infer(window))
+            want = np.zeros(image.shape, pan_window.dtype)
+            want[y1:y2, x1:x2] = np.where(roi[y1:y2, x1:x2], pan_window, 0)
+            twin.update(want=want, n=n, secs=secs, window=[int(y2 - y1), int(x2 - x1)],
+                        share=float(roi.mean()))
+
+        done = cli_runs({"roi": ["infer2d", path("slice.tif"), "-o", path("roi_pan.tif"),
+                                 "--model", path("MitoNet_v1.yaml"), "--roi-mask", mask_path],
+                         "count": ["labels", "count", path("labels.tif")]},
+                        wd, "tiff", meanwhile)
+
+        # (e) labels count against count_labels on the array written
+        lines, n_count, _ = done.pop("count")
+        queue, classes = count_labels(stack, 10000)
+        want = [f"class {c}: {len(queue[c])} labels" for c in classes]
+        check(lines[:-1] == want and n_count == 0 and stack.max() > 65535,
+              f"tiff: labels count printed {lines[:3]}..., not {want[:3]}...")
+        rec["labels_count"] = {"classes": len(classes), "ids": int(sum(map(len, queue.values()))),
+                               "max_id": int(stack.max()), "equal": True}
+
+        # (f) the command line's map against its Engine2d twin's
+        got = imread(path("roi_pan.tif"))
+        _, n_cli, wall = done["roi"]
+        n, want = twin["n"], twin["want"]
+        check(n == 2 and n_cli == 2 and np.array_equal(got, want),
+              f"tiff: infer2d --roi-mask: {n_cli} launches in the command line, {n} in "
+              f"Engine2d, maps equal {np.array_equal(got, want)}")
+        launches["tiff_infer2d_cli_roi"], launches["tiff_engine2d_roi"] = n_cli, n
+        rec["infer2d_roi"] = {"window": twin["window"], "mask_share": twin["share"],
+                              "cli_wall_s": wall, "engine_s": twin["secs"],
+                              "refine_launches": n, "cli_refine_launches": n_cli,
+                              "instances": int((np.unique(want) % 10000 > 0).sum()),
+                              "equal": True}
+        del vol, vol8, files
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["refine_launches"] = dict(launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("tiff: " + json.dumps(rec), flush=True)
+    check(rec["phase_s"] <= TIFF_LIMIT_S,
+          f"phase 25 took {rec['phase_s']:.1f} s, over its {TIFF_LIMIT_S} s")
+    return rec, launches
+
+
 def _traced(trace, tmp, served, img) -> int:
     """Events of the refine kernel in the Chrome trace of one request."""
     import torch
@@ -6016,6 +6469,15 @@ def main():
     _, launches_24 = textures_phase(prr, api, cfg, model, card)
     print(f"phase 24 seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
+    # ---- 25. TIFF: bilevel (CCITT too), sub-byte, int8, uint32, grey +
+    # alpha and CIELab pages and C17's damaged ones read back against the
+    # oracles' digests; infer2d --roi-mask with a Group 4 mask and labels
+    # count of a uint32 stack in subprocesses; a training folder of 4-bit
+    # images and Group 4 and uint32 masks against its PNG twin
+    t0 = time.perf_counter()
+    _, launches_25 = tiff_phase(prr, api, cfg, model, card)
+    print(f"phase 25 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+
     kernels = [{
         "name": "pointrend_refine",
         "route": "cuda",
@@ -6030,7 +6492,7 @@ def main():
                      + sum(launches_18.values()) + sum(launches_19.values())
                      + sum(launches_20.values()) + sum(launches_21.values())
                      + sum(launches_22.values()) + sum(launches_23.values())
-                     + sum(launches_24.values())),
+                     + sum(launches_24.values()) + sum(launches_25.values())),
         "launches_by_path": {"render_engines": launches, "volume_xy": launches_3d,
                              "volume_xy_fused": launches_3d_fused,
                              "volume_ortho_pipelined": launches_ortho["pipelined"],
@@ -6040,7 +6502,7 @@ def main():
                              **launches_13, **launches_14, **launches_15, **launches_16,
                              **launches_17, **launches_18, **launches_19, **launches_20,
                              **launches_21, **launches_22, **launches_23,
-                             **launches_24},
+                             **launches_24, **launches_25},
         "max_abs_err": max_err,
         "ms": sum(s["launch_ms"] for s in per_req),
         "passes_ms": sum(s["device_ms"] for s in per_req),

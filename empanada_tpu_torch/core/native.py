@@ -9,7 +9,8 @@ RLE4, TGA RLE, Sun raster RLE; SGI RLE, PCX RLE, QOI, MSP version 2 rows,
 Radiance HDR scanlines, IM's samples of 2 to 31 bits; PSD's PackBits rows,
 ICNS's RGB runs), ``csrc/zstd_decode.cpp`` (ZSTD), ``csrc/jpeg_decode.cpp``
 (JPEG), ``csrc/webp_decode.cpp`` (WebP's VP8L, VP8 and ALPH), ``csrc/j2k_decode.cpp`` (JPEG 2000 codestreams) and
-``csrc/bcn_decode.cpp`` (the texture blocks BC1-BC7 of ``data/textures.py``),
+``csrc/bcn_decode.cpp`` (the texture blocks BC1-BC7 of ``data/textures.py``) and
+``csrc/ccitt_decode.cpp`` (TIFF's CCITT bilevel strips and tiles),
 compiled at first use with the host C++ compiler into
 ``empanada_tpu_torch/build/`` and named by a hash of the sources and
 flags.  No floating-point contraction is allowed (``-ffp-contract=off``),
@@ -58,6 +59,9 @@ __all__ = [
     "lzw_decode",
     "packbits_decode",
     "zstd_decode",
+    "ccitt_decode",
+    "ccitt_runs",
+    "CCITT_STATS",
     "gif_lzw_decode",
     "bmp_rle_decode",
     "tga_rle_decode",
@@ -89,7 +93,7 @@ use_native = True
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [os.path.join(_PKG, "csrc", name) for name in (
     "core_kernels.cpp", "image_codecs.cpp", "jpeg_decode.cpp", "webp_decode.cpp",
-    "zstd_decode.cpp", "j2k_decode.cpp", "bcn_decode.cpp")]
+    "zstd_decode.cpp", "j2k_decode.cpp", "bcn_decode.cpp", "ccitt_decode.cpp")]
 _BUILD = os.path.join(_PKG, "build")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared", "-ffp-contract=off"]
 
@@ -180,6 +184,8 @@ def load() -> ctypes.CDLL:
         for name in ("lzw_decode", "packbits_decode", "zstd_decode", "sun_rle_decode"):
             getattr(lib, name).argtypes = [vp, i64, vp, i64]
             getattr(lib, name).restype = i64
+        lib.ccitt_decode.argtypes = [vp, i64, ci, i64, i64, ci, vp, vp, vp, i64, vp]
+        lib.ccitt_decode.restype = i64
         lib.gif_lzw_decode.argtypes = [vp, i64, ci, vp, i64]
         lib.gif_lzw_decode.restype = i64
         lib.bmp_rle_decode.argtypes = [vp, i64, i64, i64, ci, vp]
@@ -595,13 +601,15 @@ def _decode(name: str, data, size: int) -> tuple:
 
 def lzw_decode(data, size: int) -> tuple:
     """TIFF LZW (compression 5) of one strip or tile: (buffer of ``size``
-    bytes, bytes written or -1 on a code the stream cannot hold)."""
+    bytes, bytes written, or -1 - the bytes written before a code the
+    stream cannot hold)."""
     return _decode("lzw_decode", data, size)
 
 
 def packbits_decode(data, size: int) -> tuple:
-    """PackBits (compression 32773) of one strip or tile, as
-    ``lzw_decode``."""
+    """PackBits (compression 32773) of one strip or tile as libtiff's
+    PackBitsDecode reads it: (buffer of ``size`` bytes, bytes written; a
+    literal run cut by the data's end is not copied)."""
     return _decode("packbits_decode", data, size)
 
 
@@ -609,6 +617,41 @@ def zstd_decode(data, size: int) -> tuple:
     """ZSTD (TIFF compression 50000) of one strip or tile, as ``lzw_decode``;
     -2 for a frame that needs a dictionary."""
     return _decode("zstd_decode", data, size)
+
+
+# the codes ``ccitt_decode`` counts into ``stats``, in its order
+CCITT_STATS = ("pass", "horizontal", "V0", "VR1", "VR2", "VR3", "VL1", "VL2", "VL3",
+               "terminating", "make-up", "extended make-up", "EOL", "bad code")
+
+
+def ccitt_runs(width: int, compression: int, t4_options: int = 0) -> np.ndarray:
+    """libtiff's run arrays for a page's CCITT strips or tiles of ``width``
+    pixels (``ccitt_decode``'s ``runs``), zeroed as its codec sets them up."""
+    n = (width + 1 + 31) // 32 * 32 * (2 if compression == 4 or t4_options & 1 else 1)
+    return np.zeros(2 * n + 2, np.uint32)
+
+
+def ccitt_decode(data, compression: int, width: int, rows: int, t4_options: int = 0,
+                 state: np.ndarray | None = None, runs: np.ndarray | None = None,
+                 stats: np.ndarray | None = None) -> tuple:
+    """CCITT bilevel data of one strip or tile as libtiff's fax decoders
+    read it (``csrc/ccitt_decode.cpp``): compression 2 (Modified Huffman,
+    rows byte-aligned), 32771 (the same, rows on 16-bit words of the
+    strip), 3 (T.4: 2D where ``t4_options`` bit 0 is set) or 4 (T.6).  (``rows`` rows of ``width`` bits, each padded to a byte, 1
+    for black; the bytes written, or -1 - the bytes of the rows written
+    before libtiff's decoder fails).  ``state`` (int32 [1]) and ``runs``
+    (``ccitt_runs``) carry libtiff's codec state from strip to strip of a
+    page; ``stats`` (int64, one count per ``CCITT_STATS``) adds the codes
+    read."""
+    lib = load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(rows * ((width + 7) // 8), np.uint8)
+    mode = state if state is not None else np.zeros(1, np.int32)
+    runs = runs if runs is not None else ccitt_runs(width, compression, t4_options)
+    got = int(lib.ccitt_decode(_ptr(src), len(src), int(compression), int(width), int(rows),
+                               int(t4_options), _ptr(out), _ptr(mode), _ptr(runs), runs.size,
+                               None if stats is None else _ptr(stats)))
+    return out, got
 
 
 def sun_rle_decode(data, size: int) -> tuple:

@@ -33,7 +33,6 @@ int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
         suffix[i] = static_cast<uint8_t>(i);
         first[i] = static_cast<uint8_t>(i);
     }
-    if (n >= 2 && src[0] == 0 && (src[1] & 1)) return -1;  // pre-1995 bit order
     int width = 9, next = kFirst, prev = -1, bits = 0;
     uint64_t buf = 0;
     int64_t pos = 0, out = 0;
@@ -53,12 +52,12 @@ int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
             continue;
         }
         if (prev < 0) {  // the first code after a clear is a byte
-            if (code > 255) return -1;
+            if (code > 255) return -1 - out;
             dst[out++] = static_cast<uint8_t>(code);
             prev = code;
             continue;
         }
-        if (code > next || (code == next && next == kSize)) return -1;
+        if (code > next || (code == next && next == kSize)) return -1 - out;
         if (next < kSize) {
             prefix[next] = static_cast<uint16_t>(prev);
             length[next] = static_cast<uint16_t>(length[prev] + 1);
@@ -85,8 +84,8 @@ int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
 
 // PackBits: a header byte h, then h + 1 literal bytes (0 <= h <= 127) or
 // one byte repeated 1 - h times (-127 <= h <= -1); -128 is skipped.  With
-// row == 0 (TIFF) the data runs on across rows and a literal cut by the
-// data's end is copied as far as it goes; with row > 0, as PIL's
+// row == 0 (TIFF, as libtiff's PackBitsDecode) the data runs on across rows
+// and a packet cut by the data's end is not read; with row > 0, as PIL's
 // PackbitsDecode reads it (PSD), a packet's bytes past the end of its row
 // of ``row`` bytes are dropped (the next packet starts the next row) and a
 // packet cut by the data's end is not read.  ``used`` gets the bytes read.
@@ -96,7 +95,7 @@ static int64_t packbits(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap
     while (out < cap && pos < n) {
         const int h = static_cast<int8_t>(src[pos]);
         const int64_t len = h >= 0 ? h + 1 : (h == -128 ? 0 : 1 - h);
-        if (row > 0 && pos + 1 + (h >= 0 ? len : (h == -128 ? 0 : 1)) > n) break;
+        if (pos + 1 + (h >= 0 ? len : (h == -128 ? 0 : 1)) > n) break;
         ++pos;
         int64_t count = len;
         if (row > 0 && count > row - out % row) count = row - out % row;
@@ -239,7 +238,7 @@ int64_t gif_lzw_decode(const uint8_t* src, int64_t n, int min_size, uint8_t* dst
             prev = code;
             continue;
         }
-        if (code > next || (code == next && next == kSize)) return -1;
+        if (code > next || (code == next && next == kSize)) return -1 - out;
         if (next < kSize) {
             prefix[next] = static_cast<uint16_t>(prev);
             length[next] = static_cast<uint16_t>(length[prev] + 1);

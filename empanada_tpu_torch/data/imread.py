@@ -56,30 +56,46 @@ keeps 16 bits.
 
 TIFF: classic and BigTIFF, either byte order; strips or tiles (cut at the
 image's edge); uncompressed, LZW (5), Deflate (8, 32946), PackBits
-(32773), LZMA (34925), ZSTD (50000) or JPEG (7); horizontal differencing
+(32773), LZMA (34925), ZSTD (50000), JPEG (7) or CCITT (2: Modified
+Huffman, 32771: the same, rows on 16-bit words, 3: Group 3 1D or 2D, 4:
+Group 4, by ``csrc/ccitt_decode.cpp`` as libtiff's fax codec decodes
+them); FillOrder 1 or 2 (each stored byte's
+bits reversed, as libtiff reverses them); horizontal differencing
 (predictor 2) and floating-point differencing (predictor 3: each row's
 bytes as planes, most significant first in either byte order) with LZW,
 Deflate, LZMA and ZSTD, as libtiff applies them; samples together or
 planes apart (planar configuration 2: the strips or tiles of each plane in
-turn); uint8, uint16, int16, int32, float32 or float64 samples: one a
-pixel (min-is-black; min-is-white, which both readers invert at 8 bits
-only; a palette: PIL gives the indices, cv2 the colormap's blue scaled to
-8 bits), RGB or RGBA, 8-bit CMYK (PIL gives the 4 samples, cv2 libtiff's
-RGBA of them: b = (255 - K)(255 - Y) / 255) or 8-bit YCbCr (data units of
-any subsampling libtiff reads, converted by its ``TIFFYCbCrToRGB`` tables
+turn); 1-, 2- and 4-bit grey (levels; PIL gives 1 bit as bool and scales
+2 and 4 bits to 8, inverted for min-is-white; cv2 scales 1 bit to 0/255
+and reads no 2- or 4-bit page), uint8, int8 (PIL: its bits as uint8),
+uint16, int16, uint32 (PIL: its bits as int32, little-endian only), int32,
+float32 or float64 samples: one a pixel (min-is-black; min-is-white, which
+both readers invert at 1 to 8 bits only; a palette: PIL gives the indices,
+cv2 the colormap's blue scaled to 8 bits), grey + alpha (PIL: 8-bit
+min-is-black of ExtraSamples 2 alone, as (H, W, 2); cv2: the grey, its
+high byte at 16 bits, of any ExtraSamples), grey of three samples (cv2's
+first; PIL opens none), RGB or RGBA, CMYK (PIL gives the 4 samples, 8
+bits of 16; cv2 libtiff's RGBA of 8-bit ones, b = (255 - K)(255 - Y) /
+255, and nothing of 16-bit ones), 8-bit YCbCr (data units of any
+subsampling libtiff reads, converted by its ``TIFFYCbCrToRGB`` tables
 from the YCbCrCoefficients and ReferenceBlackWhite tags, as cv2 gives
-them; PIL misreads the units, and ``imread`` gives the RGB too).  A JPEG
+them; PIL misreads the units, and ``imread`` gives the RGB too) or 8-bit
+CIELab (PIL: the stored bytes; cv2: the blue of libtiff's
+``TIFFCIELabToXYZ``/``TIFFXYZToRGB`` against the WhitePoint tag).  A JPEG
 page (grey, RGB, or YCbCr converted to RGB as libtiff's JPEGCOLORMODE_RGB
 does) decodes each strip or tile after the JPEGTables tag's tables, its
 first component's sampling factors those of the YCbCrSubsampling tag (1 x
-1 for grey and RGB), as libtiff checks them.  PIL gives int16 grey as
-int32 (its mode I), keeps the high byte of 16-bit colour, opens no colour
-of other samples than uint8 and uint16, no float64 page and no int16 or
-int32 min-is-white one (then ``imread`` raises; cv2 reads them), and of a
-fourth sample drops one of ExtraSamples 0 (RGBX) and divides one of 1
-(associated alpha) out; cv2 keeps every sample as the file holds it,
-except that it premultiplies an 8-bit RGBA TIFF of unassociated alpha
-(ExtraSamples 2) by its alpha (libtiff's ``(v a + 127) / 255``).
+1 for grey and RGB), as libtiff checks them, data that ends early read on
+through libtiff's fake EOI markers.  ``imread`` opens what PIL 12's
+``OPEN_INFO`` opens (``_PIL_TIFF_MODES``: no float64 page, no int16 or
+int32 min-is-white one, no colour of other samples than uint8 and uint16;
+then it raises) and gives PIL's arrays (int16 grey as int32, its mode I;
+the high byte of 16-bit colour; of a fourth sample one of ExtraSamples 0
+dropped, one of 1 divided out); cv2 keeps every sample as the file holds
+it, except that it premultiplies an 8-bit RGBA TIFF of unassociated alpha
+(ExtraSamples 2) by its alpha (libtiff's ``(v a + 127) / 255``) and that
+libtiff's grey RGBA routines read a right-edge tile of grey of several
+samples with its rows stepped by the clipped pixels alone.
 ``imread_gray`` reads the first page alone, as cv2 does.  Where PIL 12
 misreads a file (a big-endian BigTIFF, which it does not open; big-endian
 compressed 16- and 32-bit signed or float samples, whose bytes it does not
@@ -88,6 +104,33 @@ does; where cv2 misreads one (16-bit and float planes apart, plane 0
 taken for the whole pixel; the last unit of an odd-length row of 4 x 4
 YCbCr units, which libtiff's scanline size leaves unread) ``imread_gray``
 gives the values the file holds.
+
+A damaged or minimal TIFF (C17) reads as each oracle reads it.
+``imread`` walks the IFDs as PIL does: a value past the file's end ends
+the IFD (the tags before it kept) and the chain; an IFD met again ends
+the chain; a missing Photometric tag is min-is-white, a missing
+BitsPerSample 1 bit; BitsPerSample is fitted to SamplesPerPixel or the
+page refused; uncompressed rows are read from each offset whatever the
+byte counts say.  A compressed page goes through libtiff's directory and
+strip rules for both readers: an IFD cut short, strip tags past the file's
+end, a 0 byte count or a strip past the file's end read nothing; missing
+byte counts are refused for a page of several strips and estimated for
+one (``EstimateStripByteCounts``), as are a single strip's bad count and
+an uncompressed page's first two counts that differ.  ``imread_gray``
+reads as cv2's libtiff: a page without Photometric, or whose
+BitsPerSample holds neither one value nor SamplesPerPixel equal ones,
+reads nothing (PIL's array then); 8-bit and 1-bit pages go through
+libtiff's RGBA interface, which leaves a strip it cannot decode 0 after
+what it decoded (LZW, Deflate and PackBits as far as their data and any
+damage allow; a short uncompressed strip wholly 0), other pages read
+nothing on such a strip; an uncompressed tile short of its bytes, or of
+FillOrder 2 in the RGBA interface, reads nothing.  CCITT data reads as
+libtiff 4.7's fax codec: a code no table holds ends its row (its runs
+cleaned up to the row's width) and decoding goes on; data that ends
+fills the row being read and fails the strip, except that Group 3 data
+whose EOL is cut is read again from the strip's start without EOLs, and a
+Group 4 strip that ends after its first row reads without error (cv2's
+later rows 0; PIL's rows it never set: ``imread`` refuses them).
 
 JPEG (``.jpg``, and the strips and tiles of a compression-7 TIFF):
 baseline, extended and progressive Huffman at 8 bits, 1 or 3 components,
@@ -111,15 +154,18 @@ than 8 and 16 bits);
 arithmetic-coded, lossless, hierarchical, 12-bit, 2- and 4-component
 (CMYK, YCCK) and DNL JPEG, and progressive JPEG whose scans leave
 coefficients unfinished (libjpeg smooths those); old-style JPEG TIFF
-(compression 6); predictor 3 of integer samples; other photometric
-interpretations and sample counts (CMYK with an extra sample or 16 bits,
-16-bit YCbCr, CIELab, masks); an APNG frame blended OVER with alpha; a
+(compression 6) and old-style LZW; predictor 3 of integer samples,
+predictor 2 of 1 to 4 bits; other photometric interpretations and sample
+counts (RGB of one sample, CMYK with an extra sample, 16-bit YCbCr or
+CIELab, transparency masks, float16 samples, 5 samples, 2- and 4-bit
+palettes); an APNG frame blended OVER with alpha; a
 TIFF's JPEG stream wider or taller than its strip or tile (as libtiff
 refuses it, read from the stream's headers before any sample is
 allocated; libtiff's one exception, a last strip of the page's width
 that is too tall, reads) or smaller than it (libtiff reads that with a
-warning, PIL and cv2 then differ).  A damaged strip raises and names the
-file, the page and the strip; a damaged JPEG file names the file.
+warning, PIL and cv2 then differ).  A TIFF refused, or a damaged strip
+where the oracle raises, raises ValueError naming the file, the page and
+the reason (the strip or tile too); a damaged JPEG file names the file.
 """
 
 
@@ -144,11 +190,11 @@ _TIFF_MAGIC = {b"II*\x00": ("<", False), b"MM\x00*": (">", False),
                b"II+\x00": ("<", True), b"MM\x00+": (">", True)}
 # PIL's decompression-bomb limit (Image.MAX_IMAGE_PIXELS, twice)
 _PIL_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
-_READS = ("the port reads PNG, TIFF, JPEG and MPO, BMP, PNM, PFM, PAM, GIF, SPIDER, TGA, Sun "
-          "raster, WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM, MSP, Radiance HDR, XPM, ICO, "
-          "CUR, PSD, ICNS, DDS, BLP, FTEX and GBR (module docstrings of data/imread.py, "
-          "data/raster.py, data/webp.py, data/jpeg2000.py, data/plugins.py, data/icons.py "
-          "and data/textures.py)")
+_READS = ("the port reads PNG, TIFF (bilevel and CCITT too), JPEG and MPO, BMP, PNM, PFM, "
+          "PAM, GIF, SPIDER, TGA, Sun raster, WebP, JPEG 2000, SGI, PCX, DCX, QOI, IM, XBM, "
+          "MSP, Radiance HDR, XPM, ICO, CUR, PSD, ICNS, DDS, BLP, FTEX and GBR (module "
+          "docstrings of data/imread.py, data/raster.py, data/webp.py, data/jpeg2000.py, "
+          "data/plugins.py, data/icons.py and data/textures.py)")
 
 
 def _bound(name: str, what: str, size: int, avail: int) -> None:
@@ -163,14 +209,15 @@ class _Raw:
     """One decoded image as the file holds it: ``pixels`` (H, W) or (H, W,
     C) samples (1-, 2- and 4-bit ones unpacked to their levels; 8-bit
     min-is-white inverted and YCbCr converted to RGB, as both readers do),
-    ``kind`` grey, grey_alpha, rgb, rgba, cmyk or palette, the sample
+    ``kind`` grey, grey_alpha, rgb, rgba, cmyk, palette or lab, the sample
     ``depth`` in bits, the ``palette`` (N, 3) of a palette image, the
     ExtraSamples value of a TIFF's fourth sample (``extra``; None without
-    the tag), whether cv2 decodes the file (``cv2_reads``: not LZMA or ZSTD
-    TIFF, where the JAX package's ``_imread_gray`` takes PIL's array) and
-    PIL opens it (``pil_opens``), and ``where`` it was read, for errors.
-    A raster format whose readers' arrays follow no rule here passes them
-    as functions of no arguments (``pil``, ``gray``: ``data/raster.py``)."""
+    the tag), whether cv2 decodes the file (``cv2_reads``: where it does
+    not, the JAX package's ``_imread_gray`` takes PIL's array) and PIL
+    opens it (``pil_opens``), and ``where`` it was read, for errors.  A
+    format whose readers' arrays follow no rule here passes them as
+    functions of no arguments (``pil``, ``gray``: ``data/raster.py``, a
+    TIFF's PIL array and its grey of several samples)."""
 
     def __init__(self, pixels, kind, depth, where, palette=None, extra=None, cv2_reads=True,
                  pil_opens=True, pil=None, gray=None):
@@ -197,12 +244,6 @@ class _Raw:
             px = (px >> 8).astype(np.uint8)  # PIL keeps 8 bits of colour
             if self.kind == "grey_alpha":  # as RGBA
                 return px[..., [0, 0, 0, 1]]
-        if self.extra == 0:  # RGBX: PIL drops the fourth sample
-            return px[..., :3]
-        if self.extra == 1:  # associated alpha: PIL divides it out
-            a = px[..., 3:].astype(np.uint32)
-            rgb = np.minimum(255, px[..., :3] * np.uint32(255) // np.maximum(a, 1))
-            return np.concatenate([np.where(a == 0, 0, rgb).astype(np.uint8), px[..., 3:]], -1)
         return px
 
     def _grey8(self) -> np.ndarray:
@@ -953,48 +994,130 @@ def read_png(data: bytes, name: str = "<png>") -> np.ndarray:
 # (5) is read as (numerator, denominator) pairs
 _TIFF_TYPES = {1: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q",
                17: "q"}
-_TIFF_DTYPES = {(8, 1): "u1", (16, 1): "u2", (16, 2): "i2", (32, 2): "i4", (32, 3): "f4",
+# (bits, SampleFormat) -> the samples' dtype (1, 2 and 4 bits: their levels)
+_TIFF_DTYPES = {(1, 1): "u1", (2, 1): "u1", (4, 1): "u1", (8, 1): "u1", (8, 2): "i1",
+                (16, 1): "u2", (16, 2): "i2", (32, 1): "u4", (32, 2): "i4", (32, 3): "f4",
                 (64, 3): "f8"}
 # (photometric, samples a pixel) read: min-is-white or min-is-black grey,
-# RGB(A), a palette, CMYK, YCbCr
-_TIFF_FORMS = {(0, 1), (1, 1), (2, 3), (2, 4), (3, 1), (5, 4), (6, 3)}
+# grey + alpha, grey of three samples (cv2 reads the first), RGB(A), a
+# palette, CMYK, YCbCr, CIELab
+_TIFF_FORMS = {(0, 1), (1, 1), (0, 2), (1, 2), (1, 3), (2, 3), (2, 4), (3, 1), (5, 4), (6, 3),
+               (8, 3)}
 # the YCbCr subsamplings (h, v) libtiff reads
 _SUBSAMPLINGS = {(1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)}
-_TIFF_CODECS = {1: "none", 5: "LZW", 7: "JPEG", 8: "Deflate", 32946: "Deflate",
+_TIFF_CODECS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
+                7: "JPEG", 8: "Deflate", 32946: "Deflate", 32771: "CCITT RLEW",
                 32773: "PackBits", 34925: "LZMA", 50000: "ZSTD"}
 # the compressions libtiff applies a predictor with, and those cv2 5 cannot
 # decode (its libtiff is built without them)
 _PREDICTED = (5, 8, 32946, 34925, 50000)
 _NOT_IN_CV2 = (34925, 50000)
+_CCITT = (2, 3, 4, 32771)
+# the tags of strip and tile offsets and byte counts
+_STRIP_TAGS = (273, 279, 324, 325)
 
 
-def _tiff_ifd(data: bytes, end: str, big: bool, ifd: int):
-    """(tags, offset of the next IFD) of the IFD at ``ifd``."""
-    count_code, entry, value_size = ("Q", 20, 8) if big else ("H", 12, 4)
-    (n,) = struct.unpack_from(end + count_code, data, ifd)
-    base = ifd + struct.calcsize(count_code)
-    tags = {}
-    for i in range(n):
-        at = base + entry * i
-        tag, typ, count = struct.unpack_from(end + ("HHQ" if big else "HHI"), data, at)
-        code = _TIFF_TYPES.get(typ)
-        if code is None:
-            continue
-        count *= 2 if typ == 5 else 1
-        size = struct.calcsize(code) * count
-        value = at + entry - value_size
-        if size > value_size:
-            (value,) = struct.unpack_from(end + ("Q" if big else "I"), data, value)
-        if typ == 7:
-            tags[tag] = bytes(data[value:value + count])
-            continue
-        tags[tag] = struct.unpack_from(end + code * count, data, value)
-        if typ == 5:  # as libtiff keeps a RATIONAL: a float
-            v = tags[tag]
-            tags[tag] = tuple(np.float32(v[k] / v[k + 1]) if v[k + 1] else np.float32(0)
-                              for k in range(0, count, 2))
-    (next_ifd,) = struct.unpack_from(end + ("Q" if big else "I"), data, base + entry * n)
-    return tags, next_ifd
+def _pil_tiff_modes() -> dict:
+    """PIL 12's ``TiffImagePlugin.OPEN_INFO`` over the forms the port
+    reads: (byte order, photometric, SampleFormat, FillOrder,
+    BitsPerSample, ExtraSamples) -> PIL's mode.  PIL opens no page whose
+    key is missing (``tests/test_torch_tiff_forms.py`` holds the table to
+    PIL's)."""
+    modes = {}
+    for o in "<>":
+        for fill in (1, 2):
+            for bits in (1, 2, 4, 8):
+                for photometric in (0, 1):
+                    modes[o, photometric, (1,), fill, (bits,), ()] = "1" if bits == 1 else "L"
+                modes[o, 3, (1,), fill, (bits,), ()] = "P"
+            modes[o, 2, (1,), fill, (8, 8, 8), ()] = "RGB"
+        modes[o, 1, (2,), 1, (8,), ()] = "L"
+        modes[o, 1, (2,), 1, (16,), ()] = modes[o, 1, (2,), 1, (32,), ()] = "I"
+        modes[o, 0, (3,), 1, (32,), ()] = modes[o, 1, (3,), 1, (32,), ()] = "F"
+        modes[o, 1, (1,), 1, (8, 8), (2,)] = "LA"
+        for extra, mode in (((), "RGBA"), ((0,), "RGB"), ((1,), "RGBA"), ((2,), "RGBA")):
+            modes[o, 2, (1,), 1, (8,) * 4, extra] = modes[o, 2, (1,), 1, (16,) * 4, extra] = mode
+        modes[o, 2, (1,), 1, (8,) * 4, (999,)] = "RGBA"
+        modes[o, 2, (1,), 1, (16,) * 3, ()] = "RGB"
+        modes[o, 5, (1,), 1, (8,) * 4, ()] = modes[o, 5, (1,), 1, (16,) * 4, ()] = "CMYK"
+        modes[o, 6, (1,), 1, (8,) * 3, ()] = "RGB"
+        modes[o, 8, (1,), 1, (8,) * 3, ()] = "LAB"
+    # 16- and 32-bit forms PIL keys by one byte order alone
+    modes["<", 0, (1,), 1, (16,), ()] = modes["<", 1, (1,), 1, (16,), ()] = "I;16"
+    modes["<", 1, (1,), 2, (16,), ()] = "I;16"
+    modes[">", 1, (1,), 1, (16,), ()] = "I;16B"
+    modes["<", 1, (1,), 1, (32,), ()] = "I"
+    return modes
+
+
+_PIL_TIFF_MODES = _pil_tiff_modes()
+
+
+class _Cv2ReadsNothing(Exception):
+    """``cv2.imread`` gives None for the file: the JAX package's
+    ``_imread_gray`` then takes PIL's array."""
+
+
+class _Ifd:
+    """One IFD as PIL and libtiff read it: ``tags`` (tag -> values; the
+    BYTE and UNDEFINED ones as bytes), the tags whose values lie past the
+    file's end (``lost``: libtiff skips them, or fails on the strip and
+    tile tags; PIL stops reading the IFD at the first, keeping the tags
+    before it: ``pil_tags``), each entry's libtiff type width and count
+    (``sizes``, for its estimate of missing byte counts), the offset of
+    the next IFD (None where the file ends first) and whether the entries
+    themselves run past the file's end (``cut``: PIL keeps the tags
+    before, libtiff reads nothing).  PIL's chain of IFDs ends at an IFD it
+    stops reading early (``pil_cut``)."""
+
+    def __init__(self, data: bytes, end: str, big: bool, ifd: int, name: str):
+        count_code, entry, value_size = ("Q", 20, 8) if big else ("H", 12, 4)
+        head = struct.calcsize(count_code)
+        if ifd + head > len(data):
+            raise ValueError(f"{name}: a TIFF IFD at byte {ifd}, past the file's end")
+        (n,) = struct.unpack_from(end + count_code, data, ifd)
+        base = ifd + head
+        self.tags, self.lost, self.sizes, self.cut, self.next = {}, set(), [], False, None
+        self.pil_tags, self.pil_cut = None, False
+        for i in range(n):
+            at = base + entry * i
+            if at + entry > len(data):
+                self.cut = self.pil_cut = True
+                break
+            tag, typ, count = struct.unpack_from(end + ("HHQ" if big else "HHI"), data, at)
+            self.sizes.append((_IFD_SIZES.get(typ, 0), count))  # libtiff's TIFFDataWidth
+            size = _IFD_SIZES.get(typ, 0) * count
+            if not size:  # a type neither reader knows, or no values
+                continue
+            value = at + entry - value_size
+            if size > value_size:
+                (value,) = struct.unpack_from(end + ("Q" if big else "I"), data, value)
+            if value + size > len(data):
+                self.lost.add(tag)
+                if self.pil_tags is None:
+                    self.pil_tags, self.pil_cut = dict(self.tags), True
+                continue
+            code = _TIFF_TYPES.get(typ)
+            if code is None:
+                continue
+            count *= 2 if typ == 5 else 1
+            if typ in (1, 7):
+                self.tags[tag] = bytes(data[value:value + count])
+                continue
+            vals = struct.unpack_from(end + code * count, data, value)
+            if typ == 5:  # as libtiff keeps a RATIONAL: a float
+                vals = tuple(np.float32(vals[k] / vals[k + 1]) if vals[k + 1] else np.float32(0)
+                             for k in range(0, count, 2))
+            self.tags[tag] = vals
+        if self.pil_tags is None:
+            self.pil_tags = self.tags
+        at = base + entry * n
+        if not self.cut and at + value_size <= len(data):
+            (self.next,) = struct.unpack_from(end + ("Q" if big else "I"), data, at)
+
+    def view(self, rule: str) -> dict:
+        """The tags as PIL (``rule`` "pil") or libtiff reads them."""
+        return self.pil_tags if rule == "pil" else self.tags
 
 
 _POOL = None
@@ -1011,36 +1134,78 @@ def _pool():
     return _POOL
 
 
-def _tiff_chunk(data: bytes, offset: int, count: int, compression: int, size: int,
-                where: str) -> bytes:
-    """``size`` decoded bytes of the strip or tile at ``offset``."""
-    src = data[offset:offset + count]
-    if compression == 1:
-        got, buf = len(src), src[:size]
-    elif compression in (8, 32946):
+def _reverse_bits(src: bytes) -> bytes:
+    """Each byte's bits in reverse order (FillOrder 2)."""
+    return np.packbits(np.unpackbits(np.frombuffer(src, np.uint8)), bitorder="little").tobytes()
+
+
+def _inflate(src: bytes, size: int) -> tuple:
+    """(up to ``size`` bytes inflated from ``src``, whether the stream
+    broke off with an error): what libtiff's ZIPDecode leaves in its
+    buffer, the bytes inflated before the damage."""
+    try:
+        return zlib.decompressobj().decompress(src, size), False
+    except zlib.error:
+        pass
+    d, out = zlib.decompressobj(), bytearray()
+    for k in range(len(src)):  # again a byte at a time, as far as the damage
         try:
-            buf = zlib.decompressobj().decompress(src, size)
-        except zlib.error as exc:
-            raise ValueError(f"{where}: damaged Deflate data ({exc})") from None
-        got = len(buf)
+            out += d.decompress(src[k:k + 1], size - len(out))
+        except zlib.error:
+            break
+        if len(out) >= size:
+            break
+    return bytes(out), True
+
+
+def _tiff_chunk(data: bytes, offset: int, count: int, compression: int, size: int,
+                where: str, fill: int, ccitt=None) -> tuple:
+    """(``size`` bytes of the strip or tile at ``offset``, decoded as libtiff
+    decodes it: as far as its data and any damage allow, the rest 0; and
+    why it is not whole, or None).  Its ``count`` bytes lie in the file.
+    ``fill`` 2 reverses each byte's bits first (FillOrder); ``ccitt`` is
+    (width, rows, T4Options, and libtiff's codec state: the page's Group 3
+    mode and run arrays) of a CCITT strip or tile."""
+    src = data[offset:offset + count]
+    if fill == 2:
+        src = _reverse_bits(src)
+    why = None
+    if compression == 1:  # libtiff's DumpModeDecode copies nothing from a short strip
+        buf = src[:size] if len(src) >= size else b""
+    elif compression in (8, 32946):
+        buf, bad = _inflate(src, size)
+        why = "damaged Deflate data" if bad else None
     elif compression == 34925:  # an .xz stream, never decoded past the strip's size
         try:
             buf = lzma.LZMADecompressor().decompress(src, size)
         except lzma.LZMAError as exc:
             raise ValueError(f"{where}: damaged LZMA data ({exc})") from None
-        got = len(buf)
+    elif compression in _CCITT:
+        out, got = native.ccitt_decode(src, compression, *ccitt[:3], state=ccitt[3],
+                                       runs=ccitt[4])
+        buf = out[:got if got >= 0 else -1 - got].tobytes()
+        why = ("damaged CCITT data" if got < 0 else None if got == size else
+               "CCITT Group 4 data that ends before its last row (libtiff reads it without "
+               "error, and PIL's rows after it are memory it never set)")
     else:
+        if compression == 5 and src[:1] == b"\0" and len(src) > 1 and src[1] & 1:
+            raise ValueError(f"{where}: old-style LZW (before libtiff 4), which the port "
+                             f"does not read; {_READS}")
         decode = {5: native.lzw_decode, 32773: native.packbits_decode,
                   50000: native.zstd_decode}[compression]
         out, got = decode(src, size)
-        if got < 0:
+        if compression == 50000 and got < 0:
             what = ("a dictionary, which the port does not read" if got == -2
                     else "a code the stream cannot hold")
-            raise ValueError(f"{where}: damaged {_TIFF_CODECS[compression]} data ({what})")
-        buf = out
-    if got < size:
-        raise ValueError(f"{where}: {got} bytes decoded of the {size} its rows hold")
-    return buf
+            raise ValueError(f"{where}: damaged ZSTD data ({what})")
+        if got < 0:  # a code the stream cannot hold, after -1 - got bytes
+            buf, why = out[:-1 - got].tobytes(), f"damaged {_TIFF_CODECS[compression]} data"
+        else:
+            buf = out[:got].tobytes()
+    if len(buf) < size:
+        why = why or f"{len(buf)} bytes decoded of the {size} its rows hold"
+        buf = buf + bytes(size - len(buf))
+    return buf, why
 
 
 def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
@@ -1074,74 +1239,303 @@ def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int):
-    """(``_Raw``, offset of the next IFD) of page ``page`` at ``ifd``."""
-    tags, next_ifd = _tiff_ifd(data, end, big, ifd)
-    w, h = tags[256][0], tags[257][0]
-    bits = tags.get(258, (1,))
-    compression = tags.get(259, (1,))[0]
-    photometric = tags.get(262, (1,))[0]
-    spp = tags.get(277, (1,))[0]
-    planar = tags.get(284, (1,))[0] if spp > 1 else 1
-    predictor = tags.get(317, (1,))[0] if compression in _PREDICTED else 1
-    fmt = tags.get(339, (1,))[0]
-    extra = tags.get(338, (None,))[0] if spp == 4 and photometric == 2 else None
-    sub = tuple(tags.get(530, (2, 2))) if photometric == 6 else (1, 1)
-    dtype = _TIFF_DTYPES.get((bits[0], fmt))
+def _cielab_blue(lab: np.ndarray, tags: dict) -> np.ndarray:
+    """The blue of libtiff's RGBA of (..., 3) 8-bit CIELab samples
+    (``putcontig8bitCIELab8``: ``TIFFCIELab16ToXYZ`` of L * 257, a * 256
+    and b * 256 against the WhitePoint tag's reference white, D50 by
+    default, then ``TIFFXYZToRGB`` through its sRGB display's table), in
+    float32 as libtiff computes it."""
+    f32 = np.float32
+    d50 = f32(96.425) + f32(100) + f32(82.468)
+    wx, wy = (f32(v) for v in tags.get(318, (f32(96.425) / d50, f32(100) / d50)))
+    y0 = f32(100)
+    x0, z0 = wx / wy * y0, (f32(1) - wx - wy) / wy * y0
+    values = np.arange(256)
+    light = (values * 257).astype(f32) * f32(100) / f32(65535)
+    small = light < f32(8.856)
+    cby = np.where(small, f32(7.787) * ((light * y0 / f32(903.292)) / y0) + f32(16) / f32(116),
+                   (light + f32(16)) / f32(116)).astype(f32)
+    ys = np.where(small, light * y0 / f32(903.292), y0 * cby * cby * cby).astype(f32)
+
+    def cube(t, ref):
+        return np.where(t < f32(0.2069), ref * (t - f32(0.13793)) / f32(7.787),
+                        ref * t * t * t).astype(f32)
+    signed = (values.astype(np.uint8).view(np.int8).astype(np.int32) * 256).astype(f32)
+    yl, cb = ys[lab[..., 0]], cby[lab[..., 0]]
+    x = cube(signed[lab[..., 1]] / f32(256) / f32(500) + cb, x0)
+    z = cube(cb - signed[lab[..., 2]] / f32(256) / f32(200), z0)
+    yb = f32(0.0556) * x + f32(-0.2040) * yl + f32(1.0570) * z
+    yb = np.minimum(np.maximum(yb, f32(1)), f32(100))
+    step = (f32(100) - f32(1)) / f32(1500)
+    gamma = 1.0 / float(f32(2.4))
+    table = f32(255) * np.power(np.arange(1501) / 1500.0, gamma).astype(f32)
+    i = np.minimum(((yb - f32(1)) / step).astype(np.int64), 1500)
+    return np.minimum(np.floor(table[i].astype(np.float64) + 0.5), 255).astype(np.uint8)
+
+
+def _tiff_pil(px: np.ndarray, mode: str, depth: int, extra) -> np.ndarray:
+    """PIL's array of a page of samples ``px`` (1-, 2- and 4-bit levels
+    and 8-bit min-is-white already inverted) in PIL's ``mode``."""
+    if mode == "1":
+        return px.astype(bool)
+    if mode == "L" and depth < 8:
+        return (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if mode == "I":  # int16 widened, uint32 as its bits
+        return px.view(np.int32) if px.dtype == np.uint32 else px.astype(np.int32)
+    if mode not in ("RGB", "RGBA", "CMYK"):
+        return px.view(np.uint8) if px.dtype == np.int8 else px
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)  # PIL keeps 8 bits of colour
+    if extra == 0:  # RGBX: PIL drops the fourth sample
+        return px[..., :3]
+    if extra == 1:  # associated alpha: PIL divides it out
+        a = px[..., 3:].astype(np.uint32)
+        rgb = np.minimum(255, px[..., :3] * np.uint32(255) // np.maximum(a, 1))
+        return np.concatenate([np.where(a == 0, 0, rgb).astype(np.uint8), px[..., 3:]], -1)
+    return px
+
+
+def _libtiff_counts(ifd: _Ifd, data: bytes, offsets, counts, compression: int, chunk: int,
+                    rps: int, h: int, tiled: bool, planes: int, spp: int, big: bool,
+                    where: str):
+    """The byte counts libtiff's ``TIFFReadDirectory`` reads for the
+    strips or tiles at ``offsets``: the tag's, or its estimate
+    (``EstimateStripByteCounts``) where the tag is missing from a page of
+    one strip or tile a plane, where the one strip's count looks bad (0,
+    past the file's end, or, uncompressed, short of the page), or where an
+    uncompressed page of three or more strips or tiles gives the first two
+    different counts.  ``chunk`` is the bytes an uncompressed strip or tile
+    holds; None: libtiff reads no such page."""
+    n, size = len(offsets), len(data)
+    if counts is None:
+        if n != planes:
+            return None  # MissingRequired "StripByteCounts"
+    elif not (not tiled and n == 1 and (
+            (counts[0] == 0 and offsets[0] != 0)
+            or (compression == 1 and offsets[0] <= size and counts[0] > size - offsets[0])
+            or (compression == 1 and counts[0] < chunk * -(-h // rps)))) and not (
+                planes == 1 and n > 2 and compression == 1 and counts[0] != counts[1]
+                and counts[0] and counts[1]):
+        return counts
+    if compression != 1:
+        if any(not width for width, _ in ifd.sizes):
+            raise ValueError(f"{where}: no StripByteCounts, and a tag type libtiff does not "
+                             f"know to estimate them by")
+        space = (16 + 8 + 8 + 20 * len(ifd.sizes) if big else 8 + 2 + 4 + 12 * len(ifd.sizes)) \
+            + sum(0 if w * c <= (8 if big else 4) else w * c for w, c in ifd.sizes)
+        space = size if size < space else size - space
+        out = [space // planes] * n
+        last = offsets[-1]
+        if last + out[-1] > size:
+            out[-1] = 0 if last >= size else size - last
+        return out
+    if tiled:
+        return [chunk] * n
+    return [chunk // rps * (h // -(-h // rps))] * n
+
+
+def _tiff_page(data: bytes, end: str, big: bool, ifd: _Ifd, name: str, page: int, rule: str):
+    """The ``_Raw`` of page ``page`` (its IFD read), as PIL reads it
+    (``rule`` "pil") or as cv2's libtiff does ("cv2", which raises
+    ``_Cv2ReadsNothing`` where cv2 reads nothing)."""
     where = f"{name}: TIFF page {page}"
+    tags = ifd.view(rule)
+
+    def get(tag, default=None):  # a tag's values as numbers (BYTE ones as a tuple)
+        v = tags.get(tag, default)
+        return tuple(v) if isinstance(v, bytes) else v
+    compression = get(259, (1,))[0]
+    libtiff = rule == "cv2" or compression != 1  # PIL hands compressed pages to libtiff
+
+    def refuse(why):
+        if rule == "cv2":
+            raise _Cv2ReadsNothing
+        raise ValueError(why)
+    if libtiff and ifd.cut:
+        refuse(f"{where}: an IFD whose entries run past the file's end, which libtiff does "
+               f"not read")
+    if libtiff and ifd.lost & set(_STRIP_TAGS):
+        refuse(f"{where}: strip or tile offsets or byte counts past the file's end")
+    if 256 not in tags or 257 not in tags:
+        raise ValueError(f"{where}: no ImageWidth or ImageLength tag")
+    w, h = get(256)[0], get(257)[0]
+    if 262 not in tags and rule == "cv2":
+        raise _Cv2ReadsNothing  # cv2 reads no page without a Photometric tag
+    photometric = get(262, (0,))[0]  # PIL's default: min-is-white
+    spp = get(277, (1,))[0]
+    bits = get(258, (1,))
+    if rule == "pil":  # PIL fits the bits to the samples, or opens nothing
+        bits = bits[:spp] if len(bits) > spp else bits * spp if len(bits) == 1 else bits
+        if len(bits) != spp:
+            raise ValueError(f"{where}: {len(get(258))} BitsPerSample values for {spp} "
+                             f"samples, which PIL does not open; {_READS}")
+    elif len(bits) != 1 and (len(bits) < spp or len(set(bits[:spp])) > 1):
+        raise _Cv2ReadsNothing  # libtiff reads one value, or one a sample, all equal
+    depth = bits[0]
+    planar = get(284, (1,))[0] if spp > 1 else 1
+    predictor = get(317, (1,))[0] if compression in _PREDICTED else 1
+    formats = get(339, (1,))
+    fmt = formats[0]
+    fill = get(266, (1,))[0]
+    extras = get(338, ())
+    extra = extras[0] if extras and spp == 4 and photometric == 2 else None
+    sub = tuple(get(530, (2, 2))) if photometric == 6 else (1, 1)
+    dtype = _TIFF_DTYPES.get((depth, fmt))
+    tiled = 322 in tags or 323 in tags
     if compression == 6:
         raise ValueError(f"{where}: old-style JPEG (compression 6) is not read; {_READS}")
-    byte_forms = photometric in (5, 6) or compression == 7
+    if not w or not h:
+        raise ValueError(f"{where}: a page of {w} x {h} pixels")
+    if w * h > (_CV2_PIXELS if rule == "cv2" else _PIL_PIXELS):  # before any allocation
+        refuse(f"{where}: a page of {w} x {h} pixels, over PIL's decompression-bomb limit")
+    bilevel = depth < 8 or compression in _CCITT
     if compression not in _TIFF_CODECS or predictor not in (1, 2, 3) or planar not in (1, 2) \
-            or dtype is None or len(set(bits)) != 1 or (photometric, spp) not in _TIFF_FORMS \
+            or dtype is None or (photometric, spp) not in _TIFF_FORMS or fill not in (1, 2) \
             or extra not in (None, 0, 1, 2) or (photometric == 3 and 320 not in tags) \
-            or (predictor == 3 and fmt != 3) or (byte_forms and dtype != "u1") \
+            or (predictor == 3 and fmt != 3) or (predictor == 2 and depth < 8) \
+            or (bilevel and (spp != 1 or photometric not in (0, 1)
+                             or (compression in _CCITT and depth != 1))) \
+            or (photometric in (6, 8) or compression == 7) and dtype != "u1" \
+            or (photometric == 5 and dtype not in ("u1", "u2")) \
+            or (spp == 2 and (fmt != 1 or depth not in (8, 16) or planar != 1)) \
+            or (spp == 3 and photometric == 1 and dtype != "u1") \
+            or (photometric == 0 and dtype in ("i1", "u4")) \
+            or (fill == 2 and (spp != 1 or compression == 7)) \
             or (compression == 7 and (planar != 1 or photometric not in (1, 2, 6))) \
             or (photometric == 6 and (planar != 1 or sub not in _SUBSAMPLINGS
                                       or (sub != (1, 1) and predictor != 1))):
         raise ValueError(
             f"{where} with compression {compression}, predictor {predictor}, bits {bits}, "
-            f"sample format {fmt}, {spp} samples, extra samples {extra}, planar {planar}, "
-            f"photometric {photometric} is not read; {_READS}")
-    itemsize = bits[0] // 8
+            f"sample format {fmt}, fill order {fill}, {spp} samples, extra samples {extra}, "
+            f"planar {planar}, photometric {photometric} is not read; {_READS}")
+    if photometric == 3:
+        kind = "palette"
+    elif photometric == 8:
+        kind = "lab"
+    elif spp == 2:
+        kind = "grey_alpha"
+    elif photometric in (0, 1):
+        kind = "grey"  # of one sample, or (cv2) the first of three
+    else:
+        kind = "cmyk" if photometric == 5 else "rgba" if spp == 4 else "rgb"
+    key = (photometric, formats if len(formats) == 1 or set(formats) != {1} else (1,), fill,
+           tuple(bits), tuple(extras))
+    # PIL opens no page whose key it lacks; a big-endian BigTIFF it opens
+    # not at all, and the port reads it as a little-endian one
+    mode = _PIL_TIFF_MODES.get((end,) + key) or (
+        _PIL_TIFF_MODES.get(("<",) + key) if big and end == ">" else None)
+    if mode is None and rule == "pil":
+        raise ValueError(f"{where}: {kind.upper()} of {np.dtype(dtype).name} samples "
+                         f"(photometric {photometric}, bits {bits}, sample format {formats}, "
+                         f"extra samples {extras}, fill order {fill}), which PIL does not "
+                         f"open; {_READS}")
+    if rule == "cv2" and (compression in _NOT_IN_CV2 or depth in (2, 4)
+                          or (photometric == 5 and depth == 16)):
+        raise _Cv2ReadsNothing  # forms cv2 5 does not decode
+    # cv2 reads 8-bit samples (and grey + alpha) through libtiff's RGBA
+    # interface, which leaves a strip or tile it cannot decode 0
+    rgba = rule == "cv2" and (dtype == "u1" or spp == 2)
+    if rgba and compression == 1 and tiled and fill == 2:
+        raise _Cv2ReadsNothing  # libtiff refuses its byte counts there
+    if rule == "pil" and compression == 1 and fill == 2 and depth == 8 and photometric == 0:
+        raise ValueError(f"{where}: 8-bit min-is-white of FillOrder 2, uncompressed, which PIL "
+                         f"does not open (no L;IR unpacker); {_READS}")
+    itemsize = max(depth // 8, 1)
     planes = spp if planar == 2 else 1
     per_plane = spp // planes  # samples in each strip's or tile's pixel
-    if 322 in tags:
-        tw, th = tags[322][0], tags[323][0]
-        offsets, counts = tags[324], tags[325]
+    if tiled:
+        tw, th = get(322, (0,))[0], get(323, (0,))[0]
+        if not tw or not th:
+            raise ValueError(f"{where}: tiles of {tw} x {th} pixels")
+        offsets, counts = get(324), get(325)
         across = -(-w // tw)
         boxes = [((t // across) * th, (t % across) * tw) for t in range(-(-h // th) * across)]
-        label = "tile"
+        label, rps = "tile", th
     else:
-        rps = min(tags.get(278, (h,))[0], h)
-        offsets, counts = tags[273], tags[279]
-        tw = w
+        rps = min(get(278, (h,))[0], h)
+        if not rps:
+            raise ValueError(f"{where}: RowsPerStrip 0")
+        offsets, counts = get(273), get(279)
+        tw, th = w, rps
         boxes = [(s * rps, 0) for s in range(-(-h // rps))]
         label = "strip"
-    if len(offsets) < len(boxes) * planes or len(counts) < len(offsets):
+    if offsets is None:
+        raise ValueError(f"{where}: no {label} offsets")
+    row_bytes = (tw * per_plane * depth + 7) // 8
+    if libtiff:
+        counts = _libtiff_counts(ifd, data, offsets, counts, compression, row_bytes * th, rps,
+                                 h, tiled, planes, spp, big, where)
+        if counts is None:
+            refuse(f"{where}: no {label} byte counts for {len(offsets)} {label}s, which libtiff "
+                   f"does not read")
+    elif not tiled and planar == 1 and get(278, (h,))[0] == h:
+        offsets = offsets[-1:]  # PIL: one strip covers the page; it reads the last
+    if len(offsets) < len(boxes) * planes or (libtiff and len(counts) < len(offsets)):
         raise ValueError(f"{where}: {len(offsets)} {label}s for {len(boxes) * planes}")
-    out = np.empty((h, w, spp), dtype)
+    out = np.zeros((h, w, spp), dtype)
+    # cv2's first sample of the right-edge tiles of grey of several samples
+    skewed = np.zeros((h, w % tw), np.uint16) if (
+        rule == "cv2" and tiled and spp > 1 and kind in ("grey", "grey_alpha")
+        and w % tw) else None
     tables = bytes(tags.get(347, b""))  # UNDEFINED (7) or BYTE (1)
+    # libtiff's fax codec state, kept from strip to strip of the page
+    fax_state = (np.zeros(1, np.int32), native.ccitt_runs(tw, compression,
+                                                          get(292, (0,))[0])) \
+        if compression in _CCITT else None
+
+    def fetch(i, size, chunk):
+        """Strip or tile i's ``size`` decoded bytes, or 0s where cv2 reads
+        them so; refused as the rule refuses it."""
+        offset = offsets[i]
+        if not libtiff:  # PIL's own reader: the rows from the offset, whatever the count
+            if offset + size > len(data):
+                raise ValueError(f"{chunk}: the file ends inside it (PIL: truncated)")
+            return _reverse_bits(data[offset:offset + size]) if fill == 2 else \
+                data[offset:offset + size]
+        count = counts[i]
+        if not count or offset + count > len(data):  # libtiff's TIFFFillStrip reads nothing
+            refuse(f"{chunk}: {count} bytes at byte {offset}, none or past the file's end")
+        if compression == 32771 and tiled and rule == "pil":
+            raise ValueError(f"{chunk}: CCITT RLEW tiles, which PIL's libtiff reads by no rule "
+                             f"found (its rows differ from cv2's); {_READS}")
+        if compression == 32771 and offset & 1:
+            raise ValueError(f"{chunk}: CCITT RLEW data at an odd offset (libtiff aligns its "
+                             f"rows to the address it maps the file at), which the port does "
+                             f"not read; {_READS}")
+        if tiled and compression == 1 and count < size:  # nor an uncompressed tile cut short
+            refuse(f"{chunk}: {count} bytes of its {size}")
+        ccitt = fax_state and (tw, th if tiled else min(rps, h - boxes[i % len(boxes)][0]),
+                               get(292, (0,))[0], *fax_state)
+        buf, why = _tiff_chunk(data, offset, count, compression, size, chunk, fill, ccitt)
+        if why is not None and not rgba:
+            refuse(f"{chunk}: {why}")
+        return buf
 
     def place(i):
         """Decode strip or tile i (plane-major when the planes are apart)
         into ``out`` (zlib, lzma, the host library and numpy release the
         GIL: the pool's threads decode in parallel)."""
         plane, k = divmod(i, len(boxes))
-        (y0, x0), rows = boxes[k], th if label == "tile" else min(rps, h - boxes[k][0])
+        (y0, x0), rows = boxes[k], th if tiled else min(rps, h - boxes[k][0])
         chunk = f"{where}, {label} {i}"
         rh, rw = min(rows, h - y0), min(tw, w - x0)
         if compression == 7:
-            src = data[offsets[i]:offsets[i] + counts[i]]
+            count = counts[i]
+            if not count or offsets[i] + count > len(data):
+                refuse(f"{chunk}: {count} bytes at byte {offsets[i]}, none or past the file's "
+                       f"end")
+            src = data[offsets[i]:offsets[i] + count]
             try:
                 # libtiff's JPEGPreDecode, before any sample is allocated: a
                 # stream larger than its strip or tile is refused, except a
-                # last strip of the page's width that is too tall
-                jh, jw, _ = native.jpeg_info(src, tables)
+                # last strip of the page's width that is too tall; data that
+                # ends early reads on through libtiff's fake EOI markers
+                jh, jw, _ = native.jpeg_info(src, tables, "cv2")
                 if jw > tw or (jh > rows and not (label == "strip" and jw == tw
                                                    and y0 + rows == h)):
                     raise ValueError(f"a JPEG of {jw} x {jh} exceeds its {tw} x {rows} {label}")
-                block = native.jpeg_decode(src, tables, 2 if photometric == 6 else 1, sub)
+                block = native.jpeg_decode(src, tables, 2 if photometric == 6 else 1, sub,
+                                           source="cv2")
             except ValueError as exc:
                 raise ValueError(f"{chunk}: {exc}") from None
             if block.shape[0] < rh or block.shape[1] < rw or block.shape[2] != spp:
@@ -1151,8 +1545,7 @@ def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int)
         if sub != (1, 1):  # YCbCr data units: sh x sv Y samples, then Cb and Cr
             sh, sv = sub
             uy, ux = -(-rows // sv), -(-tw // sh)
-            buf = _tiff_chunk(data, offsets[i], counts[i], compression,
-                              uy * ux * (sh * sv + 2), chunk)
+            buf = fetch(i, uy * ux * (sh * sv + 2), chunk)
             units = np.frombuffer(buf, np.uint8, uy * ux * (sh * sv + 2)).reshape(uy, ux, -1)
             luma = units[..., :sh * sv].reshape(uy, ux, sv, sh).transpose(0, 2, 1, 3)
             chroma = units[..., None, None, sh * sv:]
@@ -1162,9 +1555,14 @@ def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int)
             block = block.reshape(uy * sv, ux * sh, 3)
             out[y0:y0 + rh, x0:x0 + rw] = block[:rh, :rw]
             return
-        size = rows * tw * per_plane * itemsize
-        buf = _tiff_chunk(data, offsets[i], counts[i], compression, size, chunk)
-        if predictor == 3:
+        size = rows * row_bytes
+        buf = fetch(i, size, chunk)
+        if depth < 8:  # levels, most significant bits first, each row from a byte
+            raw = np.unpackbits(np.frombuffer(buf, np.uint8, size).reshape(rows, row_bytes),
+                                axis=1).reshape(rows, -1, depth)[:, :tw]
+            block = (raw << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+                axis=2, dtype=np.uint8)
+        elif predictor == 3:
             # libtiff's fpAcc: each row summed bytewise with stride spp, its
             # bytes then planes, the most significant first whatever the
             # file's byte order: big-endian samples once put back together
@@ -1179,41 +1577,74 @@ def _tiff_page(data: bytes, end: str, big: bool, ifd: int, name: str, page: int)
                               dtype=f"u{itemsize}").view(dtype)
         cols = slice(plane, plane + 1) if planes > 1 else slice(None)
         out[y0:y0 + rh, x0:x0 + rw, cols] = block[:rh, :rw]
+        if skewed is not None and rw < tw:
+            # libtiff's grey RGBA routines step a clipped tile's rows by
+            # its clipped pixels' bytes and then (tw - rw) bytes alone
+            raw = np.frombuffer(np.ascontiguousarray(block).astype("<" + dtype).tobytes(),
+                                np.uint8)
+            step = rw * spp * itemsize + tw - rw
+            at = (np.arange(rh)[:, None] * step + np.arange(rw)[None, :] * spp * itemsize)
+            lo = np.pad(raw, (0, 2))
+            skewed[y0:y0 + rh] = lo[at] | (lo[at + 1].astype(np.uint16) << 8 if itemsize == 2
+                                           else 0)
     n_chunks = len(boxes) * planes
-    if compression in (5, 7, 8, 32946, 34925, 50000) and n_chunks > 1:  # the slow codecs
+    if compression not in (1, 32773, *_CCITT) and n_chunks > 1:  # the slow codecs
         list(_pool().map(place, range(n_chunks)))
     else:
         for i in range(n_chunks):
             place(i)
     pixels = out[..., 0] if spp == 1 else out
-    cv2_reads = compression not in _NOT_IN_CV2
-    if photometric == 3:
-        cmap = np.asarray(tags[320], np.uint16).reshape(3, -1).T
-        return _Raw(pixels, "palette", bits[0], where, cmap, cv2_reads=cv2_reads), next_ifd
     if photometric == 6 and compression != 7:
         pixels = _ycbcr_to_rgb(pixels, tags)
-    if photometric == 0 and dtype == "u1":  # both readers invert 8-bit min-is-white
-        pixels = 255 - pixels
-    kind = {1: "grey", 3: "rgb", 4: "cmyk" if photometric == 5 else "rgba"}[spp]
-    # PIL opens no float64 page, and no int16 or int32 min-is-white one
-    pil_opens = dtype != "f8" and not (photometric == 0 and dtype in ("i2", "i4"))
-    return _Raw(pixels, kind, bits[0], where, extra=extra, cv2_reads=cv2_reads,
-                pil_opens=pil_opens), next_ifd
+    if photometric == 0 and (depth < 8 or dtype == "u1"):  # both invert 1- to 8-bit min-is-white
+        if spp == 1:
+            pixels = (1 << depth) - 1 - pixels
+        else:
+            pixels[..., 0] = 255 - pixels[..., 0]
+    gray = None
+    if kind in ("grey", "grey_alpha") and spp > 1:
+        # cv2: the first sample (the grey), its high byte at 16 bits,
+        # inverted for min-is-white (8 bits: inverted above)
+        g = pixels[..., 0] if depth == 8 else (pixels[..., 0] >> 8).astype(np.uint8)
+        g = 255 - g if depth == 16 and photometric == 0 else g.copy()
+        if skewed is not None:
+            edge = (skewed >> (8 if depth == 16 else 0)).astype(np.uint8)
+            g[:, w - w % tw:] = 255 - edge if photometric == 0 else edge
+        gray = g.copy
+    elif kind == "lab":
+        gray = lambda: _cielab_blue(pixels, tags)  # noqa: E731
+    cmap = np.asarray(get(320), np.uint16).reshape(3, -1).T if photometric == 3 else None
+    return _Raw(pixels, kind, depth, where, cmap, extra=extra, cv2_reads=rule == "cv2",
+                pil=lambda: _tiff_pil(pixels, mode, depth, extra), gray=gray)
 
 
-def _tiff_raw(data: bytes, name: str, first_only: bool = False) -> list:
-    """Every page of a TIFF as ``_Raw``, following the chain of IFDs."""
+def _tiff_raw(data: bytes, name: str, first_only: bool = False, cv2: bool = True) -> list:
+    """Every page of a TIFF as ``_Raw``, following the chain of IFDs as PIL
+    does: to an IFD offset of 0, to one it has read (a loop), or to an IFD
+    cut short (the tags before its cut are the last page's); or the first
+    page alone (``first_only``) as cv2 reads it (PIL's where cv2 reads
+    nothing), or as PIL does (not ``cv2``)."""
     end, big = _TIFF_MAGIC[data[:4]]
+    if len(data) < (16 if big else 8):
+        raise ValueError(f"{name}: a TIFF header cut short")
     (ifd,) = struct.unpack_from(end + ("Q" if big else "I"), data, 8 if big else 4)
+    if first_only and cv2:
+        first = _Ifd(data, end, big, ifd, name)
+        try:
+            return [_tiff_page(data, end, big, first, name, 0, "cv2")]
+        except _Cv2ReadsNothing:
+            pass
     pages, seen = [], set()
     while ifd:
-        if ifd in seen or ifd + 2 > len(data):
-            raise ValueError(f"{name}: TIFF IFD chain loops or leaves the file at {ifd}")
         seen.add(ifd)
-        page, ifd = _tiff_page(data, end, big, ifd, name, len(pages))
-        pages.append(page)
+        entry = _Ifd(data, end, big, ifd, name)
+        pages.append(_tiff_page(data, end, big, entry, name, len(pages), "pil"))
         if first_only:
+            pages[0].cv2_reads = False
             break
+        ifd = 0 if entry.pil_cut or entry.next is None or entry.next in seen else entry.next
+    if not pages:
+        raise ValueError(f"{name}: a TIFF whose first IFD offset is 0")
     return pages
 
 
@@ -1224,4 +1655,4 @@ def tiff_pages(data: bytes, name: str = "<tiff>") -> list:
 
 def read_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
     """The first page of a TIFF, as PIL gives it."""
-    return _tiff_raw(data, name, first_only=True)[0].as_pil()
+    return _tiff_raw(data, name, first_only=True, cv2=False)[0].as_pil()

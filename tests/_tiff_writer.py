@@ -122,10 +122,24 @@ def encode_chunk(args) -> bytes:
     return raw
 
 
+def pack_rows(block: np.ndarray, bits: int) -> np.ndarray:
+    """(rows, w, spp) levels of ``bits`` (1, 2 or 4) bits as TIFF rows:
+    most significant first, each row padded to a whole byte."""
+    rows = block.shape[0]
+    levels = np.ascontiguousarray(block, np.uint8).reshape(rows, -1)
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint8)
+    return np.packbits(((levels[..., None] >> shifts) & 1).reshape(rows, -1), axis=1)
+
+
+def reverse_bits(data: bytes) -> bytes:
+    """Each byte's bits in reverse order (FillOrder 2)."""
+    return np.packbits(np.unpackbits(np.frombuffer(data, np.uint8)), bitorder="little").tobytes()
+
+
 def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None,
                big=False, order="<", extra_samples=None, colormap=None, photometric=None,
                map_fn=map, planar=1, subsampling=None, quality=None, extra_tags=(),
-               jpeg_fn=None):
+               jpeg_fn=None, bits=None, fill_order=1, encode_fn=None):
     """A TIFF of ``pages`` ((H, W) or (H, W, C) arrays of one dtype): classic
     or BigTIFF (``big``), byte order ``order``, in strips of
     ``rows_per_strip`` rows (all by default) or ``tile`` (w, h) tiles
@@ -146,8 +160,12 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
     process pool's ``map`` spreads them).  ``jpeg_fn`` (compression 7)
     encodes each (rows, w, samples) uint8 strip or tile as a whole JPEG
     stream instead, tables included (no JPEGTables tag): colour JPEG from
-    another encoder."""
-    fmt = {"u": 1, "i": 2, "f": 3}
+    another encoder.  ``bits`` (1, 2 or 4) writes pages of levels packed
+    that many bits a sample, each row of a strip or tile padded to a
+    byte; ``encode_fn`` then encodes each (rows, w) block of levels
+    itself (CCITT: ``_ccitt_writer``).  ``fill_order`` 2 reverses the bits
+    of every byte written for a strip or tile, with the FillOrder tag."""
+    fmt = {"b": 1, "u": 1, "i": 2, "f": 3}
     off = "Q" if big else "I"
     out = bytearray((b"II" if order == "<" else b"MM")
                     + struct.pack(order + ("HHHQ" if big else "HI"), *(
@@ -188,6 +206,10 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
         raw_blocks += blocks
         for block in blocks:
             row_bytes = block.shape[1] * block.shape[2] * item
+            if bits:
+                packed = pack_rows(block, bits)
+                jobs.append((compression, packed.tobytes(), packed.shape[1], quality))
+                continue
             if predictor == 3 and compression in _PREDICTED:
                 jobs.append((compression, float_difference(block).tobytes(), row_bytes, quality))
                 continue
@@ -196,8 +218,13 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
                 block = np.concatenate([u[:, :1], u[:, 1:] - u[:, :-1]], axis=1)
             raw = np.ascontiguousarray(block).astype(block.dtype.newbyteorder(order)).tobytes()
             jobs.append((compression, raw, row_bytes, quality))
-    encoded = iter([jpeg_fn(b) for b in raw_blocks] if jpeg_fn
-                   else list(map_fn(encode_chunk, jobs)))
+    if encode_fn:
+        encoded = [encode_fn(b[..., 0]) for b in raw_blocks]
+    else:
+        encoded = [jpeg_fn(b) for b in raw_blocks] if jpeg_fn else list(map_fn(encode_chunk, jobs))
+    if fill_order == 2:
+        encoded = [reverse_bits(c) for c in encoded]
+    encoded = iter(encoded)
     for page, n_blocks in zip(pages, blocks_of):
         h, w = page.shape[:2]
         spp = page.shape[2] if page.ndim == 3 else 1
@@ -209,7 +236,8 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
             offsets.append(len(out))
             out += raw
             out += b"\0" * (len(out) % 2)
-        tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [item * 8] * spp), (259, 3, [compression]),
+        tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits or item * 8] * spp),
+                (259, 3, [compression]),
                 (262, 3, [photometric if photometric is not None
                           else 3 if colormap is not None else 2 if spp >= 3 else 1]),
                 (277, 3, [spp]), (284, 3, [planar]),
@@ -223,6 +251,8 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
                      (279, 16 if big else 4, counts)]
         if predictor != 1:
             tags.append((317, 3, [predictor]))
+        if fill_order != 1:
+            tags.append((266, 3, [fill_order]))
         if colormap is not None:
             tags.append((320, 3, np.asarray(colormap).reshape(-1).tolist()))
         if extra_samples is not None:
@@ -257,3 +287,89 @@ def tiff_bytes(pages, compression=1, predictor=1, tile=None, rows_per_strip=None
         link = len(out)
         out += b"\0" * inline + values
     return bytes(out)
+
+
+# ---- editing a written file's IFDs (damaged and minimal pages) ---------------
+
+_TYPE_CODES = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q", 17: "q"}
+_TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8,
+               13: 4, 16: 8, 17: 8, 18: 8}
+
+
+def _layout(data):
+    """(byte order, BigTIFF, count format, entry size, value size)."""
+    order = "<" if data[:2] == b"II" else ">"
+    big = struct.unpack_from(order + "H", data, 2)[0] == 43
+    return order, big, ("Q", 20, 8) if big else ("H", 12, 4)
+
+
+def ifd_offsets(data) -> list:
+    """The offsets of a TIFF's IFDs, following the chain (to a loop or the
+    file's end)."""
+    order, big, (count, entry, value) = _layout(data)
+    (ifd,) = struct.unpack_from(order + ("Q" if big else "I"), data, 8 if big else 4)
+    out = []
+    while ifd and ifd not in out and ifd + struct.calcsize(count) <= len(data):
+        out.append(ifd)
+        (n,) = struct.unpack_from(order + count, data, ifd)
+        at = ifd + struct.calcsize(count) + entry * n
+        if at + value > len(data):
+            break
+        (ifd,) = struct.unpack_from(order + ("Q" if big else "I"), data, at)
+    return out
+
+
+def ifd_entries(data, ifd) -> dict:
+    """{tag: (where the entry is, type, count, where its values are)} of the
+    IFD at ``ifd``."""
+    order, big, (count, entry, value) = _layout(data)
+    (n,) = struct.unpack_from(order + count, data, ifd)
+    base = ifd + struct.calcsize(count)
+    out = {}
+    for i in range(n):
+        at = base + entry * i
+        tag, typ, cnt = struct.unpack_from(order + ("HHQ" if big else "HHI"), data, at)
+        where = at + entry - value
+        if _TYPE_SIZES.get(typ, 1) * cnt > value:
+            (where,) = struct.unpack_from(order + ("Q" if big else "I"), data, where)
+        out[tag] = (at, typ, cnt, where)
+    return out
+
+
+def tag_values(data, ifd, tag) -> list:
+    """The integer values of ``tag`` in the IFD at ``ifd``."""
+    order = _layout(data)[0]
+    _, typ, cnt, where = ifd_entries(data, ifd)[tag]
+    return list(struct.unpack_from(order + _TYPE_CODES[typ] * cnt, data, where))
+
+
+def set_tag(data: bytearray, ifd, tag, values) -> None:
+    """Overwrite ``tag``'s integer values in place (as many as it holds)."""
+    order = _layout(data)[0]
+    _, typ, cnt, where = ifd_entries(data, ifd)[tag]
+    struct.pack_into(order + _TYPE_CODES[typ] * len(values), data, where, *values)
+
+
+def drop_tag(data: bytearray, ifd, tag) -> None:
+    """Remove ``tag``'s entry from the IFD at ``ifd`` (the entries after it
+    and the next-IFD offset move up; the count drops by one)."""
+    order, big, (count, entry, value) = _layout(data)
+    (n,) = struct.unpack_from(order + count, data, ifd)
+    end = ifd + struct.calcsize(count) + entry * n + value
+    at = ifd_entries(data, ifd)[tag][0]
+    data[at:end - entry] = data[at + entry:end]
+    struct.pack_into(order + count, data, ifd, n - 1)
+
+
+def set_entry_count(data: bytearray, ifd, n) -> None:
+    """Overwrite the IFD's count of entries."""
+    order, _, (count, _, _) = _layout(data)
+    struct.pack_into(order + count, data, ifd, n)
+
+
+def set_next_ifd(data: bytearray, ifd, target) -> None:
+    """Point the IFD's next-IFD offset at ``target``."""
+    order, big, (count, entry, value) = _layout(data)
+    (n,) = struct.unpack_from(order + count, data, ifd)
+    struct.pack_into(order + ("Q" if big else "I"), data,
+                     ifd + struct.calcsize(count) + entry * n, target)

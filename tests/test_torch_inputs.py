@@ -24,12 +24,15 @@ the CPU at small sizes; every comparison is exact (tolerance 0):
 - PNG of every colour type and bit depth (grey 1-16, RGB and RGBA 8 and
   16, palette 1-8, grey + alpha 8 and 16), interlaced or not, every row
   filter, and PIL's own palette, bilevel, grey + alpha and ``tRNS`` files;
-- a damaged LZW, Deflate, PackBits, LZMA, ZSTD or JPEG strip, or a cut
-  uncompressed one, raises naming the file, the page and the strip; the
-  forms the port does not read (arithmetic, lossless, hierarchical,
-  12-bit, CMYK and DNL JPEG; old-style JPEG TIFF, predictor 3 of integer
-  samples; XVThumb, JPEG 2000 and WebP; the photometric forms and sample counts neither
-  reader takes) are refused, naming themselves; ``imread_gray`` reads a
+- a damaged LZW, Deflate, PackBits, LZMA or ZSTD strip raises naming the
+  file, the page and the strip, as PIL raises, and an uncompressed or JPEG
+  strip whose count is cut reads as PIL reads it; the forms the port does
+  not read (arithmetic, lossless, hierarchical, 12-bit, CMYK and DNL
+  JPEG; old-style JPEG TIFF, predictor 3 of integer samples; XVThumb,
+  JPEG 2000 and WebP; the photometric forms and sample counts neither
+  reader takes) are refused, naming themselves, and the three that one
+  reader takes (grey of three samples, 16-bit CMYK, CIELab) read as it
+  reads them; ``imread_gray`` reads a
   TIFF's first page alone, as cv2 does; the ZSTD decoder equals
   zstandard's frames at levels 1 to 19, with and without checksums, and
   reads the committed ZSTD stack phase 18 reads on the card
@@ -237,6 +240,10 @@ def _page_chunks(data):
 
 @pytest.mark.parametrize("compression", [1, 5, 7, 8, 32773, 34925, 50000])
 def test_damaged_strip_names_file_page_and_strip(compression, tmp_path):
+    """A damaged strip of page 1 raises, naming the file, the page and the
+    strip, where PIL raises; a count cut short reads on where PIL reads
+    (uncompressed: PIL reads the rows from the offset, whatever the count;
+    JPEG: libjpeg reads on through libtiff's fake EOI markers)."""
     rng = np.random.default_rng(compression)
     dtype = np.uint8 if compression == 7 else np.uint16
     pages = _pages(rng, dtype, (40, 23))
@@ -250,6 +257,13 @@ def test_damaged_strip_names_file_page_and_strip(compression, tmp_path):
         data[offset + 2:offset + count] = bytes(count - 2)
     path = tmp_path / "bad.tif"
     path.write_bytes(bytes(data))
+    if compression in (1, 7):
+        _same(imread(str(path)), jax_load(str(path)))
+        if compression == 1:
+            np.testing.assert_array_equal(imread(str(path)), np.stack(pages))
+        return
+    with pytest.raises(Exception):
+        jax_load(str(path))
     with pytest.raises(ValueError, match=r"bad\.tif: TIFF page 1, strip 2"):
         imread(str(path))
 
@@ -496,23 +510,37 @@ def test_ycbcr_tiff_as_libtiff_converts(sub, tags, tmp_path):
     assert not np.array_equal(pil, imread(path))
 
 
-# (photometric, samples a pixel, dtype) that neither reader takes: RGB or
-# grey with the other's sample count, CMYK with an extra sample or 16-bit,
-# 16-bit YCbCr, a transparency mask, CIELab
+# (photometric, samples a pixel, dtype) of the other forms: RGB of one
+# sample, CMYK with an extra sample, 16-bit YCbCr and a transparency mask,
+# which neither reader takes; grey of three samples (cv2 reads the first,
+# PIL nothing), 16-bit CMYK (PIL keeps 8 bits; cv2 reads nothing, so the
+# JAX package takes PIL's array) and CIELab (PIL's stored bytes, cv2's
+# libtiff RGBA of them)
 PHOTOMETRIC_REFUSED = [(2, 1, np.uint8), (1, 3, np.uint8), (5, 5, np.uint8), (5, 4, np.uint16),
                        (6, 3, np.uint16), (4, 1, np.uint8), (8, 3, np.uint8)]
+PHOTOMETRIC_READ = ((1, 3), (5, 4), (8, 3))
 
 
 @pytest.mark.parametrize("photometric,spp,dtype", PHOTOMETRIC_REFUSED,
                          ids=[f"p{p}-s{s}" + (f"-{np.dtype(d).name}" if (p, s) in ((5, 4), (6, 3))
                                                else "") for p, s, d in PHOTOMETRIC_REFUSED])
 def test_other_photometric_forms_are_refused(photometric, spp, dtype, tmp_path):
-    """Forms neither PIL nor cv2 reads (or PIL reads as zeros): the port
-    refuses them, naming the form."""
+    """Forms neither PIL nor cv2 reads: the port refuses them, naming the
+    form; the three that one of them reads read as it does."""
     rng = np.random.default_rng(photometric)
     page = _pages(rng, dtype, (9, 13, spp) if spp > 1 else (9, 13), 1)[0]
     path = tmp_path / "p.tif"
     path.write_bytes(tiff_bytes([page], photometric=photometric))
+    if (photometric, spp) in PHOTOMETRIC_READ:
+        _same(imread_gray(str(path)), jax_gray(str(path)))
+        if photometric == 1:
+            _raises_with_pil(imread, str(path))
+            _same(imread_gray(str(path)), page[..., 0])
+        else:
+            _same(imread(str(path)), jax_load(str(path)))
+        if photometric == 8:
+            _same(imread(str(path)), page)
+        return
     for read in (imread, imread_gray):
         with pytest.raises(ValueError, match=f"{spp} samples.*photometric {photometric} is not"):
             read(str(path))

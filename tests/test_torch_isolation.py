@@ -154,6 +154,13 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
         name = os.path.join("tests", "fixtures", chip_smoke.JP2_FILES[form])
         got = [list(chip_smoke.raster_digest(read(name))) for read in (imread, imread_gray)]
         assert got == [list(w) for w in chip_smoke.JP2_SHA256[form]], form
+    # the CCITT decoder (csrc/ccitt_decode.cpp, in the host library): phase
+    # 25's committed Group 4, Group 3 2D and Modified Huffman fixtures, to
+    # the oracles' digests
+    for form in ("g4_roi", "g3_2d_fill2", "rle"):
+        name = os.path.join("tests", "fixtures", chip_smoke.TIFF_FIXTURES[form][0])
+        got = [list(chip_smoke.raster_digest(read(name))) for read in (imread, imread_gray)]
+        assert got == [list(w) for w in chip_smoke.TIFF_SHA256[form]], form
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
